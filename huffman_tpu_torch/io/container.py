@@ -1,0 +1,185 @@
+"""ILS1 — the interleaved-stream container, byte-identical to the JAX
+package's writer and reader (`huffman_tpu/io/container.py`).
+
+Layout (little-endian):
+
+    magic          4s  b"ILS1"
+    version        u8  3, or 4 when any section is rotated (v4 adds the
+                       per-section flags word: bit0 = lane rotation, bits
+                       8-11 = ILS_ROT_SUB and 12-19 = ILS_ROT_LANE)
+    max_len        u8
+    n_sym          u16
+    original_size  u64
+    n_sections     u8
+    crc32          u32 over str(original_size) then every section's payload
+    n_sym x (symbol u8, length u8)     # canonical order
+    per section:
+      k u32, snum u32, flags i32 (v3: reserved 0), w_band u32, w_cap u32,
+      n_tiles u32
+      n_tiles x w_tile u32
+      n_tiles x n_win(k) x boff i32   # windowed decode band anchors
+      payload u32 x (sum(w_tiles) * 1024)
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+import torch
+
+from ..core.canonical import CodeTable, canonical_code_table
+from ..core.ils_ref import (
+    ILS_LANES,
+    ILS_ROT_LANE,
+    ILS_ROT_SUB,
+    IlsParams,
+    ils_n_win,
+)
+
+__all__ = ["write_ils_container", "read_ils_container", "ils_container_size"]
+
+ILS_MAGIC = b"ILS1"
+_ILS_HEADER = struct.Struct("<4sBBHQBI")  # trailing u32: crc32 of payloads
+_ILS_SECTION = struct.Struct("<IIiIII")
+_ROT_FLAGS = 1 | (ILS_ROT_SUB << 8) | (ILS_ROT_LANE << 12)
+
+
+def _table_entries(table: CodeTable) -> np.ndarray:
+    syms = table.symtab
+    out = np.empty((len(syms), 2), np.uint8)
+    out[:, 0] = syms
+    out[:, 1] = table.lengths[syms]
+    return out
+
+
+def _crc(original_size: int, payloads) -> int:
+    crc = zlib.crc32(str(original_size).encode())
+    for p in payloads:
+        crc = zlib.crc32(p, crc)
+    return crc & 0xFFFFFFFF
+
+
+def ils_container_size(comp) -> int:
+    size = _ILS_HEADER.size + 2 * comp.table.num_symbols
+    for sec in comp.sections:
+        p = sec.params
+        size += (
+            _ILS_SECTION.size
+            + 4 * p.n_tiles * (1 + ils_n_win(p.k))
+            + sec.nbytes_payload
+        )
+    return size
+
+
+def write_ils_container(comp) -> bytes:
+    """Serialize an `IlsCompressed`; device payloads come to the host."""
+    payloads = [np.ascontiguousarray(sec.payload_u32()) for sec in comp.sections]
+    # v3 readers reject v4, which any rotated section requires; plain
+    # sections keep writing v3 for older readers
+    version = 4 if any(sec.params.rot for sec in comp.sections) else 3
+    parts = [
+        _ILS_HEADER.pack(
+            ILS_MAGIC,
+            version,
+            comp.table.max_len,
+            comp.table.num_symbols,
+            comp.original_size,
+            len(comp.sections),
+            _crc(comp.original_size, payloads),
+        ),
+        _table_entries(comp.table).tobytes(),
+    ]
+    for sec, payload in zip(comp.sections, payloads):
+        p = sec.params
+        parts.append(
+            _ILS_SECTION.pack(
+                p.k, p.snum, _ROT_FLAGS if p.rot else 0, p.w_band, p.w_cap,
+                p.n_tiles
+            )
+        )
+        parts.append(p.w_tiles.astype(np.uint32).tobytes())
+        parts.append(p.boffs.astype(np.int32).tobytes())
+        parts.append(payload.tobytes())
+    return b"".join(parts)
+
+
+def read_ils_container(buf: bytes):
+    """Parse an ILS1 container; payloads land as CPU int32 tensors."""
+    from ..models.ils_codec import IlsCompressed
+    from ..ops.ils import IlsSection
+
+    mv = memoryview(buf)
+    if len(buf) < _ILS_HEADER.size or bytes(mv[:4]) != ILS_MAGIC:
+        raise ValueError("not an ILS1 container (bad magic)")
+    (_, version, max_len, n_sym, original_size, n_sections,
+     crc_stored) = _ILS_HEADER.unpack_from(mv, 0)
+    if version not in (3, 4):
+        raise ValueError(f"unsupported ILS container version {version}")
+    off = _ILS_HEADER.size
+    entries = np.frombuffer(mv, np.uint8, 2 * n_sym, off).reshape(n_sym, 2)
+    off += 2 * n_sym
+    lengths = np.zeros(256, np.uint8)
+    lengths[entries[:, 0]] = entries[:, 1]
+    table = canonical_code_table(lengths, max_len)
+
+    sections = []
+    payloads = []
+    for _ in range(n_sections):
+        if off + _ILS_SECTION.size > len(buf):
+            raise ValueError("truncated ILS1 container")
+        k, snum, flags, w_band, w_cap, n_tiles = _ILS_SECTION.unpack_from(
+            mv, off
+        )
+        if version == 3 and flags:
+            # v3 reserves the flags word as zero — rejecting here catches a
+            # metadata bit flip the payload CRC cannot see
+            raise ValueError(f"unknown ILS section flags {flags:#x}")
+        if version >= 4 and flags not in (0, _ROT_FLAGS):
+            # a rotation layout these kernels do not implement must be
+            # rejected, not silently mis-decoded
+            raise ValueError(
+                f"unsupported ILS section flags {flags:#x} (this reader "
+                f"implements rotation constants sub={ILS_ROT_SUB}, "
+                f"lane={ILS_ROT_LANE})"
+            )
+        off += _ILS_SECTION.size
+        w_tiles = np.frombuffer(mv, np.uint32, n_tiles, off).astype(np.int32)
+        off += 4 * n_tiles
+        n_win = ils_n_win(int(k))
+        boffs = (
+            np.frombuffer(mv, np.int32, n_tiles * n_win, off)
+            .reshape(n_tiles, n_win)
+            .copy()
+        )
+        off += 4 * n_tiles * n_win
+        total_rows = int(w_tiles.sum())
+        n_words = total_rows * ILS_LANES
+        if off + 4 * n_words > len(buf):
+            raise ValueError("truncated ILS1 container")
+        payload = (
+            np.frombuffer(mv, np.uint32, n_words, off).reshape(total_rows, ILS_LANES)
+        ).copy()
+        off += 4 * n_words
+        params = IlsParams(
+            k=int(k),
+            snum=int(snum),
+            boffs=boffs,
+            w_band=int(w_band),
+            w_cap=int(w_cap),
+            w_tiles=w_tiles,
+            n_tiles=int(n_tiles),
+            rot=bool(flags & 1),
+        )
+        payloads.append(payload)
+        sections.append(IlsSection(
+            params=params, payload=torch.from_numpy(payload.view(np.int32)),
+        ))
+    if off != len(buf):
+        raise ValueError(f"container has {len(buf) - off} trailing bytes")
+    if _crc(int(original_size), payloads) != crc_stored:
+        raise ValueError("ILS1 container payload checksum mismatch")
+    return IlsCompressed(
+        table=table, original_size=int(original_size), sections=sections
+    )

@@ -1,0 +1,397 @@
+"""Device orchestration for the interleaved-stream (ILS) codec.
+
+Counterpart of `huffman_tpu/ops/ils.py`.  Encode is the fused certify+pack
+pass plus a compaction, escalating from the "mu" to the "laggard" window
+anchor and falling to the certified two-pass pipeline (schedule pass, then
+pack) exactly where the JAX package does; decode is one kernel launch whose
+int32 output is the original data.
+
+The host policy below (`pick_k`, the band and cap buckets, `certify_params`,
+`fused_e_band`, `auto_rot_band`, the budgets and the tier order) is kept
+VERBATIM from the JAX package.  It was named for the TPU's VMEM, but it
+decides ``k``, ``w_band``, ``w_cap`` and ``rot``, which are written into the
+container: here it is format policy, and changing it changes the bytes.
+The two-pass tier is part of that policy, not a device fallback.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.canonical import CodeTable
+from ..core.ils_ref import ILS_LANES, IlsParams, ils_schedule_numer
+from .ils_kernels import (
+    FUSED_E_BAND,
+    IlsDecTabs,
+    ils_compact,
+    ils_decode,
+    ils_lengths_pass,
+    ils_pack,
+    ils_pack_certify,
+)
+
+__all__ = [
+    "IlsSection",
+    "IlsVmemError",
+    "certify_params",
+    "ils_encode_to_device",
+    "ils_encode_device",
+    "ils_decode_device",
+    "pick_k",
+    "round_band",
+    "round_cap",
+    "resolve_device",
+    "stride_rows_for",
+    "envelope_params",
+    "emission_band",
+    "row_starts_of",
+]
+
+# ROADMAP.md trap F1: these are the device path's buckets (ops/ils.py in
+# the JAX package), which the container holds; the NumPy oracle's w_cap
+# rounding lacks 320/448/640/... and must not be copied.
+_BAND_BUCKETS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+_CAP_BUCKETS = (
+    8, 16, 32, 64, 96, 128, 192, 256, 320, 384, 448, 512, 640, 768, 896,
+    1024, 1280, 1536, 1792, 2048,
+)
+
+# Format policy kept verbatim (see the module docstring): the row budget
+# that bounds w_cap before k halves, the smallest k, and the worst-case
+# stride above which the two-pass pipeline encodes.
+VMEM_ROW_BUDGET = 2800
+MIN_K = 2048
+FUSED_STRIDE_BUDGET = 2048
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points' device: CUDA unless the caller asks for the CPU.
+
+    A CUDA device without a usable card raises here rather than running the
+    plain versions quietly on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "huffman_tpu_torch runs on a CUDA device by default, but "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run the plain PyTorch versions"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def fused_e_band(k: int) -> int:
+    """Emission-band width (pairs) for the fused certify+pack pass; grows
+    ~sqrt(k) from 32 pairs at k=4096."""
+    return max(FUSED_E_BAND, round_band(int(32 * (k / 4096) ** 0.5)))
+
+
+def auto_rot_band(k: int) -> int:
+    """rot="auto": bands at or under this many pairs never re-encode with
+    rotation; same ~sqrt(k) scale from 32 pairs at k=4096."""
+    return max(round_band(int(32 * (k / 4096) ** 0.5)), 8)
+
+
+class IlsVmemError(ValueError):
+    """Tile shape would exceed the row budget; retry with a smaller k."""
+
+
+def pick_k(avg_bits: float, optimize: str = "speed") -> int:
+    """Choose k (symbols per stream) for the table's mean code length:
+    ``optimize="speed"`` caps k at 4096, ``"ratio"`` allows up to 16384
+    while the estimated rows fit the budget."""
+    max_k = 4096 if optimize == "speed" else 16384
+    best = 2048
+    for k in (2048, 4096, 8192, 16384):
+        if k > max_k:
+            break
+        w_est = round_cap(int(k * max(avg_bits, 1.0) / 32 * 1.10) + 8)
+        if w_est <= VMEM_ROW_BUDGET:
+            best = k
+    return best
+
+
+def round_band(span: int) -> int:
+    for b in _BAND_BUCKETS:
+        if span <= b:
+            return b
+    return span
+
+
+def round_cap(rows: int) -> int:
+    for b in _CAP_BUCKETS:
+        if rows <= b:
+            return b
+    return -(-rows // 256) * 256
+
+
+def certify_params(
+    *,
+    k: int,
+    snum: int,
+    n_tiles: int,
+    w_tiles: np.ndarray,
+    dec_min: np.ndarray,
+    dec_max: np.ndarray,
+    extra_band_pairs: int = 0,
+    rot: bool = False,
+) -> IlsParams:
+    """Turn measured schedule envelopes into certified container params.
+
+    The refill window must fit the tile's pair capacity (``band <= w_cap //
+    2``); when the envelope needs more, w_cap is WIDENED with zero slack
+    rows rather than the band narrowed.  Raises ``IlsVmemError`` when even
+    the widened cap exceeds the row budget (the codec retries a smaller k).
+    """
+    w_cap = round_cap(int(w_tiles.max()))
+    dec_span = int(np.maximum(dec_max - dec_min, 0).max(initial=0))
+    w_band = round_band(dec_span + 2)  # in pairs
+    need_cap = 2 * max(w_band, extra_band_pairs)
+    if need_cap > w_cap:
+        w_cap = round_cap(need_cap)
+    if w_cap > VMEM_ROW_BUDGET and k > MIN_K:
+        raise IlsVmemError(
+            f"k={k} with w_cap={w_cap} exceeds the VMEM row budget; "
+            "re-encode with a smaller k"
+        )
+    assert w_band <= w_cap // 2  # guaranteed by the widening above
+    # int32 envelopes with +-2^30 sentinels; an empty window keeps 0
+    boffs = np.where(dec_min <= dec_max, dec_min, 0).astype(np.int32)
+    return IlsParams(
+        k=k, snum=snum, boffs=boffs, w_band=int(w_band),
+        w_cap=int(w_cap), w_tiles=w_tiles.astype(np.int32),
+        n_tiles=n_tiles, rot=rot,
+    )
+
+
+@dataclasses.dataclass
+class IlsSection:
+    """One uniform-k run of tiles plus its interleaved payload."""
+
+    params: IlsParams
+    payload: torch.Tensor  # (total_rows, 1024) int32, the u32 words' bits
+
+    @property
+    def nbytes_payload(self) -> int:
+        return int(self.payload.numel() * 4)
+
+    def payload_u32(self) -> np.ndarray:
+        """The payload on the host as (total_rows, 1024) uint32."""
+        return self.payload.cpu().numpy().view(np.uint32)
+
+
+def _as_tiles_i32(data: torch.Tensor) -> torch.Tensor:
+    """Flat uint8 bytes (multiple of 4 KB) -> (rows, 1024) int32 words,
+    little-endian, zero-copy."""
+    return data.view(torch.int32).view(-1, ILS_LANES)
+
+
+def _lane_min(x: torch.Tensor) -> np.ndarray:
+    return x.amin(dim=-1).cpu().numpy()
+
+
+def _lane_max(x: torch.Tensor) -> np.ndarray:
+    return x.amax(dim=-1).cpu().numpy()
+
+
+def stride_rows_for(k: int, max_len: int) -> int:
+    """Worst-case rows per tile (every symbol at max_len): the fused pack's
+    tile stride, which no tile's ``w_tiles`` can exceed."""
+    return max(2 * (-(-k * max_len // 64)), 4)
+
+
+def envelope_params(bits, dn, dx, *, k: int, snum: int, rot: bool,
+                    extra_band_pairs: int = 0) -> IlsParams:
+    """Certified params from a pass's per-stream bits and decode envelopes
+    (`ils_pack_certify` or `ils_lengths_pass` outputs)."""
+    # even word counts (pair granularity), >= 4 for the 128-bit register
+    # init; envelopes reduce over lanes on the device
+    w_tiles = (
+        torch.clamp(2 * (-(-bits.amax(dim=1) // 64)), min=4)
+        .cpu().numpy().astype(np.int64)
+    )
+    return certify_params(
+        k=k, snum=snum, n_tiles=bits.shape[0], w_tiles=w_tiles,
+        dec_min=_lane_min(dn), dec_max=_lane_max(dx),
+        extra_band_pairs=extra_band_pairs, rot=rot,
+    )
+
+
+def emission_band(en, ex) -> tuple[int, np.ndarray]:
+    """The two-pass tier's emission band (pairs) and its (n_tiles, n_win)
+    int32 window anchors, from `ils_lengths_pass`'s emission envelopes."""
+    enc_min, enc_max = _lane_min(en), _lane_max(ex)
+    enc_span = int(np.maximum(enc_max - enc_min, 0).max(initial=0))
+    boffs = np.where(enc_min <= enc_max, enc_min, 0).astype(np.int32)
+    return round_band(enc_span + 2), boffs
+
+
+def row_starts_of(params: IlsParams, dev) -> torch.Tensor:
+    """(n_tiles,) int32 compact row offsets on ``dev``.
+
+    The kernels take these on trust (checking them there would cost a
+    device-to-host sync per launch): they are the prefix sum of ``w_tiles``,
+    each at most the worst-case stride.  Rows a kernel would address outside
+    its buffers are skipped or read as zero there."""
+    return torch.from_numpy(params.row_starts[:-1].astype(np.int32)).to(dev)
+
+
+def ils_encode_to_device(
+    data_i32: torch.Tensor,
+    enc: torch.Tensor,
+    *,
+    k: int,
+    avg_bits: float,
+    max_len: int | None = None,
+    rot: bool | str = False,
+    e_band: int | None = None,
+    stride_budget: int = FUSED_STRIDE_BUDGET,
+):
+    """Device-resident encode: returns (payload_rows, row_starts, params).
+
+    payload_rows stays where ``data_i32`` lies ((total_rows + w_cap, 1024)
+    int32, compacted, with w_cap zero slack rows); only per-tile metadata
+    comes to the host.  ``stride_budget`` is the worst-case stride above
+    which the two-pass pipeline runs (default FUSED_STRIDE_BUDGET; 0 forces
+    two-pass).  ``e_band`` overrides `fused_e_band(k)`, the fused pass's
+    emission band; it exists to drive the anchor escalation in checks and is
+    not part of `ils_encode_device`.  Both change which tier runs, and so
+    possibly w_cap.
+
+    ``rot="auto"``: encode unrotated; if the certified band exceeds
+    `auto_rot_band(k)`, re-encode rotated and keep whichever band is
+    strictly narrower.
+    """
+    if rot == "auto":
+        kw = dict(k=k, avg_bits=avg_bits, max_len=max_len, e_band=e_band,
+                  stride_budget=stride_budget)
+        res_plain = ils_encode_to_device(data_i32, enc, rot=False, **kw)
+        if res_plain[2].w_band <= auto_rot_band(k):
+            return res_plain
+        res_rot = ils_encode_to_device(data_i32, enc, rot=True, **kw)
+        return res_rot if res_rot[2].w_band < res_plain[2].w_band else res_plain
+
+    rot = bool(rot)
+    dev = data_i32.device
+    snum = ils_schedule_numer(avg_bits)
+    e_band = fused_e_band(k) if e_band is None else e_band
+    if max_len is None:
+        max_len = int((enc >> 20).max())
+    stride_rows = stride_rows_for(k, max_len)
+    # Tier gates, as the JAX package: stride_rows < 8 can never pass the
+    # compact gate below (the certified cap is at least 16), so tiny tail
+    # sections go straight to two-pass; a stride over the budget too.  (The
+    # JAX package's streaming variant of the fused pack is off by default
+    # and not ported; it gives the same bytes as the two-pass tier.)
+    if 8 <= stride_rows <= stride_budget:
+        for anchor in ("mu", "laggard"):
+            pay_s, bits, dn, dx, viol = ils_pack_certify(
+                data_i32, snum, enc, k=k, stride_rows=stride_rows,
+                e_band=e_band, rot=rot, anchor=anchor,
+            )
+            if int(viol.max()):
+                continue
+            params = envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot)
+            # the compaction may read up to w_cap rows of the last tile's
+            # region; an envelope-widened cap beyond 2*stride_rows takes the
+            # two-pass tier (anchor-independent, so no retry)
+            if params.w_cap > 2 * stride_rows:
+                break
+            row_starts = row_starts_of(params, dev)
+            payload_rows = ils_compact(
+                pay_s, row_starts, stride_rows=stride_rows,
+                w_cap=params.w_cap, total_rows=params.total_rows,
+            )
+            return payload_rows, row_starts, params
+
+    bits, dn, dx, en, ex = ils_lengths_pass(data_i32, snum, enc, k=k, rot=rot)
+    w_band_enc, boffs_enc = emission_band(en, ex)
+    # the emission window needs w_band_enc <= w_cap // 2 as well; this
+    # extra band is why the two-pass tier can write a wider w_cap
+    # (ROADMAP.md trap F2)
+    params = envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
+                             extra_band_pairs=w_band_enc)
+    row_starts = row_starts_of(params, dev)
+    payload_rows = ils_pack(
+        data_i32, snum, torch.from_numpy(boffs_enc).to(dev), row_starts, enc,
+        k=k, w_cap=params.w_cap, w_band=w_band_enc,
+        total_rows=params.total_rows, rot=rot,
+    )
+    return payload_rows, row_starts, params
+
+
+def _as_bytes(data, dev: torch.device) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        if data.dtype != torch.uint8:
+            raise TypeError(f"data must be uint8, got {data.dtype}")
+        return data.reshape(-1).to(dev).contiguous()
+    arr = np.ascontiguousarray(np.asarray(data, np.uint8).reshape(-1))
+    return torch.from_numpy(arr).to(dev)
+
+
+def ils_encode_device(
+    data,
+    table: CodeTable,
+    enc: torch.Tensor,
+    *,
+    k: int,
+    avg_bits: float,
+    rot: bool | str = False,
+    device="cuda",
+    stride_budget: int = FUSED_STRIDE_BUDGET,
+) -> IlsSection:
+    """Encode flat bytes (a uint8 array or tensor whose size is a multiple
+    of k*1024) into one section on ``device``; the payload stays there.
+    ``stride_budget=0`` forces the two-pass tier (see
+    `ils_encode_to_device`)."""
+    dev = resolve_device(device)
+    data = _as_bytes(data, dev)
+    if data.numel() % (k * ILS_LANES):
+        raise ValueError("data size must be a multiple of k * 1024")
+    payload_rows, _, params = ils_encode_to_device(
+        _as_tiles_i32(data), enc.to(dev), k=k, avg_bits=avg_bits,
+        max_len=int(table.max_len_present), rot=rot,
+        stride_budget=stride_budget,
+    )
+    return IlsSection(params=params, payload=payload_rows[: params.total_rows])
+
+
+def ils_decode_device(
+    section: IlsSection,
+    table: CodeTable,
+    dec: IlsDecTabs,
+    *,
+    device="cuda",
+) -> torch.Tensor:
+    """Decode one section back to flat uint8 bytes (n_tiles * k * 1024 of
+    them) on ``device``."""
+    dev = resolve_device(device)
+    p = section.params
+    if not (1 <= p.w_band <= p.w_cap // 2):
+        # our encoder guarantees this (finish() widens w_cap); a foreign or
+        # corrupted container must not reach the kernel
+        raise ValueError(
+            f"invalid ILS section: w_band={p.w_band} outside "
+            f"[1, w_cap//2={p.w_cap // 2}]"
+        )
+    rows = section.payload.to(dev)
+    if tuple(rows.shape) != (p.total_rows, ILS_LANES):
+        raise ValueError(
+            f"ILS section payload has shape {tuple(rows.shape)}, expected "
+            f"({p.total_rows}, {ILS_LANES})"
+        )
+    # no slack rows are appended: the decoder reads rows past the payload's
+    # end as zeros
+    out = ils_decode(
+        rows.contiguous(), row_starts_of(p, dev),
+        IlsDecTabs(*(x.to(dev) for x in dec)),
+        k=p.k, w_cap=p.w_cap, n_tiles=p.n_tiles,
+        max_len=max(table.max_len_present, 1),
+        min_len=max(table.min_len, 1), rot=p.rot,
+    )
+    return out.view(torch.uint8).reshape(-1)

@@ -1,0 +1,152 @@
+"""The port's own copies of the JAX package's host modules, held to them.
+
+`huffman_tpu_torch` keeps its own copies of the table math, the ILS layout
+helpers and the data generator (it imports nothing of `huffman_tpu`).  They
+decide the container bytes, so each must give exactly what the JAX
+package's module gives on the same seeded NumPy inputs, errors included.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from huffman_tpu import constants as jconst
+from huffman_tpu.core import canonical as jcan
+from huffman_tpu.core import ils_ref as jref
+from huffman_tpu.core import npref as jnpref
+from huffman_tpu.core import package_merge as jpm
+from huffman_tpu.utils import datagen as jgen
+from huffman_tpu_torch import constants as tconst
+from huffman_tpu_torch.core import canonical as tcan
+from huffman_tpu_torch.core import ils_ref as tref
+from huffman_tpu_torch.core import npref as tnpref
+from huffman_tpu_torch.core import package_merge as tpm
+from huffman_tpu_torch.utils import datagen as tgen
+
+
+def _freqs(seed):
+    """Seeded histograms: sparse, dense, skewed (long codes) and tiny."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros(256, np.int64)
+    kind = seed % 4
+    if kind == 0:
+        f[rng.choice(256, 5, replace=False)] = rng.integers(1, 1000, 5)
+    elif kind == 1:
+        f[:] = rng.integers(0, 1 << 20, 256)
+    elif kind == 2:
+        f[:] = (2.0 ** rng.uniform(0, 40, 256)).astype(np.int64)
+    else:
+        f[rng.integers(0, 256)] = 7
+    return f
+
+
+def test_constants_match():
+    for name in ("MAX_CODEWORD_LENGTH", "ALPHABET_SIZE"):
+        assert getattr(tconst, name) == getattr(jconst, name), name
+    for name in ("ILS_LANES", "ILS_WIN", "ILS_ROT_SUB", "ILS_ROT_LANE"):
+        assert getattr(tref, name) == getattr(jref, name), name
+
+
+@pytest.mark.parametrize("max_len", [8, 11, 16])
+def test_package_merge_matches(max_len):
+    for seed in range(24):
+        f = _freqs(seed)
+        if np.count_nonzero(f) > (1 << max_len):
+            continue
+        assert np.array_equal(tpm.package_merge_lengths(f, max_len),
+                              jpm.package_merge_lengths(f, max_len)), seed
+    assert not tpm.package_merge_lengths(np.zeros(256, np.int64)).any()
+
+
+@pytest.mark.parametrize("freqs,max_len", [
+    (np.zeros(255, np.int64), 16),
+    (np.r_[-1, np.ones(255, np.int64)], 16),
+    (np.ones(256, np.int64), 7),
+])
+def test_package_merge_errors_match(monkeypatch, freqs, max_len):
+    # the port copies the NumPy path; the JAX package's optional native
+    # path words one of these errors differently
+    from huffman_tpu import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(ValueError) as ref:
+        jpm.package_merge_lengths(freqs, max_len)
+    with pytest.raises(ValueError) as got:
+        tpm.package_merge_lengths(freqs, max_len)
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("max_len", [8, 12, 16])
+def test_canonical_table_matches(max_len):
+    for seed in range(24):
+        f = _freqs(seed)
+        if np.count_nonzero(f) > (1 << max_len):
+            continue
+        lengths = jpm.package_merge_lengths(f, max_len)
+        jt = jcan.canonical_code_table(lengths, max_len)
+        tt = tcan.canonical_code_table(lengths, max_len)
+        for field in dataclasses.fields(tt):
+            a, b = getattr(jt, field.name), getattr(tt, field.name)
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype and np.array_equal(a, b), field.name
+            else:
+                assert a == b, field.name
+        for prop in ("num_symbols", "min_len", "max_len_present"):
+            assert getattr(tt, prop) == getattr(jt, prop), prop
+        assert tcan.chain_spec(tt) == jcan.chain_spec(jt)
+
+
+@pytest.mark.parametrize("lengths,max_len", [
+    (np.ones(255, np.uint8), 16),  # wrong shape
+    (np.full(256, 9, np.uint8), 8),  # a length over max_len
+    (np.r_[np.ones(3, np.uint8), np.zeros(253, np.uint8)], 16),  # Kraft
+])
+def test_canonical_table_errors_match(lengths, max_len):
+    with pytest.raises(ValueError) as ref:
+        jcan.canonical_code_table(lengths, max_len)
+    with pytest.raises(ValueError) as got:
+        tcan.canonical_code_table(lengths, max_len)
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("size", [0, 1, 4097, 1 << 17])
+def test_histogram_matches(size):
+    data = jgen.generate_redundant(size, 0.7, seed=size)
+    want = jnpref.histogram(data)
+    assert np.array_equal(tnpref.histogram(data), want)
+    got = tnpref.histogram(torch.from_numpy(data))
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    with pytest.raises(TypeError, match="uint8"):
+        tnpref.histogram(torch.zeros(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("size,r,seed", [
+    (0, 0.5, 0), (1, 0.5, 1), (4095, 0.0, 2), (100_000, 0.9, 3),
+    (65_537, 1.0, None), (5000, -0.5, 4), (5000, 1.5, 5),
+])
+def test_generate_redundant_matches(size, r, seed):
+    got = tgen.generate_redundant(size, r, seed=seed)
+    if seed is None:  # unseeded draws differ; only the shape is fixed
+        assert got.shape == (size,) and got.dtype == np.uint8
+        assert np.isin(got, np.frombuffer(b"ABCD", np.uint8)).all()
+        return
+    assert np.array_equal(got, jgen.generate_redundant(size, r, seed=seed))
+
+
+def test_ils_layout_helpers_match():
+    for k in (4, 8, 12, 64, 256, 260, 4096, 16384):
+        assert tref.ils_n_win(k) == jref.ils_n_win(k)
+    for k in (8, 12, 64, 4096):
+        for inverse in (False, True):
+            assert np.array_equal(tref._rot_src_index(k, inverse),
+                                  jref._rot_src_index(k, inverse))
+    for avg in np.linspace(0.0, 16.0, 97):
+        assert tref.ils_schedule_numer(avg) == jref.ils_schedule_numer(avg)
+    kw = dict(k=12, snum=123, boffs=np.zeros((3, 1), np.int32), w_band=8,
+              w_cap=16, w_tiles=np.array([4, 6, 8], np.int32), n_tiles=3)
+    jp, tp = jref.IlsParams(**kw), tref.IlsParams(**kw)
+    assert np.array_equal(tp.row_starts, jp.row_starts)
+    assert tp.row_starts.dtype == jp.row_starts.dtype
+    assert tp.total_rows == jp.total_rows

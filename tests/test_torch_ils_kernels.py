@@ -1,0 +1,283 @@
+"""ILS kernels of the PyTorch port held against the JAX package.
+
+The same seeded NumPy inputs go through each JAX kernel wrapper (Pallas in
+interpret mode, as the JAX suite runs it on the CPU) and through the port's
+wrapper on CPU tensors, which runs the kernel's plain PyTorch version.  All
+outputs are integers and must be equal (tolerance 0).  The CUDA kernels
+themselves are held against the plain versions on a card by
+`tests/test_torch_cuda.py`, which imports no JAX.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import huffman_tpu.ops.ils as jils
+from huffman_tpu.core import canonical_code_table, npref, package_merge_lengths
+from huffman_tpu.core.canonical import chain_spec as jax_chain_spec
+from huffman_tpu.core.ils_ref import ILS_LANES, ils_schedule_numer
+from huffman_tpu.ops.pallas import ils_kernels as jk
+from huffman_tpu.utils import generate_redundant
+from huffman_tpu_torch.core.canonical import chain_spec as port_chain_spec
+from huffman_tpu_torch.io.convert import code_table_from_numpy, section_from_numpy
+from huffman_tpu_torch.ops import ils_kernels as tk
+
+
+def _fit(data, max_len=16):
+    return canonical_code_table(
+        package_merge_lengths(npref.histogram(data), max_len), max_len
+    )
+
+
+def _case(data, k):
+    """(JAX table, port table, snum, JAX data_i32, port data_i32, max_len)."""
+    jt = _fit(data)
+    pt = code_table_from_numpy(jt.lengths, jt.max_len)
+    avg = float(jt.lengths.astype(np.int64)[data].mean())
+    snum = ils_schedule_numer(avg)
+    words = np.ascontiguousarray(data).view("<u4").view(np.int32)
+    return (jt, pt, snum, jnp.asarray(words.reshape(-1, 8, 128)),
+            torch.from_numpy(words.reshape(-1, ILS_LANES).copy()),
+            int(jt.max_len_present))
+
+
+def _jparams(snum):
+    return jnp.asarray(np.array([snum, 0], np.int32))
+
+
+def _eq(jax_out, port_out):
+    j = np.asarray(jax_out)
+    p = port_out.numpy()
+    return np.array_equal(j.reshape(p.shape), p)
+
+
+def _eq_env(jax_env, port_env):
+    """Per lane and after the lane reduction the caller does."""
+    j = np.asarray(jax_env).reshape(port_env.shape)
+    p = port_env.numpy()
+    return (np.array_equal(j, p)
+            and np.array_equal(j.min(axis=-1), p.min(axis=-1))
+            and np.array_equal(j.max(axis=-1), p.max(axis=-1)))
+
+
+def _heterogeneous(k):
+    # first half zeros, second half uniform: common-mode schedule drift
+    n = k * ILS_LANES
+    data = np.zeros(n, np.uint8)
+    data[n // 2:] = generate_redundant(n // 2, 0.0, seed=17)
+    return data
+
+
+def test_tables_match():
+    data = generate_redundant(2 * 12 * ILS_LANES, 0.5, seed=4)
+    jt = _fit(data)
+    pt = code_table_from_numpy(jt.lengths, jt.max_len)
+    je, jd = jk.ils_enc_tabs(jt), jk.ils_dec_tabs(jt)
+    enc = tk.ils_enc_tabs(pt)
+    dec = tk.ils_dec_tabs(pt)
+    assert np.array_equal(enc.numpy()[:128], np.asarray(je.lo)[0])
+    assert np.array_equal(enc.numpy()[128:], np.asarray(je.hi)[0])
+    assert np.array_equal(dec.lim.numpy().view(np.uint32), np.asarray(jd.lim)[0])
+    assert np.array_equal(dec.bias.numpy(), np.asarray(jd.bias)[0, :32])
+    sym = np.concatenate([np.asarray(jd.sym_lo)[0], np.asarray(jd.sym_hi)[0]])
+    assert np.array_equal(dec.symtab.numpy(), sym)
+    for name in ("codes", "lim_left", "symtab", "offsets", "first_code"):
+        assert np.array_equal(getattr(pt, name), getattr(jt, name)), name
+    assert port_chain_spec(pt) == jax_chain_spec(jt)
+
+
+@pytest.mark.parametrize("rot", [False, True])
+@pytest.mark.parametrize("r", [0.0, 0.5, 0.9])
+def test_lengths_pass_matches(r, rot):
+    k = 12
+    data = generate_redundant(2 * k * ILS_LANES, r, seed=4)
+    jt, pt, snum, jd, td, _ = _case(data, k)
+    ref = jk.ils_lengths_pass(jd, _jparams(snum), jk.ils_enc_tabs(jt), k=k,
+                              rot=rot, interpret=True)
+    got = tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt), k=k, rot=rot)
+    assert _eq(ref[0], got[0])
+    for name, a, b in zip(("dn", "dx", "en", "ex"), ref[1:], got[1:]):
+        assert _eq_env(a, b), name
+
+
+@pytest.mark.parametrize("k,r,rot,anchor", [
+    (12, 0.0, False, "mu"), (12, 0.0, True, "laggard"),
+    (12, 0.5, False, "laggard"), (12, 0.5, True, "mu"),
+    (12, 0.9, False, "mu"), (12, 0.9, True, "laggard"),
+    (64, 0.5, True, "laggard"),
+])
+def test_pack_certify_matches(k, r, rot, anchor):
+    # k=12 flushes every body (odd TPU chunk), k=64 every two bodies
+    data = generate_redundant(2 * k * ILS_LANES, r, seed=4)
+    jt, pt, snum, jd, td, ml = _case(data, k)
+    stride_rows = max(2 * (-(-k * ml // 64)), 4)
+    kw = dict(k=k, stride_rows=stride_rows, rot=rot, anchor=anchor)
+    ref = jk.ils_pack_certify(jd, _jparams(snum), jk.ils_enc_tabs(jt),
+                              interpret=True, **kw)
+    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt), **kw)
+    for name, a, b in zip(("pay", "bits", "dn", "dx", "viol"), ref, got):
+        assert _eq_env(a, b) if name in ("dn", "dx") else _eq(a, b), name
+
+
+@pytest.mark.parametrize("k,r,rot", [
+    (12, 0.0, False), (12, 0.0, True), (12, 0.5, False), (12, 0.5, True),
+    (12, 0.9, False), (12, 0.9, True), (64, 0.5, True),
+])
+def test_pack_matches(k, r, rot):
+    data = generate_redundant(2 * k * ILS_LANES, r, seed=4)
+    jt, pt, snum, jd, td, _ = _case(data, k)
+    n_tiles = 2
+    bits, dmin, dmax, emin, emax = jk.ils_lengths_pass(
+        jd, _jparams(snum), jk.ils_enc_tabs(jt), k=k, rot=rot, interpret=True)
+    enc_min = np.asarray(jnp.min(emin, axis=(2, 3)))
+    enc_max = np.asarray(jnp.max(emax, axis=(2, 3)))
+    w_band_enc = jils.round_band(
+        int(np.maximum(enc_max - enc_min, 0).max(initial=0)) + 2)
+    w_tiles = np.maximum(2 * (-(-np.asarray(bits).max(axis=(1, 2)) // 64)), 4)
+    p = jils.certify_params(
+        k=k, snum=snum, n_tiles=n_tiles, w_tiles=w_tiles.astype(np.int64),
+        dec_min=np.asarray(jnp.min(dmin, axis=(2, 3))),
+        dec_max=np.asarray(jnp.max(dmax, axis=(2, 3))),
+        extra_band_pairs=w_band_enc, rot=rot)
+    boffs = np.where(enc_min <= enc_max, enc_min, 0).astype(np.int32)
+    starts = p.row_starts[:-1].astype(np.int32)
+    kw = dict(k=k, w_cap=p.w_cap, w_band=w_band_enc, total_rows=p.total_rows,
+              rot=rot)
+    ref = jk.ils_pack(jd, _jparams(snum), jnp.asarray(boffs),
+                      jnp.asarray(starts), jk.ils_enc_tabs(jt),
+                      interpret=True, **kw)
+    got = tk.ils_pack(td, snum, torch.from_numpy(boffs),
+                      torch.from_numpy(starts), tk.ils_enc_tabs(pt), **kw)
+    assert _eq(np.asarray(ref)[: p.total_rows], got[: p.total_rows])
+    assert not got[p.total_rows:].any()
+
+
+def test_violation_flag_matches_skewed_stream():
+    # one stream of all-rare codes escapes a 2-pair band within a few
+    # bodies (the JAX suite's violation case)
+    k = 48
+    n = k * ILS_LANES
+    data = np.zeros(n, np.uint8)
+    rare = np.arange(1, 256, dtype=np.uint8)
+    data[::129] = rare[np.arange((n + 128) // 129) % 255]
+    u32_idx = np.arange(5, n // 4, ILS_LANES)  # stream 5: all rare bytes
+    byte_idx = (u32_idx[:, None] * 4 + np.arange(4)[None]).reshape(-1)
+    data[byte_idx] = rare[np.arange(byte_idx.size) % 255]
+    jt, pt, snum, jd, td, ml = _case(data, k)
+    kw = dict(k=k, stride_rows=max(2 * (-(-k * ml // 64)), 4), e_band=2)
+    ref = jk.ils_pack_certify(jd, _jparams(snum), jk.ils_enc_tabs(jt),
+                              interpret=True, **kw)
+    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt), **kw)
+    assert int(got[4].max()) == 1
+    for name, a, b in zip(("pay", "bits", "dn", "dx", "viol"), ref, got):
+        assert _eq(a, b), name
+
+
+@pytest.mark.parametrize("anchor,want", [("mu", 1), ("laggard", 0)])
+def test_anchor_flags_match_heterogeneous(anchor, want):
+    # zeros-then-uniform drifts every lane together: "mu" violates, the
+    # laggard anchor absorbs the common-mode drift
+    k = 256
+    data = _heterogeneous(k)
+    jt, pt, snum, jd, td, ml = _case(data, k)
+    kw = dict(k=k, stride_rows=max(2 * (-(-k * ml // 64)), 4), e_band=8,
+              anchor=anchor)
+    ref = jk.ils_pack_certify(jd, _jparams(snum), jk.ils_enc_tabs(jt),
+                              interpret=True, **kw)
+    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt), **kw)
+    assert int(got[4].max()) == want
+    for name, a, b in zip(("pay", "bits", "dn", "dx", "viol"), ref, got):
+        assert _eq(a, b), name
+
+
+def test_compact_matches():
+    k, rot = 64, True
+    data = generate_redundant(3 * k * ILS_LANES, 0.5, seed=31)
+    jt, pt, snum, jd, td, ml = _case(data, k)
+    stride_rows = max(2 * (-(-k * ml // 64)), 4)
+    pay, bits, dn, dx, viol = jk.ils_pack_certify(
+        jd, _jparams(snum), jk.ils_enc_tabs(jt), k=k, stride_rows=stride_rows,
+        rot=rot, interpret=True)
+    assert int(jnp.max(viol)) == 0
+    w_tiles = np.maximum(2 * (-(-np.asarray(bits).max(axis=(1, 2)) // 64)), 4)
+    p = jils.certify_params(
+        k=k, snum=snum, n_tiles=3, w_tiles=w_tiles.astype(np.int64),
+        dec_min=np.asarray(jnp.min(dn, axis=(2, 3))),
+        dec_max=np.asarray(jnp.max(dx, axis=(2, 3))), rot=rot)
+    starts = p.row_starts[:-1].astype(np.int32)
+    kw = dict(stride_rows=stride_rows, w_cap=p.w_cap, total_rows=p.total_rows)
+    ref = jk.ils_compact(pay, jnp.asarray(starts), interpret=True, **kw)
+    pay_t = torch.from_numpy(np.asarray(pay).reshape(-1, ILS_LANES).copy())
+    got = tk.ils_compact(pay_t, torch.from_numpy(starts), **kw)
+    # the TPU kernel writes w_cap rows from the last tile's start (its real
+    # rows, then zeros over-read from the strided slack); rows past that
+    # are never written there and are zero here
+    written = int(starts[-1]) + p.w_cap
+    assert _eq(np.asarray(ref).reshape(-1, ILS_LANES)[:written], got[:written])
+    assert not got[p.total_rows:].any()
+
+
+@pytest.mark.parametrize("r,rot", [(0.5, False), (0.5, True), (0.9, True),
+                                   (0.0, False)])
+def test_decode_matches_jax_sections(r, rot):
+    # sections written by the JAX encoder, decoded by both decoders
+    k = 12
+    data = generate_redundant(2 * k * ILS_LANES, r, seed=4)
+    jt = _fit(data)
+    avg = float(jt.lengths.astype(np.int64)[data].mean())
+    jd = jk.ils_dec_tabs(jt)
+    sec = jils.ils_encode_device(data, jt, jk.ils_enc_tabs(jt), k=k,
+                                 avg_bits=avg, rot=rot, interpret=True)
+    p = sec.params
+    ref = jils.ils_decode_device(sec, jt, jd, interpret=True)
+    ps = section_from_numpy(p.k, p.snum, p.boffs, p.w_band, p.w_cap,
+                            p.w_tiles, p.n_tiles, p.rot, sec.payload)
+    pt = code_table_from_numpy(jt.lengths, jt.max_len)
+    starts = torch.from_numpy(p.row_starts[:-1].astype(np.int32))
+    kw = dict(k=k, w_cap=p.w_cap, n_tiles=p.n_tiles,
+              max_len=pt.max_len_present, min_len=pt.min_len, rot=p.rot)
+    # rows past the payload read as zeros: no slack rows are needed, and
+    # appending the JAX decoder's w_cap zero rows changes nothing
+    got = tk.ils_decode(ps.payload, starts, tk.ils_dec_tabs(pt), **kw)
+    slack = torch.zeros(p.w_cap, ILS_LANES, dtype=torch.int32)
+    padded = tk.ils_decode(torch.cat([ps.payload, slack]), starts,
+                           tk.ils_dec_tabs(pt), **kw)
+    assert np.array_equal(got.numpy().view(np.uint8).reshape(-1), ref)
+    assert torch.equal(got, padded)
+    assert np.array_equal(ref, data)
+
+
+def test_wrappers_route_cpu_to_plain_and_check_inputs():
+    k = 12
+    data = generate_redundant(2 * k * ILS_LANES, 0.5, seed=4)
+    _, pt, snum, _, td, _ = _case(data, k)
+    tk.reset_launch_counts()
+    tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt), k=k)
+    assert tk.launch_counts() == dict.fromkeys(tk.launch_counts(), 0)
+    with pytest.raises(ValueError, match="tensors on"):
+        tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt, "meta"), k=k)
+    with pytest.raises(ValueError, match="data must be"):
+        tk.ils_lengths_pass(td[:5], snum, tk.ils_enc_tabs(pt), k=k)
+    # row offsets of the wrong type or count are refused; their values are
+    # taken on trust (no device-to-host sync), and the kernels keep every
+    # row they address inside their buffers
+    boffs = torch.zeros((2, 1), dtype=torch.int32)
+    for starts, err in ((torch.tensor([0, 8]), TypeError),
+                        (torch.tensor([0], dtype=torch.int32), ValueError)):
+        with pytest.raises(err, match="row_starts"):
+            tk.ils_pack(td, snum, boffs, starts, tk.ils_enc_tabs(pt), k=k,
+                        w_cap=16, w_band=8, total_rows=8)
+        with pytest.raises(err, match="row_starts"):
+            tk.ils_decode(torch.zeros((24, ILS_LANES), dtype=torch.int32),
+                          starts, tk.ils_dec_tabs(pt), k=k, w_cap=16,
+                          n_tiles=2, max_len=pt.max_len_present)
+    with pytest.raises(TypeError, match="row_starts"):
+        tk.ils_compact(torch.zeros((18, ILS_LANES), dtype=torch.int32),
+                       torch.tensor([0, 8]), stride_rows=6, w_cap=16,
+                       total_rows=12)
+    # a pair the compact payload cannot hold is skipped, as in the kernel
+    starts = torch.tensor([0, 40], dtype=torch.int32)
+    got = tk.ils_pack(td, snum, boffs, starts, tk.ils_enc_tabs(pt), k=k,
+                      w_cap=16, w_band=8, total_rows=8)
+    assert got.shape == (24, ILS_LANES)

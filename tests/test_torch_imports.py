@@ -1,0 +1,132 @@
+"""huffman_tpu_torch stands alone: no JAX, nothing of huffman_tpu, and its
+entry points never run quietly on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import huffman_tpu_torch
+from huffman_tpu_torch import IlsCodec
+from huffman_tpu_torch.ops import ils as tils
+from huffman_tpu_torch.ops import ils_kernels as tk
+
+PKG = Path(huffman_tpu_torch.__file__).resolve().parent
+ROOT = PKG.parent
+FORBIDDEN = ("jax", "huffman_tpu", "jaxlib")
+
+
+def test_imports_with_jax_and_huffman_tpu_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['huffman_tpu'] = None\n"
+        "import huffman_tpu_torch, huffman_tpu_torch.models.ils_codec\n"
+        "import huffman_tpu_torch.io, huffman_tpu_torch.ops.ils\n"
+        "import huffman_tpu_torch.ops.cuda_build, huffman_tpu_torch.utils\n"
+        "import numpy as np\n"
+        "from huffman_tpu_torch.utils import generate_redundant\n"
+        "d = generate_redundant(8 * 1024 + 5, 0.5, seed=1)\n"
+        "c = huffman_tpu_torch.IlsCodec.fit(d, k=8, device='cpu')\n"
+        "assert c.roundtrip_check(d)\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+))
+def test_sources_import_no_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: {name}"
+
+
+def test_default_device_is_cuda_and_never_quietly_cpu():
+    data = np.zeros(100, np.uint8)
+    if torch.cuda.is_available():
+        assert IlsCodec.fit(data).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IlsCodec.fit(data)
+    table = IlsCodec.fit(data, device="cpu").table
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IlsCodec(table)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tils.ils_encode_device(data, table, tk.ils_enc_tabs(table), k=8,
+                               avg_bits=1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tils.resolve_device("meta")
+
+
+def test_ctypes_signatures_match_sources():
+    # ctypes checks neither the count nor the types of arguments: a
+    # mismatch between a C entry, its declared argtypes and the wrapper's
+    # call passes garbage to the kernel or crashes the process
+    import ctypes
+    import re
+
+    from huffman_tpu_torch.ops import cuda_build
+
+    ctype = {"ptr": ctypes.c_void_p, "long long": ctypes.c_longlong,
+             "int": ctypes.c_int}
+    for name in cuda_build.KERNEL_SOURCES:
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+        assert set(entries) == set(cuda_build._SIGNATURES[name]), name
+        for fn, params in entries.items():
+            types = []
+            for p in params.split(","):
+                p = " ".join(p.split()[:-1]).replace("const ", "")
+                types.append(ctype["ptr" if "*" in p else p])
+            assert types == cuda_build._SIGNATURES[name][fn], fn
+
+    calls = {}
+    tree = ast.parse((PKG / "ops" / "ils_kernels.py").read_text())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and isinstance(node.func.value, ast.Call)
+                and getattr(node.func.value.func, "id", None) == "_lib"):
+            lib = node.func.value.args[0].value
+            # the lengths pass hands its four envelopes over as *env
+            calls[node.func.attr] = (lib, sum(
+                4 if isinstance(a, ast.Starred) else 1 for a in node.args))
+    assert {fn for _, fns in cuda_build._SIGNATURES.items() for fn in fns} \
+        == set(calls)
+    for fn, (lib, n_args) in calls.items():
+        assert n_args == len(cuda_build._SIGNATURES[lib][fn]), fn
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    # no fallback: a missing compiler is an error, never the plain version
+    from huffman_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("PATH", "")
+    import torch.utils.cpp_extension as ext
+
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build_kernels()
