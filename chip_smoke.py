@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Chip smoke test of huffman_tpu_torch: the ILS codec end to end on one GPU.
+"""Chip smoke test of huffman_tpu_torch: the ILS and HTC1 codecs end to end
+on one GPU.
 
     python3 chip_smoke.py [--size BYTES] [--tail BYTES] [--redundancy R]
+                          [--gap-block BYTES]
 
 Needs one CUDA card and ``nvcc``; builds the kernels from ``huffman_tpu_torch/
 csrc`` itself.  Imports no JAX and nothing of `huffman_tpu`.  Phases (any
@@ -27,12 +29,31 @@ failure raises and exits non-zero with the traceback):
    times of whole calls.  Encode and decode are timed as the median of
    several runs after the warm-up run, and one run of each is profiled
    (device-busy share, top kernels).
-5. One JSON line per kernel list (name, route, source, replaces, launches,
-   max_abs_err, ms, wrapper_ms, plain_ms, bound_ms, bound_by, library_ms,
-   at the shapes the main path gave each kernel; A4 and A5, which it gives
+5. HTC1 kernels B1, B2, B4b-B4d against their plain versions, bit for
+   bit, on multi-block groups of generate_redundant(r=0.1, 0.5, 0.9), a
+   one-symbol input and the uniform 256-symbol input at seg_bits 128, 1024
+   and 4096; the HTC1 container bytes of the kernel path equal the plain
+   path's on those and on a ragged tail.
+6. HTC1 end to end on the input of phase 4: GapArrayCodec fit, encode
+   (16 MiB blocks through the kernels as one device group, the tail
+   through encode_block), write_container, read_container, decode,
+   bit-exact, with the gap kernels' launch counters of that one run.  Then
+   every gap kernel is held against its plain version on the groups that
+   run gave it (the full blocks, the tail), at its shapes, and timed.
+7. The JAX package's HTC1 bench shape: one --gap-block byte block (default
+   64 MiB, the first 64 MiB of phase 4's input) at seg_bits=1024 through
+   one encode_device and decode_device with the launch counters of that
+   call, medians by CUDA events, one profiled call each, and every gap
+   kernel held against its plain version and timed at its shapes there.
+8. One JSON line per kernel list (name, route, source, replaces, launches,
+   max_abs_err, ms, wrapper_ms, plain_ms, bound_ms, bound_by, library_ms):
+   each kernel's launches in its codec's end-to-end run (phase 4 or 6)
+   beside its times at that run's shapes; A4 and A5, which phase 4 gives
    only the small tail, also under "full_section" at the main section's
-   shape, the two-pass tier's shape when a full section takes it), then the
-   card line, then the device line last.
+   shape (the two-pass tier's shape when a full section takes it), B1 and
+   B2 also under "tail" at the tail group's.  The bench shape's rows,
+   with phase 7's launches, go in the summary line before it under
+   "htc1"."kernels".  Then the card line, then the device line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
 once) / 3.35 TB/s and (integer ALU operations the algorithm needs on this
@@ -66,6 +87,22 @@ KERNELS = {
                          "huffman_tpu/ops/pallas/ils_kernels.py:258"),
     "ils_pack": ("huffman_tpu_torch/csrc/ils_encode.cu",
                  "huffman_tpu/ops/pallas/ils_kernels.py:407"),
+    "gap_decode_ranks": ("huffman_tpu_torch/csrc/gap_decode.cu",
+                         "huffman_tpu/ops/pallas/decode_kernel.py:154"),
+    "gap_place_bytes": ("huffman_tpu_torch/csrc/gap_decode.cu",
+                        "huffman_tpu/ops/pallas/compact_kernel.py:78"),
+    "gap_row_pack": ("huffman_tpu_torch/csrc/gap_encode.cu",
+                     "huffman_tpu/ops/pallas/gap_encode_kernel.py:112"),
+    "gap_row_meta": ("huffman_tpu_torch/csrc/gap_encode.cu",
+                     "huffman_tpu/ops/pallas/gap_encode_kernel.py:252"),
+    "gap_place_bits": ("huffman_tpu_torch/csrc/gap_encode.cu",
+                       "huffman_tpu/ops/pallas/gap_encode_kernel.py:291"),
+}
+# TPU relayout kernels whose work is the addressing of a kernel here
+FOLDED = {
+    "gap_decode_ranks": ["huffman_tpu/ops/pallas/compact_kernel.py:410"],
+    "gap_row_pack": ["huffman_tpu/ops/pallas/gap_encode_kernel.py:201",
+                     "huffman_tpu/ops/pallas/compact_kernel.py:410"],
 }
 # wrapper name -> the kernel's name as the profiler reports it
 SYMBOLS = {
@@ -74,6 +111,11 @@ SYMBOLS = {
     "ils_compact": "ils_compact_kernel",
     "ils_lengths_pass": "ils_encode_kernel<false, false, false>",
     "ils_pack": "ils_encode_kernel<true, false, true>",
+    "gap_decode_ranks": "gap_decode_ranks_kernel",
+    "gap_place_bytes": "gap_place_bytes_kernel",
+    "gap_row_pack": "gap_row_pack_kernel",
+    "gap_row_meta": "gap_row_meta_kernel",
+    "gap_place_bits": "gap_place_bits_kernel",
 }
 
 
@@ -115,6 +157,9 @@ def profiled(fn, reps=1):
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
         prof.step()
+        # the active step can lose its first device event too (a kernel
+        # that opens the measured call): a one-element fill opens it
+        torch.zeros(1, device="cuda")
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -151,7 +196,7 @@ def kernel_ms(fn, symbol, reps):
     return sum(ms for ms, _ in hits) / launches
 
 
-def device_profile(fn, label, tk, tries=3):
+def device_profile(fn, label, launch_counts, tries=3):
     """One profiled call of `fn`: wall ms, device-busy ms (sum of the
     device events' time) and the top device events (torch.profiler).
 
@@ -159,22 +204,24 @@ def device_profile(fn, label, tk, tries=3):
     time: the call is profiled again (up to `tries` times) until it
     records as many launches of the slice's kernels as their counters."""
     for _ in range(tries):
-        before = sum(tk.launch_counts().values())
+        before = launch_counts()
         wall_ms, rows = profiled(fn)
-        launched = sum(tk.launch_counts().values()) - before
-        seen = sum(count for _, count, key in rows
-                   if any(sym in key for sym in SYMBOLS.values()))
-        if seen == launched:
+        launched = {name: c - before[name] for name, c in launch_counts().items()}
+        seen = {name: sum(count for _, count, key in rows if SYMBOLS[name] in key)
+                for name in launched}
+        lost = sorted(name for name in launched if seen[name] < launched[name])
+        if not lost:
             break
-        log(f"  profile {label}: the profiler recorded {seen} of {launched} "
-            f"kernel launches")
+        log(f"  profile {label}: the profiler recorded {sum(seen.values())} of "
+            f"{sum(launched.values())} kernel launches, lost {lost}")
     busy = sum(r[0] for r in rows)
     log(f"  profile {label}: wall {wall_ms:.3f} ms (profiler on), device busy "
         f"{busy:.3f} ms = {100 * busy / wall_ms:.1f}% of wall")
     for ms, count, key in rows[:8]:
         log(f"    {ms:9.3f} ms  x{count:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "kernel_events": seen, "kernel_launches": launched,
+            "kernel_events": sum(seen.values()),
+            "kernel_launches": sum(launched.values()), "lost": lost,
             "top": [[key[:60], count, ms] for ms, count, key in rows[:5]]}
 
 
@@ -350,6 +397,119 @@ def container_parity(tils, IlsCompressed, write, read, data, table, enc,
         f"w_band={p.w_band} w_cap={p.w_cap} rot={p.rot}")
 
 
+def gap_encode_cases(stats, ge, codec, blocks, label, timing=None):
+    """The HTC1 encode kernels and their plain versions on one (G, B)
+    group of blocks on the card (B a multiple of 128), at the shapes
+    `encode_device` gives them; returns its `DeviceCompressed`.
+
+    With `timing` (a dict), also times each kernel and plain version and
+    records the bytes and operations of this input for the bound."""
+    g, b = blocks.shape
+    n = g * b
+    rows = blocks.view(torch.int32).view(-1, 32)
+    pk = dict(cap_words=ge.row_cap_words(codec.table.max_len_present))
+    got = ge.gap_row_pack(rows, codec.enc, **pk)
+    stats.check("gap_row_pack", got,
+                ge.gap_row_pack_plain(rows, codec.enc, **pk), label)
+    pay, bits, starts = got
+    bits_blk = bits.view(g, -1).to(torch.int64)
+    s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+    dcomp = codec.encode_device(blocks)
+    mk = dict(rows_per_block=b // 128, n_segs=dcomp.counts.shape[1],
+              seg_bits=codec.seg_bits)
+    got = ge.gap_row_meta(starts, s_local, **mk)
+    stats.check("gap_row_meta", got,
+                ge.gap_row_meta_plain(starts, s_local, **mk), label)
+    if not torch.equal(got[0], dcomp.counts):
+        raise AssertionError(f"gap_row_meta counts of {label} differ from "
+                             f"encode_device's")
+    bk = dict(rows_per_block=b // 128, out_words=dcomp.words.shape[1])
+    got = ge.gap_place_bits(pay, bits, s_local, **bk)
+    stats.check("gap_place_bits", got,
+                ge.gap_place_bits_plain(pay, bits, s_local, **bk), label)
+    if not torch.equal(got, dcomp.words):
+        raise AssertionError(f"gap_place_bits of {label} differs from "
+                             f"encode_device's words")
+    if timing is not None:
+        # bytes each kernel itself must move (not the wrappers' zero fills)
+        # and integer operations per symbol, from this input
+        pay_bytes = int(dcomp.total_bits.to(torch.int64).sum()) // 8
+        timing["gap_row_pack"] = timed(
+            "gap_row_pack", lambda: ge.gap_row_pack(rows, codec.enc, **pk),
+            lambda: ge.gap_row_pack_plain(rows, codec.enc, **pk), 10,
+            bytes=n + pay.numel() * 4 + bits.numel() * 4 + starts.numel() * 2,
+            ops=8 * n, shape=list(pay.shape))
+        timing["gap_row_meta"] = timed(
+            "gap_row_meta", lambda: ge.gap_row_meta(starts, s_local, **mk),
+            lambda: ge.gap_row_meta_plain(starts, s_local, **mk), 10,
+            bytes=starts.numel() * 2 + s_local.numel() * 8
+            + dcomp.counts.numel() * 8, ops=3 * n,
+            shape=list(dcomp.counts.shape))
+        timing["gap_place_bits"] = timed(
+            "gap_place_bits", lambda: ge.gap_place_bits(pay, bits, s_local, **bk),
+            lambda: ge.gap_place_bits_plain(pay, bits, s_local, **bk), 10,
+            bytes=2 * pay_bytes + bits.numel() * 12, ops=2 * pay_bytes,
+            shape=list(dcomp.words.shape))
+    return dcomp
+
+
+def gap_decode_cases(stats, gd, codec, plan, pay_bits, expect, label,
+                     timing=None):
+    """The HTC1 decode kernels and their plain versions on one group on
+    the card, at the shapes of `plan` = (words, gaps, counts, max_count),
+    the inputs `decode` (`GapArrayCodec.decode_plan`) or `decode_device`
+    (`decode_device_plan`) hand them; `expect` is the (G, out_size) input
+    and `pay_bits` the group's payload bits (for the bound)."""
+    words, gaps, counts, mc = plan
+    g, out_size = expect.shape
+    n = g * out_size
+    lim, bias = gd.kernel_tabs(codec.dec)
+    dk = dict(seg_bits=codec.seg_bits, max_count=mc, min_len=codec.spec.min_len,
+              max_len=codec.spec.max_len)
+    ranks = gd.gap_decode_ranks(words, gaps, counts, lim, bias, **dk)
+    stats.check("gap_decode_ranks", ranks,
+                gd.gap_decode_ranks_plain(words, gaps, counts, lim, bias, **dk),
+                label)
+    flat = counts.reshape(-1)
+    offs = torch.cumsum(flat, 0, dtype=torch.int64) - flat
+    sym = codec.dec.symtab
+    out = gd.gap_place_bytes(ranks, flat, offs, sym, n_out=n)
+    stats.check("gap_place_bytes", out,
+                gd.gap_place_bytes_plain(ranks, flat, offs, sym, n_out=n), label)
+    if not torch.equal(out.view(g, out_size), expect):
+        raise AssertionError(f"HTC1 decode of {label} is not the input")
+    if timing is None:
+        return
+    levels = codec.spec.max_len - codec.spec.min_len
+    timing["gap_decode_ranks"] = timed(
+        "gap_decode_ranks",
+        lambda: gd.gap_decode_ranks(words, gaps, counts, lim, bias, **dk),
+        lambda: gd.gap_decode_ranks_plain(words, gaps, counts, lim, bias, **dk),
+        10, bytes=pay_bits // 8 + gaps.numel() * 8 + ranks.numel(),
+        ops=(2 * levels + 8) * n, shape=list(ranks.shape))
+    timing["gap_place_bytes"] = timed(
+        "gap_place_bytes",
+        lambda: gd.gap_place_bytes(ranks, flat, offs, sym, n_out=n),
+        lambda: gd.gap_place_bytes_plain(ranks, flat, offs, sym, n_out=n), 10,
+        bytes=2 * n + flat.numel() * 12, ops=2 * n, shape=[n])
+
+
+def gap_container_parity(GapArrayCodec, write, read, data, block_bytes,
+                         seg_bits, label):
+    """HTC1 container bytes of one input encoded on the card and on the
+    CPU; the card decodes them."""
+    kw = dict(seg_bits=seg_bits, block_bytes=block_bytes)
+    blobs = [write(GapArrayCodec.fit(data, device=dev, **kw).encode(data))
+             for dev in ("cuda", "cpu")]
+    if blobs[0] != blobs[1]:
+        raise AssertionError(f"HTC1 container bytes differ between the kernel "
+                             f"and the plain path on {label}")
+    out = GapArrayCodec.fit(data, device="cuda", **kw).decode(read(blobs[0]))
+    if not torch.equal(out, torch.from_numpy(data).cuda()):
+        raise AssertionError(f"card decode of the {label} HTC1 container failed")
+    log(f"  container {label:28s} {len(blobs[0])} bytes equal=True")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=1 << 28,
@@ -357,15 +517,24 @@ def main(argv=None) -> int:
     ap.add_argument("--tail", type=int, default=777)
     ap.add_argument("--redundancy", type=float, default=0.5,
                     help="share of the end-to-end input drawn from 'A'..'D'")
+    ap.add_argument("--gap-block", type=int, default=1 << 26,
+                    help="bytes of the timed HTC1 block (at most --size)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
 
-    from huffman_tpu_torch import IlsCodec, IlsCompressed
+    from huffman_tpu_torch import GapArrayCodec, IlsCodec, IlsCompressed
     from huffman_tpu_torch.core.ils_ref import ILS_LANES, ils_schedule_numer
-    from huffman_tpu_torch.io import read_ils_container, write_ils_container
+    from huffman_tpu_torch.io import (
+        read_container,
+        read_ils_container,
+        write_container,
+        write_ils_container,
+    )
     from huffman_tpu_torch.ops import cuda_build
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
     from huffman_tpu_torch.ops import ils as tils
     from huffman_tpu_torch.ops import ils_kernels as tk
     from huffman_tpu_torch.utils import generate_redundant
@@ -475,14 +644,136 @@ def main(argv=None) -> int:
     enc_ms = [cuda_ms(lambda: codec.encode(data), 1) for _ in range(3)]
     dec_ms = [cuda_ms(lambda: codec.decode(comp), 1) for _ in range(5)]
     enc_med, dec_med = statistics.median(enc_ms), statistics.median(dec_ms)
-    prof = {"encode": device_profile(lambda: codec.encode(data), "encode", tk),
-            "decode": device_profile(lambda: codec.decode(comp), "decode", tk)}
+    prof = {"encode": device_profile(lambda: codec.encode(data), "encode",
+                                     tk.launch_counts),
+            "decode": device_profile(lambda: codec.decode(comp), "decode",
+                                     tk.launch_counts)}
     log(f"  encode ms {[round(x, 3) for x in enc_ms]} median {enc_med:.3f} "
         f"= {n / enc_med / 1e6:.3f} GB/s")
     log(f"  decode ms {[round(x, 3) for x in dec_ms]} median {dec_med:.3f} "
         f"= {n / dec_med / 1e6:.3f} GB/s")
 
-    # ---- 5. results
+    # ---- 5. HTC1 kernels vs plain, container bytes kernel path vs plain
+    log("phase 5: HTC1 small inputs")
+    one = np.full(2 * 16384, 7, np.uint8)
+    for data_g, bb, seg_bits, label in (
+        (generate_redundant(3 * 65536, 0.1, seed=31), 65536, 1024,
+         "3x64KiB r=0.1 seg=1024"),
+        (generate_redundant(3 * 65536, 0.5, seed=32), 65536, 1024,
+         "3x64KiB r=0.5 seg=1024"),
+        (generate_redundant(3 * 65536, 0.9, seed=33), 65536, 1024,
+         "3x64KiB r=0.9 seg=1024"),
+        (one, 16384, 128, "2x16KiB one symbol seg=128"),
+        (one, 16384, 1024, "2x16KiB one symbol seg=1024"),
+        (np.arange(2 * 65536, dtype=np.uint8), 65536, 4096,
+         "2x64KiB uniform seg=4096"),
+        (generate_redundant(2 * 65536 + 777, 0.5, seed=35), 65536, 128,
+         "2x64KiB+777 r=0.5 seg=128"),
+    ):
+        gcodec = GapArrayCodec.fit(data_g, seg_bits=seg_bits, block_bytes=bb,
+                                   device="cuda")
+        n_full = data_g.size // bb
+        blocks = torch.from_numpy(
+            data_g[: n_full * bb].reshape(n_full, bb).copy()).to(dev)
+        dcomp = gap_encode_cases(stats, ge, gcodec, blocks, label)
+        gap_decode_cases(stats, gd, gcodec, gcodec.decode_device_plan(dcomp),
+                         int(dcomp.total_bits.sum()), blocks, label)
+        gap_container_parity(GapArrayCodec, write_container, read_container,
+                             data_g, bb, seg_bits, label)
+
+    # ---- 6. HTC1 end to end on the same input
+    log(f"phase 6: HTC1 end to end, {n} bytes")
+    torch.cuda.synchronize()
+    gd.reset_launch_counts()
+    ge.reset_launch_counts()
+    t0 = time.perf_counter()
+    gcodec = GapArrayCodec.fit(host, device="cuda")
+    gcomp = gcodec.encode(data)
+    gblob = write_container(gcomp)
+    gcomp2 = read_container(gblob)
+    gout = gcodec.decode(gcomp2)
+    gok = torch.equal(gout, data)
+    torch.cuda.synchronize()
+    gap_launches = {**gd.launch_counts(), **ge.launch_counts()}
+    log(f"  round trip {time.perf_counter() - t0:.2f} s bit-exact={gok} "
+        f"blocks={gcomp.n_blocks} of {gcodec.block_bytes} B, "
+        f"seg_bits={gcodec.seg_bits}")
+    log(f"  container {len(gblob)} bytes, ratio {len(gblob) / n:.6f}")
+    log(f"  launches in that run: {gap_launches}")
+    if not gok:
+        raise AssertionError("HTC1 end-to-end round trip is not bit-exact")
+    missing = [name for name, c in gap_launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"HTC1 kernels not launched on its path: {missing}")
+    launches.update(gap_launches)
+    del gout, gcomp
+
+    log("phase 6b: HTC1 kernels vs plain at that run's shapes, timed")
+    # the groups that run gave the kernels: the full blocks' device groups,
+    # then the tail (encoded through the kernels only when its size is a
+    # multiple of 128, else through encode_block); the first group and the
+    # tail are timed
+    bb = gcodec.block_bytes
+    n_full = n // bb
+    groups = [(grp, bb) for grp in gcodec._groups(n_full, bb)]
+    if n % bb:
+        groups.append(([n_full], n % bb))
+    htc1_timing, tail_timing = {}, {}
+    for i, (grp, size) in enumerate(groups):
+        lo = grp[0] * bb
+        blocks = data[lo : lo + len(grp) * size].view(len(grp), size)
+        t = htc1_timing if i == 0 else tail_timing if size != bb else None
+        label = f"e2e {len(grp)}x{size} B"
+        if size % 128 == 0:
+            gap_encode_cases(stats, ge, gcodec, blocks, label, t)
+        gap_decode_cases(stats, gd, gcodec, gcodec.decode_plan(gcomp2, grp),
+                         sum(gcomp2.block_total_bits[j] for j in grp), blocks,
+                         label, t)
+    del gcomp2
+
+    # ---- 7. the JAX package's HTC1 bench shape, timed
+    def gap_counts():
+        return {**gd.launch_counts(), **ge.launch_counts()}
+
+    gb = min(args.gap_block, args.size)
+    log(f"phase 7: one {gb} B HTC1 block, seg_bits=1024, timed")
+    bcodec = GapArrayCodec.fit(host[:gb], block_bytes=gb, device="cuda")
+    blocks = data[:gb].view(1, gb)
+    torch.cuda.synchronize()
+    gd.reset_launch_counts()
+    ge.reset_launch_counts()
+    dcomp = bcodec.encode_device(blocks)
+    bok = torch.equal(bcodec.decode_device(dcomp), blocks)
+    torch.cuda.synchronize()
+    bench_launches = gap_counts()
+    log(f"  encode_device + decode_device bit-exact={bok}, launches in that "
+        f"run: {bench_launches}")
+    if not bok:
+        raise AssertionError("HTC1 device-resident round trip is not bit-exact")
+    missing = [name for name, c in bench_launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"HTC1 kernels not launched on the device-resident "
+                             f"path: {missing}")
+    genc_ms = [cuda_ms(lambda: bcodec.encode_device(blocks), 1)
+               for _ in range(3)]
+    gdec_ms = [cuda_ms(lambda: bcodec.decode_device(dcomp), 1)
+               for _ in range(5)]
+    genc_med, gdec_med = statistics.median(genc_ms), statistics.median(gdec_ms)
+    gprof = {"encode": device_profile(lambda: bcodec.encode_device(blocks),
+                                      "htc1 encode_device", gap_counts),
+             "decode": device_profile(lambda: bcodec.decode_device(dcomp),
+                                      "htc1 decode_device", gap_counts)}
+    log(f"  encode_device ms {[round(x, 3) for x in genc_ms]} median "
+        f"{genc_med:.3f} = {gb / genc_med / 1e6:.3f} GB/s")
+    log(f"  decode_device ms {[round(x, 3) for x in gdec_ms]} median "
+        f"{gdec_med:.3f} = {gb / gdec_med / 1e6:.3f} GB/s")
+    bench_timing = {}
+    label = f"bench 1x{gb} B"
+    dcomp = gap_encode_cases(stats, ge, bcodec, blocks, label, bench_timing)
+    gap_decode_cases(stats, gd, bcodec, bcodec.decode_device_plan(dcomp),
+                     int(dcomp.total_bits.sum()), blocks, label, bench_timing)
+
+    # ---- 8. results
     def times(t):
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
         o_ms = t.get("ops", 0) / ALU_OPS_PER_S * 1e3
@@ -492,26 +783,42 @@ def main(argv=None) -> int:
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
                 "library_ms": t.get("library_ms")}
 
+    def show(name, label, t, n_launches):
+        log(f"  {name + label:30s} out{tuple(t['shape'] or ())} "
+            f"equal={stats.rows[name]['max_abs_err'] == 0} kernel_ms={t['ms']} "
+            f"wrapper_ms={t['wrapper_ms']} plain_ms={t['plain_ms']} "
+            f"bound_ms={t['bound_ms']} ({t['bound_by']}) launches={n_launches}"
+            + ("" if t["library_ms"] is None
+               else f" library_ms={t['library_ms']}"))
+
+    # each kernel's launches in its path's end-to-end run (phase 4 or 6)
+    # beside its times at the shapes of that run; A4/A5 also at the full
+    # section, B1/B2 also at the tail group
+    main_timing.update(htc1_timing)
+    extra = {name: ("full_section", t) for name, t in section_timing.items()}
+    extra.update({name: ("tail", t) for name, t in tail_timing.items()})
     log(f"per kernel at the main path's shapes ({card}):")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
+               **({"also_replaces": FOLDED[name]} if name in FOLDED else {}),
                "max_abs_err": stats.rows[name]["max_abs_err"],
                "checks": stats.rows[name]["checks"],
                **times(main_timing.get(name, {}))}
-        if name in section_timing:
-            row["full_section"] = times(section_timing[name])
+        show(name, "", row, launches[name])
+        if name in extra:
+            key, t = extra[name]
+            row[key] = times(t)
+            show(name, " " + key.replace("_", " "), row[key], launches[name])
         rows.append(row)
-        for label, t in (("", row), (" full section", row.get("full_section"))):
-            if t is not None:
-                log(f"  {name + label:30s} out{tuple(t['shape'] or ())} "
-                    f"equal={row['max_abs_err'] == 0} kernel_ms={t['ms']} "
-                    f"wrapper_ms={t['wrapper_ms']} plain_ms={t['plain_ms']} "
-                    f"bound_ms={t['bound_ms']} ({t['bound_by']}) "
-                    f"launches={launches[name]}"
-                    + ("" if t["library_ms"] is None
-                       else f" library_ms={t['library_ms']}"))
+    log(f"HTC1 kernels at the bench shape, launches of its one "
+        f"encode_device + decode_device ({card}):")
+    bench_rows = []
+    for name in bench_launches:
+        t = times(bench_timing[name])
+        show(name, " bench", t, bench_launches[name])
+        bench_rows.append({"name": name, "launches": bench_launches[name], **t})
     log(json.dumps({
         "e2e": {"bytes": n, "encode_ms_median": enc_med,
                 "decode_ms_median": dec_med,
@@ -519,6 +826,12 @@ def main(argv=None) -> int:
                 "decode_gbps": n / dec_med / 1e6,
                 "container_bytes": len(blob), "card": card,
                 "profile": prof},
+        "htc1": {"bytes": n, "container_bytes": len(gblob),
+                 "block_bytes": gb, "encode_device_ms_median": genc_med,
+                 "decode_device_ms_median": gdec_med,
+                 "encode_device_gbps": gb / genc_med / 1e6,
+                 "decode_device_gbps": gb / gdec_med / 1e6,
+                 "card": card, "profile": gprof, "kernels": bench_rows},
     }))
     log(card)
     log(json.dumps({"kernels": rows}))

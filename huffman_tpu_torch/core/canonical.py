@@ -15,7 +15,7 @@ import numpy as np
 
 from ..constants import ALPHABET_SIZE, MAX_CODEWORD_LENGTH
 
-__all__ = ["CodeTable", "canonical_code_table", "chain_spec"]
+__all__ = ["CodeTable", "canonical_code_table", "chain_spec", "build_flat_lut"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +123,32 @@ def canonical_code_table(
         offsets=offsets,
         lim_left=lim_left,
     )
+
+
+def build_flat_lut(table: CodeTable, lut_bits: int | None = None):
+    """Single-level decode LUT: 2^lut_bits entries of (symbol, length);
+    every codeword of length l fills ``2**(lut_bits-l)`` consecutive rows.
+
+    Returns (lut_sym (2^B,) uint8, lut_len (2^B,) uint8)."""
+    b = int(lut_bits if lut_bits is not None else table.max_len)
+    if table.max_len_present > b:
+        raise ValueError("lut_bits smaller than longest codeword")
+    lut_sym = np.zeros(1 << b, np.uint8)
+    lut_len = np.zeros(1 << b, np.uint8)
+    syms = table.symtab
+    if syms.size == 0:
+        return lut_sym, lut_len
+    ls = table.lengths[syms].astype(np.int64)
+    cs = table.codes[syms].astype(np.int64)
+    widths = np.int64(1) << (b - ls)
+    reps = np.repeat(np.arange(len(syms)), widths)
+    # concatenated [0, w) ranges, one per codeword
+    ranges = np.arange(int(widths.sum()), dtype=np.int64) - np.repeat(
+        np.cumsum(widths) - widths, widths)
+    idx = np.repeat(cs << (b - ls), widths) + ranges
+    lut_sym[idx] = syms[reps]
+    lut_len[idx] = ls[reps].astype(np.uint8)
+    return lut_sym, lut_len
 
 
 def chain_spec(table: CodeTable) -> tuple[tuple[int, int], ...]:

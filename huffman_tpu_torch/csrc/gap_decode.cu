@@ -1,0 +1,135 @@
+// HTC1 gap-array decode for Hopper: segment ranks (kernel B1) and the
+// ragged placement of the symbols (kernel B2).
+//
+// gap_decode_ranks_kernel replaces huffman_tpu/ops/pallas/decode_kernel.py:
+// _kernel (wrapper decode_ranks_pallas) together with the decode use of
+// compact_kernel.py:_assemble_kernel (B3).  One thread per segment: it
+// starts at bit s*seg_bits + gap[s] of its block, decodes count[s]
+// canonical codewords and writes their ranks (rank & 255) as bytes into
+// row s of a (segments, max_count) matrix, zero past count[s].  The TPU's
+// relayout of segment words into lanes (_segw_planes), its one-hot pair
+// refill and the rows transpose of B3 all exist for the vector layout; a
+// thread here loads its own words, so none survives.  Words past the
+// block's end read as zeros (the JAX package pads each block to the
+// segment grid instead).
+//
+// gap_place_bytes_kernel replaces compact_kernel.py:_kernel (wrapper
+// ragged_concat_pallas): out[off[s] + i] = symtab[rank[s, i]] for
+// i < count[s], with off the exclusive prefix sum of the counts.  The
+// extents are disjoint, so there are no atomics, and no band plan
+// (plan_compact / plan_tiles) is needed: one warp per segment, its lanes
+// striding over the row, so reads and writes are coalesced.
+//
+// Bounds on this card.  B1 reads the payload once and writes the rank
+// matrix (~1 byte per symbol); its time is the serial bit chain of each
+// segment (length compare -> shift -> next window), ~200 symbols at
+// seg_bits=1024, with one thread per segment.  B2 is bytes-bound: rank
+// matrix in, output out.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define RANK_THREADS 128
+#define PLACE_THREADS 256
+#define PLACE_WARPS (PLACE_THREADS / 32)
+
+__global__ void __launch_bounds__(RANK_THREADS) gap_decode_ranks_kernel(
+    const uint32_t* __restrict__ words, const int* __restrict__ gaps,
+    const int* __restrict__ counts, const uint32_t* __restrict__ lim,
+    const int* __restrict__ bias, uint8_t* __restrict__ ranks,
+    long long n_segs_all, int n_segs, long long n_words, int seg_bits,
+    int max_count, int min_len, int max_len) {
+  __shared__ uint32_t s_lim[32];
+  __shared__ int s_bias[32];
+  if (threadIdx.x < 32) {
+    s_lim[threadIdx.x] = lim[threadIdx.x];
+    s_bias[threadIdx.x] = bias[threadIdx.x];
+  }
+  __syncthreads();
+
+  const long long t = (long long)blockIdx.x * RANK_THREADS + threadIdx.x;
+  if (t >= n_segs_all) return;
+  const long long g = t / n_segs;
+  const long long s = t - g * n_segs;
+  const uint32_t* w = words + g * n_words;
+  // word i of this block; zero outside it
+  auto word = [&](long long i) -> uint64_t {
+    return (i >= 0 && i < n_words) ? w[i] : 0u;
+  };
+  const int n = min(max(counts[t], 0), max_count);
+  uint8_t* row = ranks + t * max_count;
+
+  // 64-bit window, its top `nbits` bits valid; nbits >= 33 before every
+  // codeword, so the top 32 bits are always stream bits
+  const long long pos = s * seg_bits + gaps[t];
+  const long long w0 = pos >> 5;
+  const int off = (int)(pos & 31);
+  uint64_t buf = ((word(w0) << 32) | word(w0 + 1)) << off;
+  int nbits = 64 - off;
+  long long next = w0 + 2;
+  for (int i = 0; i < n; ++i) {
+    const uint32_t win = (uint32_t)(buf >> 32);
+    // canonical length: min_len + #{l in [min_len, max_len) : win >= lim}
+    int ln = min_len;
+    for (int l = min_len; l < max_len; ++l) ln += (win >= s_lim[l]);
+    // ln is in [1, 16], so every shift below is in range
+    row[i] = (uint8_t)(s_bias[ln] + (int)(win >> (32 - ln)));
+    buf <<= ln;
+    nbits -= ln;
+    if (nbits <= 32) {
+      buf |= word(next++) << (32 - nbits);
+      nbits += 32;
+    }
+  }
+  for (int i = n; i < max_count; ++i) row[i] = 0;
+}
+
+__global__ void __launch_bounds__(PLACE_THREADS) gap_place_bytes_kernel(
+    const uint8_t* __restrict__ ranks, const int* __restrict__ counts,
+    const long long* __restrict__ offsets, const int* __restrict__ symtab,
+    uint8_t* __restrict__ out, long long n_segs_all, int max_count,
+    long long n_out) {
+  __shared__ uint8_t s_sym[256];
+  for (int j = threadIdx.x; j < 256; j += PLACE_THREADS) s_sym[j] = (uint8_t)symtab[j];
+  __syncthreads();
+
+  const long long seg = (long long)blockIdx.x * PLACE_WARPS + (threadIdx.x >> 5);
+  if (seg >= n_segs_all) return;
+  const int n = min(max(counts[seg], 0), max_count);
+  const long long o = offsets[seg];
+  const uint8_t* row = ranks + seg * max_count;
+  // a corrupt count or offset stays inside the output
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    const long long d = o + i;
+    if (d >= 0 && d < n_out) out[d] = s_sym[row[i]];
+  }
+}
+
+extern "C" int gap_decode_ranks_launch(const void* words, const void* gaps,
+                                       const void* counts, const void* lim,
+                                       const void* bias, void* ranks,
+                                       long long n_segs_all, int n_segs,
+                                       long long n_words, int seg_bits,
+                                       int max_count, int min_len,
+                                       int max_len, void* stream) {
+  const long long blocks = (n_segs_all + RANK_THREADS - 1) / RANK_THREADS;
+  gap_decode_ranks_kernel<<<(unsigned)blocks, RANK_THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (const int*)gaps, (const int*)counts,
+      (const uint32_t*)lim, (const int*)bias, (uint8_t*)ranks, n_segs_all,
+      n_segs, n_words, seg_bits, max_count, min_len, max_len);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gap_place_bytes_launch(const void* ranks, const void* counts,
+                                      const void* offsets, const void* symtab,
+                                      void* out, long long n_segs_all,
+                                      int max_count, long long n_out,
+                                      void* stream) {
+  const long long blocks = (n_segs_all + PLACE_WARPS - 1) / PLACE_WARPS;
+  gap_place_bytes_kernel<<<(unsigned)blocks, PLACE_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      (const uint8_t*)ranks, (const int*)counts, (const long long*)offsets,
+      (const int*)symtab, (uint8_t*)out, n_segs_all, max_count, n_out);
+  return (int)cudaGetLastError();
+}

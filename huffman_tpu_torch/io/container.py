@@ -1,7 +1,7 @@
-"""ILS1 — the interleaved-stream container, byte-identical to the JAX
-package's writer and reader (`huffman_tpu/io/container.py`).
+"""The ILS1 and HTC1 containers, byte-identical to the JAX package's
+writers and readers (`huffman_tpu/io/container.py`), with the same errors.
 
-Layout (little-endian):
+ILS1 layout (little-endian):
 
     magic          4s  b"ILS1"
     version        u8  3, or 4 when any section is rotated (v4 adds the
@@ -19,6 +19,25 @@ Layout (little-endian):
       n_tiles x w_tile u32
       n_tiles x n_win(k) x boff i32   # windowed decode band anchors
       payload u32 x (sum(w_tiles) * 1024)
+
+HTC1 layout (little-endian), the gap-array codec's:
+
+    magic            4s   b"HTC1"
+    version          u8   2 (v2 adds the crc32 field; v1 readable)
+    flags            u8   bit0: segments carry counts
+    log2_seg_bits    u8
+    max_len          u8
+    n_sym            u16
+    crc32            u32  (v2) over str(original_size), then every block's
+                          segment metadata and payload
+    n_sym x (symbol u8, length u8)      # canonical order
+    original_size    u64
+    block_bytes      u32
+    n_blocks         u32
+    n_blocks x total_bits u64
+    per block:
+      seg metadata   u16 x ceil(total_bits/seg_bits): (count << 4) | gap
+      payload        u32 x ceil(total_bits/32)
 """
 
 from __future__ import annotations
@@ -29,6 +48,7 @@ import zlib
 import numpy as np
 import torch
 
+from ..constants import GAP_BITS
 from ..core.canonical import CodeTable, canonical_code_table
 from ..core.ils_ref import (
     ILS_LANES,
@@ -38,9 +58,20 @@ from ..core.ils_ref import (
     ils_n_win,
 )
 
-__all__ = ["write_ils_container", "read_ils_container", "ils_container_size"]
+__all__ = [
+    "write_container",
+    "read_container",
+    "container_size",
+    "container_kind",
+    "write_ils_container",
+    "read_ils_container",
+    "ils_container_size",
+]
 
+MAGIC = b"HTC1"
 ILS_MAGIC = b"ILS1"
+_HEADER = struct.Struct("<4sBBBBH")
+_SIZES = struct.Struct("<QII")
 _ILS_HEADER = struct.Struct("<4sBBHQBI")  # trailing u32: crc32 of payloads
 _ILS_SECTION = struct.Struct("<IIiIII")
 _ROT_FLAGS = 1 | (ILS_ROT_SUB << 8) | (ILS_ROT_LANE << 12)
@@ -61,6 +92,107 @@ def _crc(original_size: int, payloads) -> int:
     return crc & 0xFFFFFFFF
 
 
+def container_kind(buf: bytes) -> str:
+    """"htc1" | "ils1" from the magic, else ValueError."""
+    head = bytes(buf[:4])
+    if head == MAGIC:
+        return "htc1"
+    if head == ILS_MAGIC:
+        return "ils1"
+    raise ValueError("unknown container magic")
+
+
+# ----------------------------------------------------------------------
+# HTC1
+# ----------------------------------------------------------------------
+def _htc_block_parts(comp):
+    for words, gaps, counts in zip(comp.block_words, comp.block_gaps,
+                                   comp.block_counts):
+        meta = (counts.astype(np.uint16) << GAP_BITS) | gaps.astype(np.uint16)
+        yield meta.tobytes()
+        yield words.astype(np.uint32).tobytes()
+
+
+def container_size(comp) -> int:
+    size = (_HEADER.size + 4 + 2 * comp.table.num_symbols + _SIZES.size
+            + 8 * comp.n_blocks)
+    for tb in comp.block_total_bits:
+        size += 2 * -(-tb // comp.seg_bits) + 4 * -(-tb // 32)
+    return size
+
+
+def write_container(comp) -> bytes:
+    """Serialize a gap-codec `Compressed` (host arrays) as HTC1 v2."""
+    log2_seg = comp.seg_bits.bit_length() - 1
+    if 1 << log2_seg != comp.seg_bits:
+        raise ValueError("seg_bits must be a power of two")
+    blocks = list(_htc_block_parts(comp))  # materialize once: CRC + body
+    return b"".join([
+        _HEADER.pack(MAGIC, 2, 1, log2_seg, comp.table.max_len,
+                     comp.table.num_symbols),
+        struct.pack("<I", _crc(comp.original_size, blocks)),
+        _table_entries(comp.table).tobytes(),
+        _SIZES.pack(comp.original_size, comp.block_bytes, comp.n_blocks),
+        np.asarray(comp.block_total_bits, np.uint64).tobytes(),
+        *blocks,
+    ])
+
+
+def read_container(buf: bytes):
+    """Parse an HTC1 container (v1 or v2) into a host `Compressed`."""
+    from ..models.gap_codec import Compressed
+
+    mv = memoryview(buf)
+    if len(buf) < _HEADER.size or bytes(mv[:4]) != MAGIC:
+        raise ValueError("not an HTC1 container (bad magic)")
+    _, version, _, log2_seg, max_len, n_sym = _HEADER.unpack_from(mv, 0)
+    if version not in (1, 2):
+        raise ValueError(f"unsupported container version {version}")
+    off = _HEADER.size
+    crc_stored = None
+    if version >= 2:
+        (crc_stored,) = struct.unpack_from("<I", mv, off)
+        off += 4
+    entries = np.frombuffer(mv, np.uint8, 2 * n_sym, off).reshape(n_sym, 2)
+    off += 2 * n_sym
+    lengths = np.zeros(256, np.uint8)
+    lengths[entries[:, 0]] = entries[:, 1]
+    table = canonical_code_table(lengths, max_len)
+
+    original_size, block_bytes, n_blocks = _SIZES.unpack_from(mv, off)
+    off += _SIZES.size
+    total_bits = np.frombuffer(mv, np.uint64, n_blocks, off).astype(np.int64)
+    off += 8 * n_blocks
+
+    seg_bits = 1 << log2_seg
+    comp = Compressed(
+        table=table, seg_bits=seg_bits, original_size=int(original_size),
+        block_bytes=int(block_bytes), block_words=[],
+        block_total_bits=[int(t) for t in total_bits], block_gaps=[],
+        block_counts=[],
+    )
+    for tb in comp.block_total_bits:
+        n_segs = -(-tb // seg_bits)
+        n_words = -(-tb // 32)
+        if off + 2 * n_segs + 4 * n_words > len(buf):
+            raise ValueError("truncated HTC1 container")
+        meta = np.frombuffer(mv, np.uint16, n_segs, off)
+        off += 2 * n_segs
+        comp.block_gaps.append((meta & ((1 << GAP_BITS) - 1)).astype(np.uint8))
+        comp.block_counts.append((meta >> GAP_BITS).astype(np.int32))
+        comp.block_words.append(np.frombuffer(mv, np.uint32, n_words, off).copy())
+        off += 4 * n_words
+    if off != len(buf):
+        raise ValueError(f"container has {len(buf) - off} trailing bytes")
+    if crc_stored is not None and \
+            _crc(comp.original_size, _htc_block_parts(comp)) != crc_stored:
+        raise ValueError("HTC1 container payload checksum mismatch")
+    return comp
+
+
+# ----------------------------------------------------------------------
+# ILS1
+# ----------------------------------------------------------------------
 def ils_container_size(comp) -> int:
     size = _ILS_HEADER.size + 2 * comp.table.num_symbols
     for sec in comp.sections:

@@ -1,11 +1,11 @@
 """Carry codec state across from NumPy fields.
 
 This system has no weights: its state is the code table and the encoded
-sections.  These build the port's `CodeTable` and `IlsSection` from the
-plain NumPy fields of any producer's table, schedule parameters and
-payload (the JAX package's `CodeTable`, `IlsParams` and `IlsSection` have
-exactly these fields), so a section encoded elsewhere decodes here and
-vice versa.
+sections or blocks.  These build the port's `CodeTable`, `IlsSection`,
+`Compressed` and `DeviceCompressed` from the plain NumPy fields of any
+producer's table, schedule parameters, metadata and payload (the JAX
+package's types of the same names have exactly these fields), so what is
+encoded elsewhere decodes here and vice versa.
 """
 
 from __future__ import annotations
@@ -16,7 +16,12 @@ import torch
 from ..core.canonical import CodeTable, canonical_code_table
 from ..core.ils_ref import ILS_LANES, IlsParams, ils_n_win
 
-__all__ = ["code_table_from_numpy", "section_from_numpy"]
+__all__ = [
+    "code_table_from_numpy",
+    "section_from_numpy",
+    "compressed_from_numpy",
+    "device_compressed_from_numpy",
+]
 
 
 def code_table_from_numpy(lengths: np.ndarray, max_len: int) -> CodeTable:
@@ -43,3 +48,41 @@ def section_from_numpy(k, snum, boffs, w_band, w_cap, w_tiles, n_tiles, rot,
         rot=bool(rot),
     )
     return IlsSection(params=params, payload=torch.from_numpy(payload.copy()))
+
+
+def compressed_from_numpy(lengths, max_len, seg_bits, original_size,
+                          block_bytes, block_words, block_total_bits,
+                          block_gaps, block_counts):
+    """A host `Compressed` of the gap codec from its NumPy fields (per
+    block: uint32 payload, total bits, uint8 gaps, int32 counts)."""
+    from ..models.gap_codec import Compressed
+
+    return Compressed(
+        table=code_table_from_numpy(lengths, max_len), seg_bits=int(seg_bits),
+        original_size=int(original_size), block_bytes=int(block_bytes),
+        block_words=[np.asarray(w, np.uint32).copy() for w in block_words],
+        block_total_bits=[int(t) for t in block_total_bits],
+        block_gaps=[np.asarray(x, np.uint8).copy() for x in block_gaps],
+        block_counts=[np.asarray(x, np.int32).copy() for x in block_counts],
+    )
+
+
+def device_compressed_from_numpy(lengths, max_len, seg_bits, original_size,
+                                 block_bytes, words, total_bits, gaps,
+                                 counts, device="cuda"):
+    """A `DeviceCompressed` on ``device`` from NumPy fields: words (G, W)
+    uint32, total_bits (G,), gaps and counts (G, n_segs)."""
+    from ..models.gap_codec import DeviceCompressed
+    from ..ops.ils import resolve_device
+
+    dev = resolve_device(device)
+
+    def put(x, dtype):  # a copy: the source array may be read-only
+        return torch.from_numpy(np.array(x, dtype).view(np.int32)).to(dev)
+
+    return DeviceCompressed(
+        table=code_table_from_numpy(lengths, max_len), seg_bits=int(seg_bits),
+        original_size=int(original_size), block_bytes=int(block_bytes),
+        words=put(words, np.uint32), total_bits=put(total_bits, np.int32),
+        gaps=put(gaps, np.int32), counts=put(counts, np.int32),
+    )

@@ -1,0 +1,291 @@
+"""HTC1 encode kernels B4b-B4d: wrappers, plain versions, launch counts.
+
+Counterpart of `huffman_tpu/ops/pallas/gap_encode_kernel.py`
+(`encode_blocks_pallas`), bit-identical to it and to
+`ops/encode.py::encode_block`.  Routing as in `ops/ils_kernels.py`: a CUDA
+tensor launches the kernel of ``csrc/gap_encode.cu`` or raises, a CPU
+tensor runs the plain version.  A block is cut into rows of
+``ROW_BYTES = 128`` input bytes:
+
+- `gap_row_pack` (B4b; the input relayout B4a and B3's encode use are its
+  addressing): each row packed MSB-first into ``cap_words`` u32 words,
+  with its bit count and each symbol's start bit within the row;
+- `gap_row_meta` (B4c): per segment, the number of codewords starting in
+  it and its first start;
+- `gap_place_bits` (B4d): each row's bits written at its block-local start
+  bit of the output;
+- `encode_blocks`: the three, with the per-block cumsum of row bits and the
+  gap formula between them as plain tensor code (the JAX package's XLA
+  glue).  The TPU's VMEM geometry (`_geometry`, `_flush_window`, chunk
+  plans) and its int32 global bit offsets are not carried over.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .ils_kernels import (
+    _M32,
+    _check,
+    _launched,
+    _lib,
+    _same_device,
+    _stream,
+    _to_i32,
+    _u32,
+    _use_kernel,
+)
+
+__all__ = [
+    "ROW_BYTES",
+    "row_cap_words",
+    "gap_row_pack",
+    "gap_row_pack_plain",
+    "gap_row_meta",
+    "gap_row_meta_plain",
+    "gap_place_bits",
+    "gap_place_bits_plain",
+    "encode_blocks",
+    "reset_launch_counts",
+    "launch_counts",
+]
+
+ROW_BYTES = 128  # input bytes per row
+ROW_WORDS = ROW_BYTES // 4
+_INT32_MAX = (1 << 31) - 1
+
+
+def row_cap_words(max_len: int) -> int:
+    """u32 words a row of 128 codewords of at most max_len bits needs,
+    rounded to whole 64-bit pairs as in the JAX package."""
+    return 2 * -(-ROW_BYTES * max_len // 64)
+
+
+def _low_bits(x, n):
+    """The low n bits of x (n in [0, 32])."""
+    return x & ((1 << n) - 1)
+
+
+# ----------------------------------------------------------------------
+# B4b: row pack
+# ----------------------------------------------------------------------
+def gap_row_pack_plain(rows, enc, *, cap_words):
+    n_rows = rows.shape[0]
+    e = enc.to(torch.int64)[rows.view(torch.uint8).to(torch.int64)]
+    ln = e >> 20
+    left = ((e & 0xFFFF) << (32 - ln)) & _M32  # ln == 0 gives 0
+    ends = torch.cumsum(ln, 1)
+    starts = ends - ln
+    sh = starts & 31
+    w0 = starts >> 5
+    # the spare last word takes what a row of cap_words cannot hold
+    pay = torch.zeros((n_rows, cap_words + 1), dtype=torch.int64,
+                      device=rows.device)
+    pay.scatter_add_(1, w0.clamp(max=cap_words), left >> sh)
+    pay.scatter_add_(1, (w0 + 1).clamp(max=cap_words),
+                     _low_bits(left, sh) << (32 - sh))
+    return (_to_i32(pay[:, :cap_words]), ends[:, -1].to(torch.int32),
+            starts.to(torch.int16))
+
+
+def gap_row_pack(rows, enc, *, cap_words):
+    """Pack each row of (n_rows, 32) int32 input words (128 bytes,
+    little-endian within a word) with the (256,) int32 table of
+    ``(len << 20) | code`` (`ils_kernels.ils_enc_tabs`).
+
+    Returns (pay (n_rows, cap_words) int32 — MSB-first u32 words, zero past
+    the row's bits —, bits (n_rows,) int32, starts (n_rows, 128) int16
+    start bit of each symbol within its row)."""
+    _check("rows", rows, torch.int32)
+    if rows.dim() != 2 or rows.shape[1] != ROW_WORDS:
+        raise ValueError(f"rows must be (n_rows, {ROW_WORDS}), got "
+                         f"{tuple(rows.shape)}")
+    _check("enc", enc, torch.int32, (256,))
+    _same_device(rows, enc)
+    if not _use_kernel(rows):
+        return gap_row_pack_plain(rows, enc, cap_words=cap_words)
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        # the kernel reads each row with 16-byte loads
+        raise ValueError("rows must be contiguous and 16-byte aligned")
+    n_rows = rows.shape[0]
+    dev = rows.device
+    pay = torch.empty((n_rows, cap_words), dtype=torch.int32, device=dev)
+    bits = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    starts = torch.empty((n_rows, ROW_BYTES), dtype=torch.int16, device=dev)
+    if n_rows == 0:
+        return pay, bits, starts
+    rc = _lib("gap_encode").gap_row_pack_launch(
+        rows.data_ptr(), enc.data_ptr(), pay.data_ptr(), bits.data_ptr(),
+        starts.data_ptr(), n_rows, cap_words, _stream(rows),
+    )
+    _launched(gap_row_pack, rc)
+    return pay, bits, starts
+
+
+# ----------------------------------------------------------------------
+# B4c: segment metadata
+# ----------------------------------------------------------------------
+def gap_row_meta_plain(starts, s_local, *, rows_per_block, n_segs, seg_bits):
+    dev = starts.device
+    n_rows = starts.shape[0]
+    g_n = n_rows // rows_per_block
+    a = s_local[:, None] + starts.to(torch.int64)
+    seg = a >> (seg_bits.bit_length() - 1)
+    g = torch.arange(n_rows, device=dev)[:, None] // rows_per_block
+    ok = (seg >= 0) & (seg < n_segs)
+    idx = torch.where(ok, g * n_segs + seg, g_n * n_segs).reshape(-1)
+    counts = torch.zeros(g_n * n_segs + 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, idx, torch.ones_like(idx))
+    firsts = torch.full((g_n * n_segs + 1,), _INT32_MAX, dtype=torch.int64,
+                        device=dev)
+    firsts.scatter_reduce_(0, idx, a.reshape(-1), "amin")
+    return (counts[:-1].to(torch.int32).view(g_n, n_segs),
+            firsts[:-1].to(torch.int32).view(g_n, n_segs))
+
+
+def gap_row_meta(starts, s_local, *, rows_per_block, n_segs, seg_bits):
+    """Per-segment metadata of G blocks of rows_per_block rows each.
+
+    starts: (n_rows, 128) int16 from `gap_row_pack`; s_local: (n_rows,)
+    int64 block-local start bit of each row.  Returns (counts, firsts),
+    each (G, n_segs) int32: the codewords starting in each segment and
+    the first start bit (block-local), INT32_MAX where none starts."""
+    _check("starts", starts, torch.int16)
+    n_rows = starts.shape[0]
+    if starts.dim() != 2 or starts.shape[1] != ROW_BYTES or rows_per_block <= 0 \
+            or n_rows % rows_per_block:
+        raise ValueError(f"starts must be (G * {rows_per_block}, {ROW_BYTES}), "
+                         f"got {tuple(starts.shape)}")
+    if seg_bits <= 0 or seg_bits & (seg_bits - 1):
+        raise ValueError("seg_bits must be a power of two")
+    _check("s_local", s_local, torch.int64, (n_rows,))
+    _same_device(starts, s_local)
+    kw = dict(rows_per_block=rows_per_block, n_segs=n_segs, seg_bits=seg_bits)
+    if not _use_kernel(starts):
+        return gap_row_meta_plain(starts, s_local, **kw)
+    g_n = n_rows // rows_per_block
+    counts = torch.zeros((g_n, n_segs), dtype=torch.int32, device=starts.device)
+    firsts = torch.full((g_n, n_segs), _INT32_MAX, dtype=torch.int32,
+                        device=starts.device)
+    if n_rows == 0:
+        return counts, firsts
+    rc = _lib("gap_encode").gap_row_meta_launch(
+        starts.data_ptr(), s_local.data_ptr(), counts.data_ptr(),
+        firsts.data_ptr(), n_rows, rows_per_block, n_segs,
+        seg_bits.bit_length() - 1, _stream(starts),
+    )
+    _launched(gap_row_meta, rc)
+    return counts, firsts
+
+
+# ----------------------------------------------------------------------
+# B4d: bit placement
+# ----------------------------------------------------------------------
+def gap_place_bits_plain(pay, bits, s_local, *, rows_per_block, out_words):
+    dev = pay.device
+    n_rows, cap_words = pay.shape
+    g_n = n_rows // rows_per_block
+    zero = torch.zeros((n_rows, 1), dtype=torch.int64, device=dev)
+    bits = bits.to(torch.int64).clamp(0, 32 * cap_words)[:, None]
+    k = torch.arange(cap_words + 1, device=dev)[None, :]
+    keep = (bits - 32 * k).clamp(0, 32)  # bits of word k inside the row
+    cur = torch.cat([_u32(pay), zero], 1)
+    cur = cur & (((1 << keep) - 1) << (32 - keep))
+    prev = torch.cat([zero, cur[:, :-1]], 1)
+    sh = (s_local & 31)[:, None]
+    v = (cur >> sh) | (_low_bits(prev, sh) << (32 - sh))
+    dst = (s_local >> 5)[:, None] + k
+    ok = (bits > 0) & (k <= (sh + bits - 1) >> 5) & (dst >= 0) & (dst < out_words)
+    g = torch.arange(n_rows, device=dev)[:, None] // rows_per_block
+    idx = torch.where(ok, g * out_words + dst, g_n * out_words)
+    # the rows' bit ranges are disjoint, so the sum is the OR
+    out = torch.zeros(g_n * out_words + 1, dtype=torch.int64, device=dev)
+    out.index_add_(0, idx.reshape(-1), v.reshape(-1))
+    return _to_i32(out[:-1]).view(g_n, out_words)
+
+
+def gap_place_bits(pay, bits, s_local, *, rows_per_block, out_words):
+    """Place G blocks' rows: returns (G, out_words) int32 MSB-first u32
+    words, row r's first bits(r) bits at block-local bit s_local[r], zero
+    elsewhere.  pay: (n_rows, cap_words) int32; bits: (n_rows,) int32;
+    s_local: (n_rows,) int64.  Words past out_words are dropped."""
+    _check("pay", pay, torch.int32)
+    n_rows = pay.shape[0]
+    if pay.dim() != 2 or rows_per_block <= 0 or n_rows % rows_per_block:
+        raise ValueError(f"pay must be (G * {rows_per_block}, cap_words), "
+                         f"got {tuple(pay.shape)}")
+    _check("bits", bits, torch.int32, (n_rows,))
+    _check("s_local", s_local, torch.int64, (n_rows,))
+    _same_device(pay, bits, s_local)
+    kw = dict(rows_per_block=rows_per_block, out_words=out_words)
+    if not _use_kernel(pay):
+        return gap_place_bits_plain(pay, bits, s_local, **kw)
+    g_n = n_rows // rows_per_block
+    # zeroed: the boundary words are OR'ed in, words past the bits stay 0
+    out = torch.zeros((g_n, out_words), dtype=torch.int32, device=pay.device)
+    if n_rows == 0:
+        return out
+    rc = _lib("gap_encode").gap_place_bits_launch(
+        pay.data_ptr(), bits.data_ptr(), s_local.data_ptr(), out.data_ptr(),
+        n_rows, rows_per_block, pay.shape[1], out_words, _stream(pay),
+    )
+    _launched(gap_place_bits, rc)
+    return out
+
+
+# ----------------------------------------------------------------------
+# Orchestration
+# ----------------------------------------------------------------------
+def encode_blocks(blocks, enc, *, seg_bits, max_words, n_segs, max_len):
+    """Encode (G, B) uint8 blocks, B a positive multiple of 128.
+
+    Bit-identical to `ops.encode.encode_block` per block: returns (words
+    (G, max_words+1) int32 u32 bits, total_bits (G,) int32, gaps and
+    counts (G, n_segs) int32).  enc: (256,) int32 ``(len << 20) | code``;
+    max_len bounds the table's code lengths; max_words >= ceil(total_bits
+    / 32) and n_segs >= ceil(total_bits / seg_bits) per block.  (The JAX
+    function's min_len argument sized its VMEM windows only.)"""
+    g_n, b = blocks.shape
+    if b == 0 or b % ROW_BYTES:
+        raise ValueError(f"block size {b} is not a positive multiple of "
+                         f"{ROW_BYTES}")
+    rows_b = b // ROW_BYTES
+    if not blocks.is_contiguous() or blocks.data_ptr() % 16:
+        # a slice at any byte offset (a tail, a user's view): a copy is
+        # aligned for the int32 view and the kernel's 16-byte row loads
+        blocks = blocks.clone(memory_format=torch.contiguous_format)
+    rows = blocks.view(torch.int32).view(g_n * rows_b, ROW_WORDS)
+    pay, bits, starts = gap_row_pack(rows, enc, cap_words=row_cap_words(max_len))
+
+    # XLA glue of the JAX package: per-block cumsum of the row bits
+    bits_blk = bits.view(g_n, rows_b).to(torch.int64)
+    ends = torch.cumsum(bits_blk, 1)
+    total_bits = ends[:, -1:]
+    s_local = (ends - bits_blk).reshape(-1)
+
+    counts, firsts = gap_row_meta(starts, s_local, rows_per_block=rows_b,
+                                  n_segs=n_segs, seg_bits=seg_bits)
+    bounds = torch.arange(n_segs, dtype=torch.int64,
+                          device=blocks.device)[None] * seg_bits
+    # a start-less segment below total_bits (the last codeword straddles
+    # into it) points its gap at total_bits, as encode_block's searchsorted
+    gaps = torch.where(bounds < total_bits,
+                       torch.minimum(firsts, total_bits) - bounds, 0)
+    words = gap_place_bits(pay, bits, s_local, rows_per_block=rows_b,
+                           out_words=max_words + 1)
+    return (words, total_bits[:, 0].to(torch.int32), gaps.to(torch.int32),
+            counts)
+
+
+_WRAPPERS = (gap_row_pack, gap_row_meta, gap_place_bits)
+for _fn in _WRAPPERS:
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

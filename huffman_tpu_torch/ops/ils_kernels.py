@@ -128,7 +128,7 @@ def _use_kernel(x: torch.Tensor) -> bool:
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"ILS kernels run on CUDA or CPU tensors, not {x.device}")
+    raise ValueError(f"the kernels run on CUDA or CPU tensors, not {x.device}")
 
 
 def _check(name, x, dtype, shape=None):

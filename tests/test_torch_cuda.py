@@ -134,3 +134,123 @@ def test_codec_container_matches_cpu(cuda, n_extra):
         out = codec.decode(read_ils_container(blobs[-1]))
         assert np.array_equal(out.cpu().numpy(), data)
     assert blobs[0] == blobs[1]
+
+
+# ----------------------------------------------------------------------
+# HTC1 kernels B1, B2, B4b-B4d
+# ----------------------------------------------------------------------
+def _gap_data(kind, n):
+    if kind == "single":
+        return np.full(n, 3, np.uint8)
+    if kind == "uniform":
+        return np.arange(n, dtype=np.uint8)
+    return generate_redundant(n, float(kind), seed=21)
+
+
+@pytest.mark.parametrize("kind,g,b,seg_bits", [
+    ("0.1", 2, 8192, 1024), ("0.5", 3, 4096, 128), ("0.9", 1, 65536, 4096),
+    ("single", 2, 4096, 128), ("uniform", 2, 4096, 1024),
+])
+def test_gap_kernels_match_plain(cuda, kind, g, b, seg_bits):
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
+
+    gd.reset_launch_counts()
+    ge.reset_launch_counts()
+    data = _gap_data(kind, g * b)
+    codec = GapArrayCodec.fit(data, seg_bits=seg_bits, block_bytes=b,
+                              device=cuda)
+    blocks = torch.from_numpy(data.reshape(g, b).copy()).to(cuda)
+    rows = blocks.view(torch.int32).view(-1, 32)
+    cap = ge.row_cap_words(codec.table.max_len_present)
+    got = ge.gap_row_pack(rows, codec.enc, cap_words=cap)
+    assert _equal(got, ge.gap_row_pack_plain(rows, codec.enc, cap_words=cap))
+    pay, bits, starts = got
+    bits_blk = bits.view(g, -1).to(torch.int64)
+    s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+    n_segs = -(-int(bits_blk.sum(1).max()) // seg_bits) + 2
+    kw = dict(rows_per_block=b // 128, n_segs=n_segs, seg_bits=seg_bits)
+    assert _equal(ge.gap_row_meta(starts, s_local, **kw),
+                  ge.gap_row_meta_plain(starts, s_local, **kw))
+    kw = dict(rows_per_block=b // 128, out_words=n_segs * seg_bits // 32 + 1)
+    assert _equal(ge.gap_place_bits(pay, bits, s_local, **kw),
+                  ge.gap_place_bits_plain(pay, bits, s_local, **kw))
+
+    dcomp = codec.encode_device(blocks)
+    counts = dcomp.counts
+    mc = -(-int(counts.max()) // 8) * 8
+    lim, bias = gd.kernel_tabs(codec.dec)
+    kw = dict(seg_bits=seg_bits, max_count=mc, min_len=codec.spec.min_len,
+              max_len=codec.spec.max_len)
+    ranks = gd.gap_decode_ranks(dcomp.words, dcomp.gaps, counts, lim, bias, **kw)
+    assert _equal(ranks, gd.gap_decode_ranks_plain(dcomp.words, dcomp.gaps,
+                                                   counts, lim, bias, **kw))
+    flat = counts.reshape(-1)
+    offs = torch.cumsum(flat, 0, dtype=torch.int64) - flat
+    out = gd.gap_place_bytes(ranks, flat, offs, codec.dec.symtab, n_out=g * b)
+    assert _equal(out, gd.gap_place_bytes_plain(ranks, flat, offs,
+                                                codec.dec.symtab, n_out=g * b))
+    assert torch.equal(out, blocks.reshape(-1))
+    assert torch.equal(codec.decode_device(dcomp), blocks)
+    assert all(ge.launch_counts().values()) and all(gd.launch_counts().values())
+
+
+@pytest.mark.parametrize("n,block_bytes,seg_bits", [
+    (3 * 65536 + 777, 65536, 1024), (100000, 30000, 128), (1, 4096, 1024),
+    # a 128-byte tail at byte offset 1000 (8 mod 16) and 1001 (odd)
+    (1128, 1000, 1024), (1129, 1001, 1024),
+])
+def test_gap_codec_container_matches_cpu(cuda, n, block_bytes, seg_bits):
+    from huffman_tpu_torch import GapArrayCodec, read_container, write_container
+
+    data = generate_redundant(n, 0.5, seed=23)
+    blobs = []
+    for dev in ("cuda", "cpu"):
+        codec = GapArrayCodec.fit(data, seg_bits=seg_bits,
+                                  block_bytes=block_bytes, device=dev)
+        blobs.append(write_container(codec.encode(data)))
+        out = codec.decode(read_container(blobs[-1]))
+        assert np.array_equal(out.cpu().numpy(), data)
+    assert blobs[0] == blobs[1]
+
+
+def test_gap_row_pack_rejects_misaligned_rows(cuda):
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
+
+    codec = GapArrayCodec.fit(np.arange(256, dtype=np.uint8), device=cuda)
+    rows = torch.zeros(2 * 32 + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ge.gap_row_pack(rows.view(2, 32), codec.enc, cap_words=8)
+
+
+def test_gap_decode_kernels_stay_inside_buffers(cuda):
+    # corrupt metadata (negative gaps, counts past max_count or negative,
+    # offsets outside the output) is clamped in the kernels as in the
+    # plain versions: no fault, the same bytes
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+
+    rng = np.random.default_rng(3)
+    codec = GapArrayCodec.fit(generate_redundant(5000, 0.5, seed=4),
+                              device=cuda)
+    g, ns, nw = 2, 64, 50
+    words = torch.from_numpy(
+        rng.integers(0, 2**32, (g, nw), dtype=np.uint64).astype(np.uint32)
+        .view(np.int32)).to(cuda)
+    gaps = torch.from_numpy(rng.integers(-40, 40, (g, ns)).astype(np.int32)).to(cuda)
+    counts = torch.from_numpy(rng.integers(-5, 300, (g, ns)).astype(np.int32)).to(cuda)
+    lim, bias = gd.kernel_tabs(codec.dec)
+    kw = dict(seg_bits=128, max_count=64, min_len=codec.spec.min_len,
+              max_len=codec.spec.max_len)
+    ranks = gd.gap_decode_ranks(words, gaps, counts, lim, bias, **kw)
+    assert _equal(ranks, gd.gap_decode_ranks_plain(words, gaps, counts, lim,
+                                                   bias, **kw))
+    flat = counts.reshape(-1)
+    kept = flat.clamp(0, 64).to(torch.int64)
+    offs = torch.cumsum(kept, 0) - kept - 500  # disjoint, some outside
+    out = gd.gap_place_bytes(ranks, flat, offs, codec.dec.symtab, n_out=1500)
+    assert _equal(out, gd.gap_place_bytes_plain(ranks, flat, offs,
+                                                codec.dec.symtab, n_out=1500))
+    torch.cuda.synchronize()

@@ -1,0 +1,235 @@
+"""The HTC1 codec of the PyTorch port against the JAX package, on the CPU.
+
+The port runs with device="cpu" (its kernels' plain PyTorch versions); the
+JAX package runs its Pallas encode in interpret mode.  Container bytes
+must be equal, each package must decode what the other wrote, the device-
+resident form must match in shapes and values, and bad containers must
+raise the same errors.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from huffman_tpu.io import container_kind as jkind
+from huffman_tpu.io import read_container as jread
+from huffman_tpu.io import write_container as jwrite
+from huffman_tpu.models import GapArrayCodec as JCodec
+from huffman_tpu.utils import generate_redundant
+from huffman_tpu_torch import GapArrayCodec
+from huffman_tpu_torch.core import npref
+from huffman_tpu_torch.io import (
+    compressed_from_numpy,
+    container_kind,
+    device_compressed_from_numpy,
+    read_container,
+    write_container,
+)
+from huffman_tpu_torch.models.gap_codec import Compressed
+
+
+def _data(kind, n, seed=11):
+    if kind == "single":
+        return np.full(n, 9, np.uint8)
+    return generate_redundant(n, float(kind), seed=seed)
+
+
+def _to_port(jcomp):
+    t = jcomp.table
+    return compressed_from_numpy(
+        t.lengths, t.max_len, jcomp.seg_bits, jcomp.original_size,
+        jcomp.block_bytes, jcomp.block_words, jcomp.block_total_bits,
+        jcomp.block_gaps, jcomp.block_counts)
+
+
+# (content, size, block_bytes, seg_bits)
+CASES = [
+    ("0.1", 3 * 2048, 2048, 1024),
+    ("0.5", 3 * 2048, 2048, 1024),
+    ("0.9", 3 * 2048, 2048, 1024),
+    ("0.5", 2 * 2048 + 777, 2048, 1024),  # ragged tail, not a multiple of 128
+    ("0.5", 2 * 2048 + 1280, 2048, 1024),  # ragged tail, a multiple of 128
+    ("0.5", 2000, 1000, 1024),  # blocks not a multiple of 128
+    # a 128-byte tail at byte offset 1000 (8 mod 16) and 1001 (odd): the
+    # kernel route gets a slice its int32 view and 16-byte loads cannot take
+    ("0.5", 1128, 1000, 1024),
+    ("0.5", 1129, 1001, 1024),
+    ("0.5", 0, 2048, 1024),  # empty
+    ("0.5", 1, 2048, 1024),
+    ("single", 5000, 4096, 1024),
+    ("single", 700, 4096, 128),
+    ("0.5", 4096, 2048, 128),
+    ("0.3", 4096, 2048, 4096),
+]
+
+
+@pytest.mark.parametrize("kind,n,block_bytes,seg_bits", CASES)
+def test_container_bytes_match_jax(kind, n, block_bytes, seg_bits):
+    data = _data(kind, n)
+    jc = JCodec.fit(data, seg_bits=seg_bits, block_bytes=block_bytes)
+    jblob = jwrite(jc.encode(data))
+    pc = GapArrayCodec.fit(data, seg_bits=seg_bits, block_bytes=block_bytes,
+                           device="cpu")
+    comp = pc.encode(data)
+    blob = write_container(comp)
+    assert blob == jblob
+    assert comp.compressed_bytes == len(blob)
+    # each package decodes what the other wrote
+    out = pc.decode(read_container(jblob))
+    assert out.dtype == torch.uint8 and np.array_equal(out.numpy(), data)
+    assert np.array_equal(jc.decode(jread(blob)), data)
+    assert container_kind(blob) == jkind(jblob) == "htc1"
+
+
+def test_encode_in_groups_matches_jax(monkeypatch):
+    # more full blocks than one device group holds: encode and decode run
+    # group by group, and the bytes are those of one group
+    from huffman_tpu_torch.models import gap_codec
+
+    data = _data("0.6", 5 * 1024 + 300, seed=12)
+    pc = GapArrayCodec.fit(data, block_bytes=1024, device="cpu")
+    whole = write_container(pc.encode(data))
+    monkeypatch.setattr(gap_codec, "GROUP_BYTES", 2 * 1024)
+    sizes = []
+    encode_device = GapArrayCodec.encode_device
+    monkeypatch.setattr(
+        GapArrayCodec, "encode_device",
+        lambda self, b: sizes.append(b.shape) or encode_device(self, b))
+    blob = write_container(pc.encode(data))
+    assert sizes == [(2, 1024), (2, 1024), (1, 1024), (300,)]
+    assert blob == whole
+    jc = JCodec.fit(data, block_bytes=1024)
+    assert blob == jwrite(jc.encode(data))
+    assert np.array_equal(pc.decode(read_container(blob)).numpy(), data)
+
+
+def test_decode_jax_compressed_through_convert():
+    data = _data("0.6", 3 * 4096 + 300)
+    jc = JCodec.fit(data, block_bytes=4096)
+    comp = _to_port(jc.encode(data))
+    pc = GapArrayCodec(comp.table, seg_bits=comp.seg_bits,
+                       block_bytes=comp.block_bytes, device="cpu")
+    assert np.array_equal(pc.decode(comp).numpy(), data)
+    assert write_container(comp) == jwrite(jc.encode(data))
+
+
+def test_read_container_errors_match_jax():
+    data = _data("0.5", 3000)
+    blob = write_container(
+        GapArrayCodec.fit(data, block_bytes=1024, device="cpu").encode(data))
+    bad_payload = bytearray(blob)
+    bad_payload[-3] ^= 0x10
+    v3 = bytearray(blob)
+    v3[4] = 3
+    cases = {
+        "bad magic": b"XXXX" + blob[4:],
+        "short": blob[:5],
+        "version": bytes(v3),
+        "truncated": blob[:-7],
+        "trailing": blob + b"\0",
+        "checksum": bytes(bad_payload),
+    }
+    for label, buf in cases.items():
+        with pytest.raises(ValueError) as jerr:
+            jread(buf)
+        with pytest.raises(ValueError) as perr:
+            read_container(buf)
+        assert str(perr.value) == str(jerr.value), label
+    for buf in (b"ILS1", b"HTC1", b"junk"):
+        try:
+            expect = jkind(buf)
+        except ValueError as e:
+            with pytest.raises(ValueError, match=str(e)):
+                container_kind(buf)
+        else:
+            assert container_kind(buf) == expect
+
+
+def test_version1_container_reads_the_same():
+    data = _data("0.4", 2500)
+    blob = jwrite(JCodec.fit(data, block_bytes=1024).encode(data))
+    # v1: no crc field
+    v1 = blob[:4] + b"\x01" + blob[5:10] + blob[14:]
+    jcomp, comp = jread(v1), read_container(v1)
+    assert write_container(comp) == jwrite(jcomp) == blob
+    pc = GapArrayCodec(comp.table, block_bytes=1024, device="cpu")
+    assert np.array_equal(pc.decode(comp).numpy(), data)
+
+
+def test_codec_arguments_match_jax():
+    table = GapArrayCodec.fit(_data("0.5", 100), device="cpu").table
+    for kw in ({"block_bytes": (1 << 27) + 1}, {"seg_bits": 1000}):
+        with pytest.raises(ValueError) as jerr:
+            JCodec(table, **kw)
+        with pytest.raises(ValueError) as perr:
+            GapArrayCodec(table, device="cpu", **kw)
+        assert str(perr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("kind,g,b,seg_bits", [
+    ("0.5", 3, 2048, 1024),
+    ("0.9", 2, 1000, 128),  # not a multiple of 128: the encode_block route
+    ("single", 1, 2048, 128),
+])
+def test_device_resident_matches_jax(kind, g, b, seg_bits):
+    data = _data(kind, g * b)
+    jc = JCodec.fit(data, seg_bits=seg_bits, block_bytes=b)
+    pc = GapArrayCodec.fit(data, seg_bits=seg_bits, block_bytes=b,
+                           device="cpu")
+    blocks = data.reshape(g, b)
+    jd = jc.encode_device(blocks)
+    pd = pc.encode_device(torch.from_numpy(blocks.copy()))
+    for name in ("words", "total_bits", "gaps", "counts"):
+        a = getattr(pd, name).numpy()
+        if name == "words":
+            a = a.view(np.uint32)
+        assert np.array_equal(a, np.asarray(getattr(jd, name))), name
+    assert (pd.original_size, pd.block_bytes) == (g * b, b)
+    assert np.array_equal(pc.decode_device(pd).numpy(), blocks)
+    # a JAX device group decodes here
+    jt = jd.table
+    carried = device_compressed_from_numpy(
+        jt.lengths, jt.max_len, jd.seg_bits, jd.original_size, jd.block_bytes,
+        np.asarray(jd.words), np.asarray(jd.total_bits), np.asarray(jd.gaps),
+        np.asarray(jd.counts), device="cpu")
+    assert np.array_equal(pc.decode_device(carried).numpy(), blocks)
+    # staged to the host, the group writes the container encode writes
+    comp = Compressed(table=pc.table, seg_bits=seg_bits, original_size=g * b,
+                      block_bytes=b, block_words=[], block_total_bits=[],
+                      block_gaps=[], block_counts=[])
+    pc.stage_host(pd, comp)
+    assert write_container(comp) == write_container(pc.encode(data))
+    # a 1-D input is one block
+    one = pc.encode_device(blocks[0])
+    assert one.words.shape == (1, pd.words.shape[1])
+    assert np.array_equal(one.words.numpy(), pd.words[:1].numpy())
+
+
+def test_seg_bits_8192_decodes_like_numpy_oracle():
+    # ROADMAP trap F3: the JAX Pallas decode is wrong at seg_bits=8192;
+    # the port decodes there and agrees with the NumPy oracle
+    data = _data("0.5", 3 * 4096, seed=13)
+    pc = GapArrayCodec.fit(data, seg_bits=8192, block_bytes=4096,
+                           device="cpu")
+    dcomp = pc.encode_device(data.reshape(3, 4096))
+    assert np.array_equal(pc.decode_device(dcomp).numpy().reshape(-1), data)
+    comp = Compressed(table=pc.table, seg_bits=8192, original_size=data.size,
+                      block_bytes=4096, block_words=[], block_total_bits=[],
+                      block_gaps=[], block_counts=[])
+    pc.stage_host(dcomp, comp)
+    for i in range(3):
+        ref = npref.decode_segments_np(comp.block_words[i], comp.block_gaps[i],
+                                       comp.block_counts[i], pc.table, 8192)
+        assert np.array_equal(ref, data[4096 * i : 4096 * (i + 1)])
+    assert pc.roundtrip_check(data)
+
+
+def test_large_counts_decode_on_the_device_path():
+    # 4096 one-bit codewords fill a seg_bits=4096 segment: the device form
+    # holds the count (the container's 12-bit field would not)
+    data = np.full(3 * 4096, 5, np.uint8)
+    pc = GapArrayCodec.fit(data, seg_bits=4096, block_bytes=4096,
+                           device="cpu")
+    dcomp = pc.encode_device(data.reshape(3, 4096))
+    assert int(dcomp.counts.max()) == 4096
+    assert np.array_equal(pc.decode_device(dcomp).numpy().reshape(-1), data)

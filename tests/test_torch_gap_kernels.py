@@ -1,0 +1,354 @@
+"""The HTC1 kernels' plain versions against the JAX package, on the CPU.
+
+B1 (`gap_decode_ranks`) against `decode_ranks_pallas` in interpret mode,
+B2 (`gap_place_bytes`) against a NumPy ragged concatenation, B4b-B4d and
+`encode_blocks` against `encode_blocks_pallas` in interpret mode, the
+JAX `encode_block` and the NumPy oracles, and the port's `encode_block`
+against the JAX one.  Inputs come from NumPy with a seed; every value is
+an integer, so every comparison is exact.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from huffman_tpu.core import canonical_code_table as jcct
+from huffman_tpu.core.canonical import build_flat_lut as jbuild_flat_lut
+from huffman_tpu.core import npref as jnpref
+from huffman_tpu.core import package_merge_lengths as jpml
+from huffman_tpu.ops import dec_spec as jdec_spec
+from huffman_tpu.ops import device_dec_table as jdevice_dec_table
+from huffman_tpu.ops import device_enc_table as jdevice_enc_table
+from huffman_tpu.ops.encode import encode_block as jencode_block
+from huffman_tpu.ops.pallas.decode_kernel import decode_ranks_pallas
+from huffman_tpu.ops.pallas.gap_encode_kernel import encode_blocks_pallas
+from huffman_tpu.ops.pallas.ils_kernels import ils_enc_tabs as jils_enc_tabs
+from huffman_tpu.utils import generate_redundant
+from huffman_tpu_torch.core import npref
+from huffman_tpu_torch.core.canonical import build_flat_lut, canonical_code_table
+from huffman_tpu_torch.ops import encode as tenc
+from huffman_tpu_torch.ops import gap_decode_kernels as gd
+from huffman_tpu_torch.ops import gap_encode_kernels as ge
+from huffman_tpu_torch.ops import tables as tt
+from huffman_tpu_torch.ops.ils_kernels import ils_enc_tabs
+
+
+def _tables(data, max_len=16):
+    jt = jcct(jpml(jnpref.histogram(data), max_len), max_len)
+    return jt, canonical_code_table(jt.lengths, max_len)
+
+
+def _input(kind, n, seed):
+    if kind == "single":
+        return np.full(n, 7, np.uint8)
+    if kind == "uniform":
+        return np.arange(n, dtype=np.uint8)
+    return generate_redundant(n, float(kind), seed=seed)
+
+
+def _t(x, dtype=np.int32):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x).astype(dtype)))
+
+
+# ----------------------------------------------------------------------
+# Tables and oracles
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["0.1", "0.5", "0.9", "single", "uniform"])
+def test_tables_and_spec_match(kind):
+    data = _input(kind, 5000, 1)
+    jt, pt = _tables(data)
+    assert tt.dec_spec(pt).__dict__ == jdec_spec(jt).__dict__
+    # the encoder's one table holds the JAX package's (code, length) pair
+    jenc, penc = jdevice_enc_table(jt), ils_enc_tabs(pt).numpy()
+    assert np.array_equal(penc >> 20, np.asarray(jenc.lengths))
+    assert np.array_equal(penc & 0xFFFF, np.asarray(jenc.codes))
+    jdec, pdec = jdevice_dec_table(jt, two_level=False), tt.device_dec_table(pt)
+    for f in ("lim_left", "offsets", "first_code", "symtab"):
+        assert np.array_equal(getattr(pdec, f).numpy(),
+                              np.asarray(getattr(jdec, f))), f
+    lim, bias = gd.kernel_tabs(pdec)
+    n = jt.lim_left.shape[0]
+    assert np.array_equal(lim.numpy().view(np.uint32)[:n], jt.lim_left)
+    assert np.array_equal(
+        bias.numpy()[:n],
+        np.asarray(jdec.offsets) - np.asarray(jdec.first_code).astype(np.int32))
+    for a, b in zip(build_flat_lut(pt), jbuild_flat_lut(jt)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("seg_bits", [128, 1024])
+def test_npref_oracles_match(seg_bits):
+    data = generate_redundant(3000, 0.6, seed=2)
+    jt, pt = _tables(data)
+    w, tb = npref.encode_bits(data, pt)
+    jw, jtb = jnpref.encode_bits(data, jt)
+    assert tb == jtb and np.array_equal(w, jw)
+    meta = npref.segment_metadata(data, pt, seg_bits)
+    for a, b in zip(meta, jnpref.segment_metadata(data, jt, seg_bits)):
+        assert np.array_equal(a, b)
+    gaps, counts, _ = meta
+    out = npref.decode_segments_np(w, gaps, counts, pt, seg_bits)
+    assert np.array_equal(out, data)
+    assert np.array_equal(npref.decode_bits_serial(w, tb, pt, data.size), data)
+    assert np.array_equal(npref.histogram(data), jnpref.histogram(data))
+
+
+# ----------------------------------------------------------------------
+# B1: segment ranks
+# ----------------------------------------------------------------------
+def _ranks_case(data, pt, seg_bits):
+    words, _ = npref.encode_bits(data, pt)
+    gaps, counts, _ = npref.segment_metadata(data, pt, seg_bits)
+    return words, gaps.astype(np.int32), counts
+
+
+def _port_ranks(words, gaps, counts, pt, seg_bits, max_count):
+    spec = tt.dec_spec(pt)
+    lim, bias = gd.kernel_tabs(tt.device_dec_table(pt))
+    return gd.gap_decode_ranks(
+        _t(words.view(np.int32))[None], _t(gaps)[None], _t(counts)[None], lim,
+        bias, seg_bits=seg_bits, max_count=max_count, min_len=spec.min_len,
+        max_len=spec.max_len).numpy()
+
+
+@pytest.mark.parametrize("kind,n,seg_bits", [
+    ("0.1", 3000, 1024), ("0.5", 6000, 1024), ("0.9", 6000, 128),
+    ("single", 1500, 128), ("uniform", 3000, 1024),
+])
+def test_decode_ranks_match_jax(kind, n, seg_bits):
+    data = _input(kind, n, 3)
+    jt, pt = _tables(data)
+    words, gaps, counts = _ranks_case(data, pt, seg_bits)
+    ns = gaps.size
+    mc = int(counts.max())
+    packed = np.asarray(decode_ranks_pallas(
+        jnp.asarray(words), jnp.asarray(gaps), jnp.asarray(counts),
+        jdevice_dec_table(jt, two_level=False), spec=jdec_spec(jt),
+        seg_bits=seg_bits, n_segs=ns, max_count=mc, interpret=True))
+    # 4 ranks per int32, LSB first: rank i of segment s is byte i % 4 of
+    # packed[i // 4, s]
+    jr = (packed.view(np.uint8).reshape(packed.shape[0], -1, 4)
+          .transpose(1, 0, 2).reshape(packed.shape[1], -1))
+    pr = _port_ranks(words, gaps, counts, pt, seg_bits, mc + 5)
+    assert pr.shape == (ns, mc + 5)
+    for s in range(ns):
+        assert np.array_equal(pr[s, : counts[s]], jr[s, : counts[s]]), s
+        assert not pr[s, counts[s]:].any()
+    rank_of = np.zeros(256, np.int64)
+    rank_of[pt.symtab] = np.arange(pt.num_symbols)
+    assert np.array_equal(
+        np.concatenate([pr[s, : counts[s]] for s in range(ns)]),
+        rank_of[data] & 255)
+
+
+def test_decode_ranks_blocks_read_zeros_past_words():
+    # two blocks, the second shorter: its segments read zeros past its
+    # words, never the neighbour's; a corrupt count is clamped
+    d0 = generate_redundant(2000, 0.5, seed=4)
+    d1 = generate_redundant(700, 0.5, seed=5)
+    _, pt = _tables(np.concatenate([d0, d1]))
+    cases = [_ranks_case(d, pt, 256) for d in (d0, d1)]
+    ns = max(c[1].size for c in cases)
+    nw = max(c[0].size for c in cases)
+    words = np.zeros((2, nw), np.uint32)
+    gaps = np.zeros((2, ns), np.int32)
+    counts = np.zeros((2, ns), np.int32)
+    for g, (w, gp, c) in enumerate(cases):
+        words[g, : w.size] = w
+        gaps[g, : gp.size] = gp
+        counts[g, : c.size] = c
+    words[1, cases[1][0].size:] = 0xFFFFFFFF  # past block 1's payload
+    spec = tt.dec_spec(pt)
+    lim, bias = gd.kernel_tabs(tt.device_dec_table(pt))
+    mc = int(counts.max())
+    kw = dict(seg_bits=256, max_count=mc, min_len=spec.min_len,
+              max_len=spec.max_len)
+    full = gd.gap_decode_ranks(_t(words.view(np.int32)), _t(gaps), _t(counts),
+                               lim, bias, **kw).numpy()
+    n1 = cases[1][0].size
+    cut = gd.gap_decode_ranks(
+        _t(words[:, :n1].view(np.int32)), _t(gaps), _t(counts), lim, bias,
+        **kw).numpy()
+    # block 1's real symbols never reach past its own words
+    assert np.array_equal(cut[ns:], full[ns:])
+    bad = counts.copy()
+    bad[0, 0] = mc + 100
+    clamped = gd.gap_decode_ranks(
+        _t(words.view(np.int32)), _t(gaps), _t(bad), lim, bias, **kw).numpy()
+    assert np.array_equal(clamped[1:], full[1:])
+    assert np.array_equal(clamped[0, : counts[0, 0]], full[0, : counts[0, 0]])
+
+
+# ----------------------------------------------------------------------
+# B2: ragged placement
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("n_segs,max_count,seed", [(7, 16, 4), (200, 256, 2),
+                                                   (50, 1100, 3)])
+def test_place_bytes_matches_numpy_concat(n_segs, max_count, seed):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, max_count + 1, n_segs).astype(np.int32)
+    counts[rng.random(n_segs) < 0.1] = 0
+    ranks = rng.integers(0, 256, (n_segs, max_count)).astype(np.uint8)
+    symtab = rng.permutation(256).astype(np.int32)
+    expect = symtab[np.concatenate(
+        [ranks[s, : counts[s]] for s in range(n_segs)])].astype(np.uint8)
+    offsets = np.cumsum(counts, dtype=np.int64) - counts
+    out = gd.gap_place_bytes(torch.from_numpy(ranks), _t(counts),
+                             _t(offsets, np.int64), _t(symtab),
+                             n_out=expect.size)
+    assert np.array_equal(out.numpy(), expect)
+    # writes past n_out are dropped, not wrapped
+    short = gd.gap_place_bytes(torch.from_numpy(ranks), _t(counts),
+                               _t(offsets, np.int64), _t(symtab),
+                               n_out=expect.size // 2)
+    assert np.array_equal(short.numpy(), expect[: expect.size // 2])
+
+
+# ----------------------------------------------------------------------
+# B4b-B4d and encode_blocks
+# ----------------------------------------------------------------------
+def _jax_encode(blocks, jt, seg_bits, max_words, n_segs):
+    enc = jdevice_enc_table(jt)
+    ref = jax.vmap(lambda d: jencode_block(
+        d, enc, seg_bits=seg_bits, max_words=max_words, n_segs=n_segs))(
+        jnp.asarray(blocks))
+    pallas = encode_blocks_pallas(
+        jnp.asarray(blocks), jils_enc_tabs(jt), seg_bits=seg_bits,
+        max_words=max_words, n_segs=n_segs, min_len=max(jt.min_len, 1),
+        max_len=jt.max_len_present, interpret=True)
+    return [np.asarray(x) for x in ref], [np.asarray(x) for x in pallas]
+
+
+@pytest.mark.parametrize("kind,n,g,seg_bits,max_len", [
+    ("0.1", 4096, 1, 1024, 16),
+    ("0.5", 4096, 1, 1024, 16),
+    ("0.9", 4096, 1, 1024, 16),
+    ("0.5", 3 * 2048, 3, 1024, 16),
+    ("single", 4096, 1, 1024, 16),
+    ("uniform", 2048, 2, 128, 16),
+    ("0.6", 4096, 1, 128, 16),
+    ("0.7", 4096, 1, 1024, 8),
+])
+def test_encode_blocks_match_jax(kind, n, g, seg_bits, max_len):
+    data = _input(kind, n, 6)
+    jt, pt = _tables(data, max_len)
+    blocks = data.reshape(g, -1)
+    lens = pt.lengths.astype(np.int64)
+    max_bits = int(lens[blocks].sum(1).max())
+    max_words = -(-(-(-max_bits // 32)) // 512) * 512
+    n_segs = -(-max_words * 32 // seg_bits)
+    ref, pallas = _jax_encode(blocks, jt, seg_bits, max_words, n_segs)
+    out = ge.encode_blocks(torch.from_numpy(blocks.copy()), ils_enc_tabs(pt),
+                           seg_bits=seg_bits, max_words=max_words,
+                           n_segs=n_segs, max_len=pt.max_len_present)
+    names = ("words", "total_bits", "gaps", "counts")
+    for name, a, r, p in zip(names, out, ref, pallas):
+        a = a.numpy()
+        if name == "words":
+            a = a.view(np.uint32)
+        assert a.shape == r.shape == p.shape, name
+        assert np.array_equal(a, r), name
+        assert np.array_equal(a, p), name
+    # the port's encode_block, one block at a time, gives the same
+    for i in range(g):
+        single = tenc.encode_block(torch.from_numpy(blocks[i].copy()),
+                                   ils_enc_tabs(pt),
+                                   seg_bits=seg_bits, max_words=max_words,
+                                   n_segs=n_segs)
+        for name, a, r in zip(names, single, ref):
+            assert np.array_equal(
+                a.numpy().view(np.uint32) if name == "words" else a.numpy(),
+                r[i]), name
+
+
+@pytest.mark.parametrize("kind,n,seg_bits", [
+    ("0.5", 1000, 1024), ("0.2", 777, 128), ("single", 300, 128),
+    ("uniform", 513, 1024),
+])
+def test_encode_block_matches_jax(kind, n, seg_bits):
+    # the route of blocks whose size is not a multiple of 128 bytes
+    data = _input(kind, n, 7)
+    jt, pt = _tables(data)
+    max_words = 1024
+    n_segs = max_words * 32 // seg_bits
+    ref = jencode_block(jnp.asarray(data), jdevice_enc_table(jt),
+                        seg_bits=seg_bits, max_words=max_words, n_segs=n_segs)
+    out = tenc.encode_block(torch.from_numpy(data.copy()), ils_enc_tabs(pt),
+                            seg_bits=seg_bits, max_words=max_words,
+                            n_segs=n_segs)
+    assert out[0].dtype == torch.int32
+    assert np.array_equal(out[0].numpy().view(np.uint32), np.asarray(ref[0]))
+    for a, r in zip(out[1:], ref[1:]):
+        assert a.dtype == torch.int32 and np.array_equal(a.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("kind", ["0.3", "0.9", "single", "uniform"])
+def test_row_pack_meta_place_match_oracle(kind):
+    data = _input(kind, 8 * 128, 8)
+    _, pt = _tables(data)
+    rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
+    cap = ge.row_cap_words(pt.max_len_present)
+    pay, bits, starts = ge.gap_row_pack(rows, ils_enc_tabs(pt), cap_words=cap)
+    lens = pt.lengths.astype(np.int64)
+    for r in range(8):
+        row = data[128 * r : 128 * (r + 1)]
+        w, tb = npref.encode_bits(row, pt)
+        assert int(bits[r]) == tb
+        nw = -(-tb // 32)
+        assert np.array_equal(pay[r, :nw].numpy().view(np.uint32), w[:nw])
+        assert not pay[r, nw:].any()
+        ends = np.cumsum(lens[row])
+        assert np.array_equal(starts[r].numpy(), ends - lens[row])
+    # two blocks of four rows each
+    bits_blk = bits.view(2, 4).to(torch.int64)
+    s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+    counts, firsts = ge.gap_row_meta(starts, s_local, rows_per_block=4,
+                                     n_segs=40, seg_bits=128)
+    words = ge.gap_place_bits(pay, bits, s_local, rows_per_block=4,
+                              out_words=300)
+    for g in range(2):
+        blk = data[512 * g : 512 * (g + 1)]
+        w, tb = npref.encode_bits(blk, pt)
+        assert np.array_equal(words[g, : w.size - 1].numpy().view(np.uint32),
+                              w[:-1])
+        assert not words[g, w.size - 1 :].any()
+        gaps, cnt, _ = npref.segment_metadata(blk, pt, 128)
+        ns = gaps.size
+        assert np.array_equal(counts[g, :ns].numpy(), cnt)
+        assert not counts[g, ns:].any()
+        have = cnt > 0
+        bounds = np.arange(ns) * 128
+        assert np.array_equal(firsts[g, :ns].numpy()[have],
+                              (bounds + gaps)[have])
+        assert (firsts[g, ns:].numpy() == 2**31 - 1).all()
+
+
+def test_wrappers_reject_bad_input():
+    with pytest.raises(TypeError):
+        ge.gap_row_pack(torch.zeros((2, 32), dtype=torch.int64),
+                        torch.zeros(256, dtype=torch.int32), cap_words=4)
+    with pytest.raises(ValueError, match="rows must be"):
+        ge.gap_row_pack(torch.zeros((2, 31), dtype=torch.int32),
+                        torch.zeros(256, dtype=torch.int32), cap_words=4)
+    with pytest.raises(ValueError, match="power of two"):
+        ge.gap_row_meta(torch.zeros((2, 128), dtype=torch.int16),
+                        torch.zeros(2, dtype=torch.int64), rows_per_block=2,
+                        n_segs=4, seg_bits=100)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ge.encode_blocks(torch.zeros((1, 100), dtype=torch.uint8),
+                         torch.zeros(256, dtype=torch.int32), seg_bits=128,
+                         max_words=512, n_segs=128, max_len=8)
+    z = torch.zeros(32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="invalid decode shape"):
+        gd.gap_decode_ranks(torch.zeros((1, 4), dtype=torch.int32),
+                            torch.zeros((1, 2), dtype=torch.int32),
+                            torch.zeros((1, 2), dtype=torch.int32), z, z,
+                            seg_bits=64, max_count=4, min_len=1, max_len=17)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        gd.gap_place_bytes(torch.zeros((1, 4), dtype=torch.uint8, device="meta"),
+                           torch.zeros(1, dtype=torch.int32, device="meta"),
+                           torch.zeros(1, dtype=torch.int64, device="meta"),
+                           torch.zeros(256, dtype=torch.int32, device="meta"),
+                           n_out=4)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import huffman_tpu_torch
-from huffman_tpu_torch import IlsCodec
+from huffman_tpu_torch import GapArrayCodec, IlsCodec
 from huffman_tpu_torch.ops import ils as tils
 from huffman_tpu_torch.ops import ils_kernels as tk
 
@@ -35,6 +35,14 @@ def test_imports_with_jax_and_huffman_tpu_blocked():
         "d = generate_redundant(8 * 1024 + 5, 0.5, seed=1)\n"
         "c = huffman_tpu_torch.IlsCodec.fit(d, k=8, device='cpu')\n"
         "assert c.roundtrip_check(d)\n"
+        "import huffman_tpu_torch.models.gap_codec, huffman_tpu_torch.ops.encode\n"
+        "import huffman_tpu_torch.ops.gap_decode_kernels\n"
+        "import huffman_tpu_torch.ops.gap_encode_kernels\n"
+        "from huffman_tpu_torch import read_container, write_container\n"
+        "g = huffman_tpu_torch.GapArrayCodec.fit(d, block_bytes=4096, "
+        "device='cpu')\n"
+        "out = g.decode(read_container(write_container(g.encode(d))))\n"
+        "assert np.array_equal(out.numpy(), d)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
         "assert not bad, bad\n"
@@ -67,6 +75,7 @@ def test_default_device_is_cuda_and_never_quietly_cpu():
     data = np.zeros(100, np.uint8)
     if torch.cuda.is_available():
         assert IlsCodec.fit(data).device.type == "cuda"
+        assert GapArrayCodec.fit(data).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         IlsCodec.fit(data)
@@ -78,6 +87,10 @@ def test_default_device_is_cuda_and_never_quietly_cpu():
                                avg_bits=1.0)
     with pytest.raises(ValueError, match="unsupported device"):
         tils.resolve_device("meta")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GapArrayCodec.fit(data)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GapArrayCodec(table)
 
 
 def test_ctypes_signatures_match_sources():
@@ -103,8 +116,9 @@ def test_ctypes_signatures_match_sources():
             assert types == cuda_build._SIGNATURES[name][fn], fn
 
     calls = {}
-    tree = ast.parse((PKG / "ops" / "ils_kernels.py").read_text())
-    for node in ast.walk(tree):
+    trees = [ast.parse((PKG / "ops" / f"{m}.py").read_text()) for m in
+             ("ils_kernels", "gap_decode_kernels", "gap_encode_kernels")]
+    for node in (n for tree in trees for n in ast.walk(tree)):
         if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
                 and isinstance(node.func.value, ast.Call)
                 and getattr(node.func.value.func, "id", None) == "_lib"):
