@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of huffman_tpu_torch: the ILS and HTC1 codecs end to end
-on one GPU.
+"""Chip smoke test of huffman_tpu_torch: the ILS and HTC1 codecs and the
+foreign-stream (Yamamoto, self-sync) decoders end to end on one GPU.
 
     python3 chip_smoke.py [--size BYTES] [--tail BYTES] [--redundancy R]
                           [--gap-block BYTES]
@@ -45,15 +45,37 @@ failure raises and exits non-zero with the traceback):
    one encode_device and decode_device with the launch counters of that
    call, medians by CUDA events, one profiled call each, and every gap
    kernel held against its plain version and timed at its shapes there.
-8. One JSON line per kernel list (name, route, source, replaces, launches,
+8. Foreign streams, small inputs: C1 (count_segments) and C2
+   (sync_transitions) against their plain versions on the card, bit for
+   bit, on generate_redundant(r=0.1, 0.5, 0.9), a one-symbol stream, the
+   uniform 256-symbol input and a max_len=16 table, each with a partial
+   last segment and subsequence; decode_yamamoto and decode_seq give the
+   same bytes on the card as on the CPU; a Yamamoto container built from
+   one GapArrayCodec.encode_device block at seg_bits=128 equals
+   write_yamamoto's bytes.
+9. Yamamoto end to end: the first 128 MiB (at most --size bytes) of
+   phase 4's input as one such container (the device encoder builds it;
+   the host NumPy writer is far slower at this size), read_yamamoto,
+   decode_yamamoto on the card, bit-exact, with the launch counters of
+   that run (C1, B1, B2).  The device-resident decode (parse excluded) is
+   timed as the median of 5 runs and profiled once; C1, B1 and B2 are
+   held against their plain versions and timed at its shapes.
+10. Self-sync end to end: the same stream's words and bit count through
+   selfsync_decode_device (C2, the composition scan, B1 + B2), bit-exact,
+   with its launch counters, timed and profiled the same way; C2, B1 and
+   B2 held against their plain versions and timed there, the scan timed
+   apart.
+11. One JSON line per kernel list (name, route, source, replaces, launches,
    max_abs_err, ms, wrapper_ms, plain_ms, bound_ms, bound_by, library_ms):
    each kernel's launches in its codec's end-to-end run (phase 4 or 6)
    beside its times at that run's shapes; A4 and A5, which phase 4 gives
    only the small tail, also under "full_section" at the main section's
    shape (the two-pass tier's shape when a full section takes it), B1 and
-   B2 also under "tail" at the tail group's.  The bench shape's rows,
-   with phase 7's launches, go in the summary line before it under
-   "htc1"."kernels".  Then the card line, then the device line last.
+   B2 also under "tail" at the tail group's; C1's launches are phase 9's,
+   C2's phase 10's.  The bench shape's rows, with phase 7's launches, go
+   in the summary line before it under "htc1"."kernels", and B1/B2/C1/C2
+   at the foreign paths' shapes under "yamamoto"."kernels" and
+   "selfsync"."kernels".  Then the card line, then the device line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
 once) / 3.35 TB/s and (integer ALU operations the algorithm needs on this
@@ -97,7 +119,13 @@ KERNELS = {
                      "huffman_tpu/ops/pallas/gap_encode_kernel.py:252"),
     "gap_place_bits": ("huffman_tpu_torch/csrc/gap_encode.cu",
                        "huffman_tpu/ops/pallas/gap_encode_kernel.py:291"),
+    "count_segments": ("huffman_tpu_torch/csrc/gap_decode.cu",
+                       "huffman_tpu/ops/pallas/decode_kernel.py:325"),
+    "sync_transitions": ("huffman_tpu_torch/csrc/selfsync.cu",
+                         "huffman_tpu/ops/pallas/selfsync_kernels.py:42"),
 }
+HTC1 = ("gap_decode_ranks", "gap_place_bytes", "gap_row_pack", "gap_row_meta",
+        "gap_place_bits")
 # TPU relayout kernels whose work is the addressing of a kernel here
 FOLDED = {
     "gap_decode_ranks": ["huffman_tpu/ops/pallas/compact_kernel.py:410"],
@@ -116,6 +144,8 @@ SYMBOLS = {
     "gap_row_pack": "gap_row_pack_kernel",
     "gap_row_meta": "gap_row_meta_kernel",
     "gap_place_bits": "gap_place_bits_kernel",
+    "count_segments": "gap_count_segments_kernel",
+    "sync_transitions": "sync_transitions_kernel",
 }
 
 
@@ -181,19 +211,25 @@ def profiled(fn, reps=1):
     return wall_ms, sorted(rows, reverse=True)
 
 
-def kernel_ms(fn, symbol, reps):
+def kernel_ms(fn, symbol, reps, tries=3):
     """Device ms per launch of the kernel whose name holds `symbol`, over
     `reps` calls of its wrapper `fn` after a warm-up: the kernel alone,
-    without the wrapper's host checks, allocation and zero fill."""
+    without the wrapper's host checks, allocation and zero fill.
+
+    The profiler can drop some, and now and then all, of a trace's device
+    events: a trace that recorded no launch is taken again (up to `tries`
+    traces)."""
     fn()
-    _, rows = profiled(fn, reps)
-    hits = [(ms, count) for ms, count, key in rows if symbol in key]
-    # the mean over the launches the profiler recorded: it may drop one
-    launches = sum(count for _, count in hits)
-    if not 0 < launches <= reps:
-        raise AssertionError(f"profiler saw {launches} launches of {symbol} "
-                             f"in {reps} calls")
-    return sum(ms for ms, _ in hits) / launches
+    for _ in range(tries):
+        _, rows = profiled(fn, reps)
+        hits = [(ms, count) for ms, count, key in rows if symbol in key]
+        # the mean over the launches the profiler recorded
+        launches = sum(count for _, count in hits)
+        if 0 < launches <= reps:
+            return sum(ms for ms, _ in hits) / launches
+        log(f"  profiler saw {launches} launches of {symbol} in {reps} calls")
+    raise AssertionError(f"profiler saw {launches} launches of {symbol} in "
+                         f"{reps} calls, in each of {tries} traces")
 
 
 def device_profile(fn, label, launch_counts, tries=3):
@@ -510,6 +546,82 @@ def gap_container_parity(GapArrayCodec, write, read, data, block_bytes,
     log(f"  container {label:28s} {len(blobs[0])} bytes equal=True")
 
 
+def skew16_input(table_from_length_sequence, n, seed):
+    """A max_len=16 table (lengths 1..15, then 16 twice, the two 16-bit
+    codes tied against symbol order) and n bytes drawn from it."""
+    syms = np.r_[np.arange(40, 55), 56, 55].astype(np.uint8)
+    lens = np.r_[np.arange(1, 16), 16, 16]
+    p = 2.0 ** -np.arange(1, 18)
+    rng = np.random.default_rng(seed)
+    data = syms[rng.choice(17, size=n, p=p / p.sum())]
+    return data, table_from_length_sequence(syms, lens)
+
+
+def yamamoto_via_device(GapArrayCodec, yamamoto_bytes, table, data):
+    """The Yamamoto container of `data` (uint8, on the card) from one
+    GapArrayCodec.encode_device block at seg_bits=128, whose payload words
+    and gaps are the container's.  Returns (blob, words as int32 where
+    `data` lies, total_bits)."""
+    codec = GapArrayCodec(table, seg_bits=128, block_bytes=data.numel(),
+                          device=data.device)
+    dcomp = codec.encode_device(data.view(1, -1))
+    tb = int(dcomp.total_bits[0])
+    words = dcomp.words[0, : -(-tb // 32)]
+    gaps = dcomp.gaps[0, : -(-tb // 128)]
+    blob = yamamoto_bytes(table, words.cpu().numpy().view(np.uint32),
+                          gaps.cpu().numpy(), data.numel())
+    return blob, words, tb
+
+
+def count_cases(stats, gd, dec, spec, words, gaps, label, timing=None):
+    """C1 and its plain version on one Yamamoto stream on the card, against
+    the format's word-count bound (as `decode_yamamoto` runs it); returns
+    the counts."""
+    lim = gd.kernel_tabs(dec)[0]
+    kw = dict(seg_bits=128, total_bits=words.numel() * 32,
+              min_len=spec.min_len, max_len=spec.max_len)
+    got = gd.count_segments(words, gaps, lim, **kw)
+    stats.check("count_segments", got,
+                gd.count_segments_plain(words, gaps, lim, **kw), label)
+    if timing is not None:
+        # the payload and the gaps read once, the counts written; per
+        # codeword counted, the compare chain, the shift and the refill
+        levels = spec.max_len - spec.min_len
+        timing["count_segments"] = timed(
+            "count_segments", lambda: gd.count_segments(words, gaps, lim, **kw),
+            lambda: gd.count_segments_plain(words, gaps, lim, **kw), 10,
+            bytes=words.numel() * 4 + gaps.numel() * 8,
+            ops=(2 * levels + 6) * int(got.sum()), shape=list(got.shape))
+    return got
+
+
+def transition_cases(stats, gd, sk, dec, spec, words, total_bits, label,
+                     timing=None):
+    """C2 and its plain version on one raw stream on the card, at the
+    subsequences `selfsync_decode_device` gives it; returns the
+    transitions."""
+    lim = gd.kernel_tabs(dec)[0]
+    kw = dict(total_bits=total_bits, seg_bits=1024,
+              n_subseq=-(-total_bits // 1024), min_len=spec.min_len,
+              max_len=spec.max_len)
+    got = sk.sync_transitions(words, lim, **kw)
+    stats.check("sync_transitions", got,
+                sk.sync_transitions_plain(words, lim, **kw), label)
+    if timing is not None:
+        # the payload read once, 16 ints written per subsequence; the
+        # operations of one walk of the stream (entry 0's counts): the 16
+        # walks of a subsequence merge after a few codewords, so the
+        # function needs little more than that one walk
+        levels = spec.max_len - spec.min_len
+        walked = int((got[0] & 0xFFFF).sum(dtype=torch.int64))
+        timing["sync_transitions"] = timed(
+            "sync_transitions", lambda: sk.sync_transitions(words, lim, **kw),
+            lambda: sk.sync_transitions_plain(words, lim, **kw), 10,
+            bytes=total_bits // 8 + got.numel() * 4,
+            ops=(2 * levels + 6) * walked, shape=list(got.shape))
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=1 << 28,
@@ -524,19 +636,35 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
 
+    from types import SimpleNamespace
+
     from huffman_tpu_torch import GapArrayCodec, IlsCodec, IlsCompressed
     from huffman_tpu_torch.core.ils_ref import ILS_LANES, ils_schedule_numer
     from huffman_tpu_torch.io import (
+        decode_seq,
+        decode_yamamoto,
+        decode_yamamoto_device,
         read_container,
         read_ils_container,
+        read_yamamoto,
+        table_from_length_sequence,
         write_container,
         write_ils_container,
+        write_seq,
+        write_yamamoto,
+        yamamoto_bytes,
+    )
+    from huffman_tpu_torch.models.selfsync import (
+        _compose_scan,
+        selfsync_decode_device,
     )
     from huffman_tpu_torch.ops import cuda_build
     from huffman_tpu_torch.ops import gap_decode_kernels as gd
     from huffman_tpu_torch.ops import gap_encode_kernels as ge
     from huffman_tpu_torch.ops import ils as tils
     from huffman_tpu_torch.ops import ils_kernels as tk
+    from huffman_tpu_torch.ops import selfsync_kernels as sk
+    from huffman_tpu_torch.ops.tables import dec_spec, device_dec_table
     from huffman_tpu_torch.utils import generate_redundant
 
     # ---- 1. card and build
@@ -694,7 +822,9 @@ def main(argv=None) -> int:
     gout = gcodec.decode(gcomp2)
     gok = torch.equal(gout, data)
     torch.cuda.synchronize()
-    gap_launches = {**gd.launch_counts(), **ge.launch_counts()}
+    gap_launches = {name: c for name, c in {**gd.launch_counts(),
+                                            **ge.launch_counts()}.items()
+                    if name in HTC1}
     log(f"  round trip {time.perf_counter() - t0:.2f} s bit-exact={gok} "
         f"blocks={gcomp.n_blocks} of {gcodec.block_bytes} B, "
         f"seg_bits={gcodec.seg_bits}")
@@ -733,7 +863,9 @@ def main(argv=None) -> int:
 
     # ---- 7. the JAX package's HTC1 bench shape, timed
     def gap_counts():
-        return {**gd.launch_counts(), **ge.launch_counts()}
+        return {name: c for name, c in {**gd.launch_counts(),
+                                        **ge.launch_counts()}.items()
+                if name in HTC1}
 
     gb = min(args.gap_block, args.size)
     log(f"phase 7: one {gb} B HTC1 block, seg_bits=1024, timed")
@@ -773,7 +905,154 @@ def main(argv=None) -> int:
     gap_decode_cases(stats, gd, bcodec, bcodec.decode_device_plan(dcomp),
                      int(dcomp.total_bits.sum()), blocks, label, bench_timing)
 
-    # ---- 8. results
+    # ---- 8. foreign streams, small inputs
+    log("phase 8: foreign streams, small inputs")
+    from huffman_tpu_torch.core import npref
+
+    for label, small, table in (
+        ("r=0.1", generate_redundant(200_001, 0.1, seed=41), None),
+        ("r=0.5", generate_redundant(200_003, 0.5, seed=42), None),
+        ("r=0.9", generate_redundant(150_001, 0.9, seed=43), None),
+        ("one symbol", np.full(100_003, 9, np.uint8), None),
+        ("uniform 256", np.arange(65_541, dtype=np.uint8), None),
+        ("max_len=16", *skew16_input(table_from_length_sequence, 120_001, 44)),
+    ):
+        if table is None:
+            table = GapArrayCodec.fit(small, device="cpu").table
+        yam = write_yamamoto(small, table)
+        small_d = torch.from_numpy(small).to(dev)
+        dblob, words, tb = yamamoto_via_device(GapArrayCodec, yamamoto_bytes,
+                                               table, small_d)
+        if dblob != yam:
+            raise AssertionError(f"device-built Yamamoto container of {label} "
+                                 f"differs from write_yamamoto's")
+        gaps = torch.from_numpy(read_yamamoto(yam)[2].astype(np.int32)).to(dev)
+        dec, spec = device_dec_table(table, dev), dec_spec(table)
+        counts = count_cases(stats, gd, dec, spec, words, gaps, label)
+        ref = npref.segment_metadata(small, table, 128)[1]
+        if not np.array_equal(counts[:-1].cpu().numpy(), ref[:-1]):
+            raise AssertionError(f"C1 counts of {label} differ from the "
+                                 f"encoder's")
+        transition_cases(stats, gd, sk, dec, spec, words, tb, label)
+        seq = write_seq(small, table)
+        for name, fn, arg in (("decode_yamamoto", decode_yamamoto, yam),
+                              ("decode_seq", decode_seq, seq)):
+            got, cpu = fn(arg), fn(arg, device="cpu")
+            if got.device.type != "cuda" or not torch.equal(got.cpu(), cpu) \
+                    or not np.array_equal(cpu.numpy(), small):
+                raise AssertionError(f"{name} of {label}: card and CPU differ "
+                                     f"or are not the input")
+        log(f"  foreign {label:14s} {small.size} B, {tb} bits (last segment "
+            f"{tb % 128}, last subsequence {tb % 1024} bits): card == CPU")
+
+    # ---- 9. Yamamoto end to end
+    fs = min(args.size, 1 << 27)
+    log(f"phase 9: Yamamoto end to end, the first {fs} bytes")
+    ydata = data[:fs]
+    ytable = GapArrayCodec.fit(ydata, device="cuda").table
+    t0 = time.perf_counter()
+    yblob, ywords, ytb = yamamoto_via_device(GapArrayCodec, yamamoto_bytes,
+                                             ytable, ydata)
+    t_write = time.perf_counter() - t0
+    y_names = ("count_segments", "gap_decode_ranks", "gap_place_bytes")
+
+    def yam_counts():
+        return {name: gd.launch_counts()[name] for name in y_names}
+
+    torch.cuda.synchronize()
+    gd.reset_launch_counts()
+    t0 = time.perf_counter()
+    ytab2, yw_h, yg_h, ysize = read_yamamoto(yblob)
+    yok = torch.equal(decode_yamamoto(yblob), ydata)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    y_launches = yam_counts()
+    log(f"  container {len(yblob)} bytes (built in {t_write:.2f} s), "
+        f"read_yamamoto + decode_yamamoto {t_read:.2f} s bit-exact={yok}, "
+        f"launches in that run: {y_launches}")
+    if not yok:
+        raise AssertionError("Yamamoto decode is not bit-exact")
+    missing = [name for name, c in y_launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the Yamamoto path: "
+                             f"{missing}")
+    ydec, yspec = device_dec_table(ytab2, dev), dec_spec(ytab2)
+    yw = torch.from_numpy(yw_h.view(np.int32)).to(dev)
+    yg = torch.from_numpy(yg_h.astype(np.int32)).to(dev)
+
+    def ystaged():
+        return decode_yamamoto_device(yw, yg, ysize, ydec, yspec)
+
+    if not torch.equal(ystaged(), ydata):
+        raise AssertionError("device-resident Yamamoto decode is not bit-exact")
+    y_ms = [cuda_ms(ystaged, 1) for _ in range(5)]
+    y_med = statistics.median(y_ms)
+    yprof = device_profile(ystaged, "yamamoto decode", yam_counts)
+    log(f"  decode_yamamoto_device ms {[round(x, 3) for x in y_ms]} median "
+        f"{y_med:.3f} = {fs / y_med / 1e6:.3f} GB/s")
+    yam_timing = {}
+    label = f"yamamoto {fs} B"
+    counts = count_cases(stats, gd, ydec, yspec, yw, yg, label, yam_timing)
+    counts[-1] -= int(counts.sum(dtype=torch.int64)) - ysize
+    gap_decode_cases(
+        stats, gd, SimpleNamespace(dec=ydec, spec=yspec, seg_bits=128),
+        (yw.view(1, -1), yg.view(1, -1), counts.view(1, -1),
+         -(-int(counts.max()) // 8) * 8),
+        ytb, ydata.view(1, -1), label, yam_timing)
+    del yw, yg, counts
+
+    # ---- 10. self-sync end to end on the same stream
+    log(f"phase 10: self-sync end to end, the same {ytb}-bit stream")
+    s_names = ("sync_transitions", "gap_decode_ranks", "gap_place_bytes")
+
+    def ss_counts():
+        return {**sk.launch_counts(), **{name: gd.launch_counts()[name]
+                                         for name in s_names[1:]}}
+
+    def ss_decode():
+        return selfsync_decode_device(ywords, ytb, ytable)
+
+    torch.cuda.synchronize()
+    gd.reset_launch_counts()
+    sk.reset_launch_counts()
+    sok = torch.equal(ss_decode(), ydata)
+    torch.cuda.synchronize()
+    s_launches = ss_counts()
+    log(f"  selfsync_decode_device bit-exact={sok}, launches in that run: "
+        f"{s_launches}")
+    if not sok:
+        raise AssertionError("self-sync decode is not bit-exact")
+    missing = [name for name, c in s_launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the self-sync path: "
+                             f"{missing}")
+    s_ms = [cuda_ms(ss_decode, 1) for _ in range(5)]
+    s_med = statistics.median(s_ms)
+    sprof = device_profile(ss_decode, "selfsync decode", ss_counts)
+    log(f"  selfsync_decode_device ms {[round(x, 3) for x in s_ms]} median "
+        f"{s_med:.3f} = {fs / s_med / 1e6:.3f} GB/s")
+    ss_timing = {}
+    label = f"selfsync {fs} B"
+    sdec, sspec = device_dec_table(ytable, dev), dec_spec(ytable)
+    packed = transition_cases(stats, gd, sk, sdec, sspec, ywords, ytb, label,
+                              ss_timing)
+    exits = packed.T >> 16
+    scan_ms = cuda_ms(lambda: _compose_scan(exits), 5)
+    entry = _compose_scan(exits)
+    counts = torch.gather(packed & 0xFFFF, 0, entry[None, :])[0]
+    log(f"  composition scan over {exits.shape[0]} subsequences: "
+        f"{scan_ms:.3f} ms (CUDA events, plain PyTorch)")
+    gap_decode_cases(
+        stats, gd, SimpleNamespace(dec=sdec, spec=sspec, seg_bits=1024),
+        (ywords.view(1, -1), entry.to(torch.int32).view(1, -1),
+         counts.view(1, -1), -(-int(counts.max()) // 8) * 8),
+        ytb, ydata.view(1, -1), label, ss_timing)
+    launches["count_segments"] = y_launches["count_segments"]
+    launches["sync_transitions"] = s_launches["sync_transitions"]
+    main_timing["count_segments"] = yam_timing["count_segments"]
+    main_timing["sync_transitions"] = ss_timing["sync_transitions"]
+
+    # ---- 11. results
     def times(t):
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
         o_ms = t.get("ops", 0) / ALU_OPS_PER_S * 1e3
@@ -819,6 +1098,28 @@ def main(argv=None) -> int:
         t = times(bench_timing[name])
         show(name, " bench", t, bench_launches[name])
         bench_rows.append({"name": name, "launches": bench_launches[name], **t})
+    foreign = {}
+    for path, t, path_launches in (("yamamoto", yam_timing, y_launches),
+                                   ("selfsync", ss_timing, s_launches)):
+        log(f"kernels at the {path} path's shapes, launches of its one "
+            f"counted decode ({card}):")
+        foreign[path] = []
+        for name, c in path_launches.items():
+            row = times(t[name])
+            show(name, " " + path, row, c)
+            foreign[path].append({"name": name, "launches": c, **row})
+    log(json.dumps({
+        "yamamoto": {"bytes": fs, "container_bytes": len(yblob),
+                     "payload_bits": ytb, "decode_ms_median": y_med,
+                     "decode_ms": y_ms, "decode_gbps": fs / y_med / 1e6,
+                     "card": card, "profile": yprof,
+                     "kernels": foreign["yamamoto"]},
+        "selfsync": {"bytes": fs, "payload_bits": ytb,
+                     "decode_ms_median": s_med, "decode_ms": s_ms,
+                     "decode_gbps": fs / s_med / 1e6, "scan_ms": scan_ms,
+                     "card": card, "profile": sprof,
+                     "kernels": foreign["selfsync"]},
+    }))
     log(json.dumps({
         "e2e": {"bytes": n, "encode_ms_median": enc_med,
                 "decode_ms_median": dec_med,

@@ -1,0 +1,72 @@
+// Canonical bit walks over an MSB-first u32 stream, shared by the
+// gap-array kernels (gap_decode.cu: B1, C1) and the self-sync kernel
+// (selfsync.cu: C2).  Words outside [0, n_words) read as zeros.
+#pragma once
+
+#include <cstdint>
+
+// A 64-bit window over the stream, its top `nbits` bits valid.  nbits >= 33
+// before every codeword, so the top 32 bits are always stream bits.
+struct BitWindow {
+  const uint32_t* words;
+  long long n_words;
+  long long next;  // the word that the next refill loads
+  uint64_t buf;
+  int nbits;
+
+  __device__ __forceinline__ uint64_t word(long long i) const {
+    return (i >= 0 && i < n_words) ? words[i] : 0u;
+  }
+
+  __device__ __forceinline__ BitWindow(const uint32_t* w, long long n,
+                                       long long pos)
+      : words(w), n_words(n) {
+    const long long w0 = pos >> 5;
+    const int off = (int)(pos & 31);
+    buf = ((word(w0) << 32) | word(w0 + 1)) << off;
+    nbits = 64 - off;
+    next = w0 + 2;
+  }
+
+  // the 32 stream bits at the current position
+  __device__ __forceinline__ uint32_t peek() const {
+    return (uint32_t)(buf >> 32);
+  }
+
+  // drop ln in [1, 16] bits, then refill to nbits >= 33
+  __device__ __forceinline__ void skip(int ln) {
+    buf <<= ln;
+    nbits -= ln;
+    if (nbits <= 32) {
+      buf |= word(next++) << (32 - nbits);
+      nbits += 32;
+    }
+  }
+};
+
+// canonical length: min_len + #{l in [min_len, max_len) : win >= lim[l]}
+__device__ __forceinline__ int canon_len(uint32_t win, const uint32_t* lim,
+                                         int min_len, int max_len) {
+  int ln = min_len;
+  for (int l = min_len; l < max_len; ++l) ln += (win >= lim[l]);
+  return ln;
+}
+
+// Counts the codewords that start below `end`, walking from `pos`, at most
+// max_count of them; leaves `pos` just past the last one counted.
+__device__ __forceinline__ int walk_count(const uint32_t* words,
+                                          long long n_words, long long& pos,
+                                          long long end, int max_count,
+                                          const uint32_t* lim, int min_len,
+                                          int max_len) {
+  int count = 0;
+  if (pos >= end) return 0;
+  BitWindow bw(words, n_words, pos);
+  while (pos < end && count < max_count) {
+    const int ln = canon_len(bw.peek(), lim, min_len, max_len);
+    ++count;
+    pos += ln;
+    bw.skip(ln);
+  }
+  return count;
+}

@@ -1,5 +1,6 @@
-// HTC1 gap-array decode for Hopper: segment ranks (kernel B1) and the
-// ragged placement of the symbols (kernel B2).
+// Gap-array decode for Hopper: segment ranks (kernel B1), the ragged
+// placement of the symbols (kernel B2) and, for gap-only Yamamoto
+// streams, the per-segment symbol counts (kernel C1).
 //
 // gap_decode_ranks_kernel replaces huffman_tpu/ops/pallas/decode_kernel.py:
 // _kernel (wrapper decode_ranks_pallas) together with the decode use of
@@ -20,16 +21,35 @@
 // (plan_compact / plan_tiles) is needed: one warp per segment, its lanes
 // striding over the row, so reads and writes are coalesced.
 //
+// gap_count_segments_kernel replaces decode_kernel.py:_count_kernel
+// (wrapper count_segments_pallas), the counting pass of gap-only
+// (Yamamoto) streams: one thread per segment walks the canonical compare
+// chain, lengths only, from bit s*seg_bits + gap[s] and counts the
+// codewords that start before the next segment's entry (the last segment:
+// before total_bits), at most max_count of them.  Bit positions are 64-bit
+// (the JAX kernel's int32 arithmetic is a TPU limit; the format's u32
+// word count allows more).  The TPU kernel's lane relayout, its one-hot
+// pair refill and its 2x counting granularity with the fold all serve the
+// vector layout; a thread here loads its own words.
+//
+// B1 and C1 read the stream through the window and walk of bitwalk.cuh,
+// which the self-sync kernel C2 shares.
+//
 // Bounds on this card.  B1 reads the payload once and writes the rank
 // matrix (~1 byte per symbol); its time is the serial bit chain of each
 // segment (length compare -> shift -> next window), ~200 symbols at
 // seg_bits=1024, with one thread per segment.  B2 is bytes-bound: rank
-// matrix in, output out.
+// matrix in, output out.  C1 reads the payload once and writes one int
+// per segment; at 128-bit segments a thread's chain is ~20 codewords, so
+// it has many more threads than B1 at 1024 bits for the same payload.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bitwalk.cuh"
+
 #define RANK_THREADS 128
+#define COUNT_THREADS 256
 #define PLACE_THREADS 256
 #define PLACE_WARPS (PLACE_THREADS / 32)
 
@@ -51,35 +71,17 @@ __global__ void __launch_bounds__(RANK_THREADS) gap_decode_ranks_kernel(
   if (t >= n_segs_all) return;
   const long long g = t / n_segs;
   const long long s = t - g * n_segs;
-  const uint32_t* w = words + g * n_words;
-  // word i of this block; zero outside it
-  auto word = [&](long long i) -> uint64_t {
-    return (i >= 0 && i < n_words) ? w[i] : 0u;
-  };
   const int n = min(max(counts[t], 0), max_count);
   uint8_t* row = ranks + t * max_count;
 
-  // 64-bit window, its top `nbits` bits valid; nbits >= 33 before every
-  // codeword, so the top 32 bits are always stream bits
-  const long long pos = s * seg_bits + gaps[t];
-  const long long w0 = pos >> 5;
-  const int off = (int)(pos & 31);
-  uint64_t buf = ((word(w0) << 32) | word(w0 + 1)) << off;
-  int nbits = 64 - off;
-  long long next = w0 + 2;
+  // the words of this block; zero outside it
+  BitWindow bw(words + g * n_words, n_words, s * seg_bits + gaps[t]);
   for (int i = 0; i < n; ++i) {
-    const uint32_t win = (uint32_t)(buf >> 32);
-    // canonical length: min_len + #{l in [min_len, max_len) : win >= lim}
-    int ln = min_len;
-    for (int l = min_len; l < max_len; ++l) ln += (win >= s_lim[l]);
-    // ln is in [1, 16], so every shift below is in range
+    const uint32_t win = bw.peek();
+    const int ln = canon_len(win, s_lim, min_len, max_len);
+    // ln is in [1, 16], so the shift is in range
     row[i] = (uint8_t)(s_bias[ln] + (int)(win >> (32 - ln)));
-    buf <<= ln;
-    nbits -= ln;
-    if (nbits <= 32) {
-      buf |= word(next++) << (32 - nbits);
-      nbits += 32;
-    }
+    bw.skip(ln);
   }
   for (int i = n; i < max_count; ++i) row[i] = 0;
 }
@@ -103,6 +105,39 @@ __global__ void __launch_bounds__(PLACE_THREADS) gap_place_bytes_kernel(
     const long long d = o + i;
     if (d >= 0 && d < n_out) out[d] = s_sym[row[i]];
   }
+}
+
+__global__ void __launch_bounds__(COUNT_THREADS) gap_count_segments_kernel(
+    const uint32_t* __restrict__ words, const int* __restrict__ gaps,
+    const uint32_t* __restrict__ lim, int* __restrict__ counts,
+    long long n_segs, long long n_words, long long total_bits, int seg_bits,
+    int max_count, int min_len, int max_len) {
+  __shared__ uint32_t s_lim[32];
+  if (threadIdx.x < 32) s_lim[threadIdx.x] = lim[threadIdx.x];
+  __syncthreads();
+
+  const long long s = (long long)blockIdx.x * COUNT_THREADS + threadIdx.x;
+  if (s >= n_segs) return;
+  long long pos = s * seg_bits + gaps[s];
+  long long end = total_bits;
+  if (s + 1 < n_segs) end = min(end, (s + 1) * seg_bits + gaps[s + 1]);
+  counts[s] = walk_count(words, n_words, pos, end, max_count, s_lim, min_len,
+                         max_len);
+}
+
+extern "C" int gap_count_segments_launch(const void* words, const void* gaps,
+                                         const void* lim, void* counts,
+                                         long long n_segs, long long n_words,
+                                         long long total_bits, int seg_bits,
+                                         int max_count, int min_len,
+                                         int max_len, void* stream) {
+  const long long blocks = (n_segs + COUNT_THREADS - 1) / COUNT_THREADS;
+  gap_count_segments_kernel<<<(unsigned)blocks, COUNT_THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (const int*)gaps, (const uint32_t*)lim,
+      (int*)counts, n_segs, n_words, total_bits, seg_bits, max_count, min_len,
+      max_len);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int gap_decode_ranks_launch(const void* words, const void* gaps,

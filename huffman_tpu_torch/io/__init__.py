@@ -13,6 +13,21 @@ from .convert import (
     device_compressed_from_numpy,
     section_from_numpy,
 )
+from .seqfmt import (
+    PrefixCode,
+    decode_seq,
+    host_lut_decode,
+    read_seq_header,
+    write_seq,
+)
+from .yamamoto import (
+    decode_yamamoto,
+    decode_yamamoto_device,
+    read_yamamoto,
+    table_from_length_sequence,
+    write_yamamoto,
+    yamamoto_bytes,
+)
 
 __all__ = [
     "write_container",
@@ -26,4 +41,15 @@ __all__ = [
     "section_from_numpy",
     "compressed_from_numpy",
     "device_compressed_from_numpy",
+    "table_from_length_sequence",
+    "write_yamamoto",
+    "yamamoto_bytes",
+    "read_yamamoto",
+    "decode_yamamoto",
+    "decode_yamamoto_device",
+    "PrefixCode",
+    "write_seq",
+    "read_seq_header",
+    "decode_seq",
+    "host_lut_decode",
 ]

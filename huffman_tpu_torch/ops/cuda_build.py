@@ -26,6 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "huffman_tpu_torch"
 KERNEL_SOURCES = (
     "ils_decode", "ils_encode", "ils_compact", "gap_decode", "gap_encode",
+    "selfsync",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,11 +61,17 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _P,
         ],
         "gap_place_bytes_launch": [_P, _P, _P, _P, _P, _L, _I, _L, _P],
+        "gap_count_segments_launch": [
+            _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P,
+        ],
     },
     "gap_encode": {
         "gap_row_pack_launch": [_P, _P, _P, _P, _P, _L, _I, _P],
         "gap_row_meta_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
         "gap_place_bits_launch": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
+    },
+    "selfsync": {
+        "sync_transitions_launch": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _P],
     },
 }
 

@@ -1,7 +1,8 @@
-"""HTC1 decode kernels B1 and B2: wrappers, plain versions, launch counts.
+"""Gap-array decode kernels B1, B2 and C1: wrappers, plain versions,
+launch counts.
 
 Counterpart of `huffman_tpu/ops/pallas/decode_kernel.py`
-(`decode_ranks_pallas`, `decode_blocks_pallas`),
+(`decode_ranks_pallas`, `decode_blocks_pallas`, `count_segments_pallas`),
 `huffman_tpu/ops/pallas/compact_kernel.py` (`ragged_concat_pallas`,
 `rows_assemble_pallas`) and `huffman_tpu/ops/compact.py`.  The routing is
 that of `ops/ils_kernels.py`: a CUDA tensor launches the kernel of
@@ -13,6 +14,9 @@ that of `ops/ils_kernels.py`: a CUDA tensor launches the kernel of
 - `gap_place_bytes` (B2): ``out[off[s] + i] = symtab[rank[s, i]]`` for
   ``i < count[s]``, ``off`` the exclusive prefix sum of the counts.
 - `decode_blocks`: both, for G equal-size blocks in one launch each.
+- `count_segments` (C1): the symbols of each segment of a gap-only
+  (Yamamoto) stream, the codewords that start before the next segment's
+  entry.
 
 The TPU's placement plans (`plan_compact`, `plan_tiles`, `_geometry`),
 its 2-wide segment merge and its row budget (`MAX_ROW_BYTES`) size VMEM
@@ -43,6 +47,9 @@ __all__ = [
     "gap_place_bytes",
     "gap_place_bytes_plain",
     "decode_blocks",
+    "count_segments",
+    "count_segments_plain",
+    "count_max",
     "reset_launch_counts",
     "launch_counts",
 ]
@@ -60,6 +67,56 @@ def kernel_tabs(dec: DeviceDecTable):
 
 
 # ----------------------------------------------------------------------
+# The canonical bit walk (the plain counterpart of csrc/bitwalk.cuh)
+# ----------------------------------------------------------------------
+def _word_reader(words, n_words, base=0):
+    """word(i): u32 word i of each stream, as int64; zero outside
+    [0, n_words).  words: (..., n_words) int32, flattened row-major, each
+    row starting at `base` (broadcast against i)."""
+    flat = torch.cat([_u32(words).reshape(-1),
+                      torch.zeros(1, dtype=torch.int64, device=words.device)])
+
+    def word(i):  # the spare last entry of flat reads as zero
+        ok = (i >= 0) & (i < n_words)
+        return flat[torch.where(ok, base + i, flat.shape[0] - 1)]
+
+    return word
+
+
+def _window(word, pos):
+    """The 32 stream bits from bit `pos` (int64), MSB first."""
+    sh = pos & 31
+    w0 = pos >> 5
+    return ((word(w0) << sh) & 0xFFFFFFFF) | (word(w0 + 1) >> (32 - sh))
+
+
+def _code_len(win, lim, min_len, max_len):
+    """Canonical length: min_len + #{l in [min_len, max_len): win >= lim[l]}
+    (lim as u32 in int64)."""
+    ln = torch.full_like(win, min_len)
+    for lv in range(min_len, max_len):
+        ln += win >= lim[lv]
+    return ln
+
+
+def _walk_counts(words, pos, end, lim, *, min_len, max_len, max_count):
+    """Codewords of a (W,) stream that start below `end`, walked from each
+    `pos` (int64, any shape), at most max_count of them: returns (count,
+    pos just past the last one counted), int64."""
+    word = _word_reader(words, words.shape[0])
+    lim = _u32(lim)
+    count = torch.zeros_like(pos)
+    for _ in range(max_count):
+        active = pos < end
+        if not bool(active.any()):
+            break
+        ln = _code_len(_window(word, pos), lim, min_len, max_len)
+        count += active
+        pos = pos + torch.where(active, ln, 0)
+    return count, pos
+
+
+# ----------------------------------------------------------------------
 # B1: segment ranks
 # ----------------------------------------------------------------------
 def gap_decode_ranks_plain(words, gaps, counts, lim, bias, *, seg_bits,
@@ -67,27 +124,18 @@ def gap_decode_ranks_plain(words, gaps, counts, lim, bias, *, seg_bits,
     dev = words.device
     g_n, n_words = words.shape
     n_segs = gaps.shape[1]
-    flat = torch.cat([_u32(words).reshape(-1),
-                      torch.zeros(1, dtype=torch.int64, device=dev)])
-    base = torch.arange(g_n, device=dev)[:, None] * n_words
+    # zero outside each block
+    word = _word_reader(words, n_words,
+                        torch.arange(g_n, device=dev)[:, None] * n_words)
     lim = _u32(lim)
     bias = bias.to(torch.int64)
-
-    def word(i):  # zero outside the block (the spare last entry of flat)
-        ok = (i >= 0) & (i < n_words)
-        return flat[torch.where(ok, base + i, flat.shape[0] - 1)]
-
     pos = (torch.arange(n_segs, device=dev)[None, :] * seg_bits
            + gaps.to(torch.int64))
     n = counts.to(torch.int64).clamp(0, max_count)
     ranks = torch.zeros((g_n, n_segs, max_count), dtype=torch.uint8, device=dev)
     for i in range(max_count):
-        sh = pos & 31
-        w0 = pos >> 5
-        win = ((word(w0) << sh) & 0xFFFFFFFF) | (word(w0 + 1) >> (32 - sh))
-        ln = torch.full_like(pos, min_len)
-        for lv in range(min_len, max_len):
-            ln += win >= lim[lv]
+        win = _window(word, pos)
+        ln = _code_len(win, lim, min_len, max_len)
         rank = (bias[ln] + (win >> (32 - ln))) & 255
         active = i < n
         ranks[:, :, i] = torch.where(active, rank, 0).to(torch.uint8)
@@ -179,6 +227,64 @@ def gap_place_bytes(ranks, counts, offsets, symtab, *, n_out):
 
 
 # ----------------------------------------------------------------------
+# C1: symbol counts of a gap-only stream
+# ----------------------------------------------------------------------
+def count_max(seg_bits: int, min_len: int) -> int:
+    """Most codewords C1 counts in a segment.  A valid stream's entry
+    offsets are below 16 bits (max_len <= 16), so its segments never reach
+    it; it keeps a corrupt gap from sending a thread far."""
+    return (seg_bits + 16) // min_len + 1
+
+
+def count_segments_plain(words, gaps, lim, *, seg_bits, total_bits, min_len,
+                         max_len):
+    pos = (torch.arange(gaps.shape[0], device=words.device) * seg_bits
+           + gaps.to(torch.int64))
+    end = torch.cat([pos[1:], pos.new_full((1,), total_bits)]).clamp(
+        max=total_bits)
+    count, _ = _walk_counts(words, pos, end, lim, min_len=min_len,
+                            max_len=max_len,
+                            max_count=count_max(seg_bits, min_len))
+    return count.to(torch.int32)
+
+
+def count_segments(words, gaps, lim, *, seg_bits, total_bits, min_len,
+                   max_len):
+    """Symbols per segment of a gap-only stream: (S,) int32.
+
+    Segment s enters at bit ``s * seg_bits + gaps[s]`` and counts the
+    codewords that start before the next segment's entry (the last one:
+    before `total_bits`), at most `count_max`.  words: (W,) int32
+    MSB-first u32 payload (words past W read as zeros); gaps: (S,) int32;
+    lim: (32,) int32 (`kernel_tabs`)."""
+    _check("words", words, torch.int32)
+    _check("gaps", gaps, torch.int32)
+    if words.dim() != 1 or gaps.dim() != 1:
+        raise ValueError(f"words (W,) and gaps (S,) expected; got "
+                         f"{tuple(words.shape)} and {tuple(gaps.shape)}")
+    _check("lim", lim, torch.int32, (32,))
+    _same_device(words, gaps, lim)
+    if not 1 <= min_len <= max_len <= 16 or seg_bits <= 0:
+        raise ValueError(f"invalid count shape: seg_bits={seg_bits}, "
+                         f"lengths {min_len}..{max_len}")
+    kw = dict(seg_bits=seg_bits, total_bits=total_bits, min_len=min_len,
+              max_len=max_len)
+    if not _use_kernel(words):
+        return count_segments_plain(words, gaps, lim, **kw)
+    n_segs = gaps.shape[0]
+    counts = torch.empty(n_segs, dtype=torch.int32, device=words.device)
+    if n_segs == 0:
+        return counts
+    rc = _lib("gap_decode").gap_count_segments_launch(
+        words.data_ptr(), gaps.data_ptr(), lim.data_ptr(), counts.data_ptr(),
+        n_segs, words.shape[0], total_bits, seg_bits,
+        count_max(seg_bits, min_len), min_len, max_len, _stream(words),
+    )
+    _launched(count_segments, rc)
+    return counts
+
+
+# ----------------------------------------------------------------------
 # Orchestration
 # ----------------------------------------------------------------------
 def decode_blocks(words, gaps, counts, dec: DeviceDecTable, *, spec: DecSpec,
@@ -205,7 +311,7 @@ def decode_blocks(words, gaps, counts, dec: DeviceDecTable, *, spec: DecSpec,
     return out.view(g_n, out_size)
 
 
-_WRAPPERS = (gap_decode_ranks, gap_place_bytes)
+_WRAPPERS = (gap_decode_ranks, gap_place_bytes, count_segments)
 for _fn in _WRAPPERS:
     _fn.launches = 0
 

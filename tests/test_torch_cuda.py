@@ -193,7 +193,9 @@ def test_gap_kernels_match_plain(cuda, kind, g, b, seg_bits):
                                                 codec.dec.symtab, n_out=g * b))
     assert torch.equal(out, blocks.reshape(-1))
     assert torch.equal(codec.decode_device(dcomp), blocks)
-    assert all(ge.launch_counts().values()) and all(gd.launch_counts().values())
+    assert all(ge.launch_counts().values())
+    assert gd.launch_counts()["gap_decode_ranks"] > 0
+    assert gd.launch_counts()["gap_place_bytes"] > 0
 
 
 @pytest.mark.parametrize("n,block_bytes,seg_bits", [
@@ -254,3 +256,87 @@ def test_gap_decode_kernels_stay_inside_buffers(cuda):
     assert _equal(out, gd.gap_place_bytes_plain(ranks, flat, offs,
                                                 codec.dec.symtab, n_out=1500))
     torch.cuda.synchronize()
+
+
+# ----------------------------------------------------------------------
+# Foreign streams: C1 (Yamamoto counts), C2 (self-sync transitions)
+# ----------------------------------------------------------------------
+def _foreign(kind, n):
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.core import npref
+
+    data = _gap_data(kind, n)
+    table = GapArrayCodec.fit(data, device="cpu").table
+    words, total_bits = npref.encode_bits(data, table)
+    return data, table, words[:-1], total_bits
+
+
+@pytest.mark.parametrize("kind,n", [
+    ("0.1", 40000), ("0.5", 100001), ("0.9", 30000), ("single", 5000),
+    ("uniform", 7777),
+])
+def test_foreign_kernels_match_plain(cuda, kind, n):
+    from huffman_tpu_torch.core import npref
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.ops import selfsync_kernels as sk
+    from huffman_tpu_torch.ops.tables import device_dec_table
+
+    data, table, words, total_bits = _foreign(kind, n)
+    lim = gd.kernel_tabs(device_dec_table(table, cuda))[0]
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    lens = dict(min_len=table.min_len, max_len=table.max_len_present)
+    gd.reset_launch_counts()
+    sk.reset_launch_counts()
+    for seg_bits in (128, 256, 1024):
+        gaps = npref.segment_metadata(data, table, seg_bits)[0]
+        gaps = torch.from_numpy(gaps.astype(np.int32)).to(cuda)
+        for bound in (total_bits, words.size * 32):
+            kw = dict(seg_bits=seg_bits, total_bits=bound, **lens)
+            got = gd.count_segments(w, gaps, lim, **kw)
+            assert _equal(got, gd.count_segments_plain(w, gaps, lim, **kw))
+    # corrupt gaps: capped counts, reads outside the stream are zeros
+    rng = np.random.default_rng(9)
+    bad = torch.from_numpy(rng.integers(-3000, 3000, 999).astype(np.int32)).to(cuda)
+    kw = dict(seg_bits=128, total_bits=total_bits, **lens)
+    assert _equal(gd.count_segments(w, bad, lim, **kw),
+                  gd.count_segments_plain(w, bad, lim, **kw))
+    n_subseq = -(-total_bits // 1024)
+    for extra in (0, 5):
+        kw = dict(total_bits=total_bits, seg_bits=1024,
+                  n_subseq=n_subseq + extra, **lens)
+        got = sk.sync_transitions(w, lim, **kw)
+        assert _equal(got, sk.sync_transitions_plain(w, lim, **kw))
+    assert gd.launch_counts()["count_segments"] == 7
+    assert sk.launch_counts()["sync_transitions"] == 2
+
+
+@pytest.mark.parametrize("kind,n", [("0.5", 300001), ("single", 20000),
+                                    ("uniform", 4096), ("0.9", 1)])
+def test_foreign_decoders_match_cpu(cuda, kind, n):
+    from huffman_tpu_torch import (
+        decode_seq,
+        decode_yamamoto,
+        selfsync_decode_words,
+        write_seq,
+        write_yamamoto,
+    )
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.ops import selfsync_kernels as sk
+
+    data, table, words, total_bits = _foreign(kind, n)
+    gd.reset_launch_counts()
+    sk.reset_launch_counts()
+    blob = write_yamamoto(data, table)
+    got = decode_yamamoto(blob)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), decode_yamamoto(blob, device="cpu"))
+    assert np.array_equal(got.cpu().numpy(), data)
+    assert gd.launch_counts()["count_segments"] == 1
+    got = selfsync_decode_words(words, total_bits, table)
+    assert torch.equal(got.cpu(), selfsync_decode_words(words, total_bits,
+                                                        table, device="cpu"))
+    assert np.array_equal(got.cpu().numpy(), data)
+    assert sk.launch_counts()["sync_transitions"] == 1
+    seq = write_seq(data, table)
+    assert np.array_equal(decode_seq(seq).cpu().numpy(), data)
+    assert gd.launch_counts()["gap_decode_ranks"] == 3

@@ -43,6 +43,14 @@ def test_imports_with_jax_and_huffman_tpu_blocked():
         "device='cpu')\n"
         "out = g.decode(read_container(write_container(g.encode(d))))\n"
         "assert np.array_equal(out.numpy(), d)\n"
+        "import huffman_tpu_torch.models.selfsync\n"
+        "import huffman_tpu_torch.ops.selfsync_kernels\n"
+        "from huffman_tpu_torch import decode_seq, decode_yamamoto, "
+        "write_seq, write_yamamoto\n"
+        "y = decode_yamamoto(write_yamamoto(d, g.table), device='cpu')\n"
+        "assert np.array_equal(y.numpy(), d)\n"
+        "s = decode_seq(write_seq(d, g.table), device='cpu')\n"
+        "assert np.array_equal(s.numpy(), d)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
         "assert not bad, bad\n"
@@ -76,6 +84,11 @@ def test_default_device_is_cuda_and_never_quietly_cpu():
     if torch.cuda.is_available():
         assert IlsCodec.fit(data).device.type == "cuda"
         assert GapArrayCodec.fit(data).device.type == "cuda"
+        table = GapArrayCodec.fit(data).table
+        blob = huffman_tpu_torch.write_yamamoto(data, table)
+        assert huffman_tpu_torch.decode_yamamoto(blob).device.type == "cuda"
+        seq = huffman_tpu_torch.write_seq(data, table)
+        assert huffman_tpu_torch.decode_seq(seq).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         IlsCodec.fit(data)
@@ -91,6 +104,20 @@ def test_default_device_is_cuda_and_never_quietly_cpu():
         GapArrayCodec.fit(data)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GapArrayCodec(table)
+    blob = huffman_tpu_torch.write_yamamoto(data, table)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        huffman_tpu_torch.decode_yamamoto(blob)
+    seq = huffman_tpu_torch.write_seq(data, table)
+    for selfsync in (True, False):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            huffman_tpu_torch.decode_seq(seq, selfsync=selfsync)
+    code, off, total_bits = huffman_tpu_torch.read_seq_header(seq)
+    payload = np.frombuffer(seq, np.uint8, offset=off)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        huffman_tpu_torch.selfsync_decode_bytes(payload, total_bits, code)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        huffman_tpu_torch.selfsync_decode_words(np.zeros(2, np.uint32), 0,
+                                                table)
 
 
 def test_ctypes_signatures_match_sources():
@@ -115,10 +142,14 @@ def test_ctypes_signatures_match_sources():
                 types.append(ctype["ptr" if "*" in p else p])
             assert types == cuda_build._SIGNATURES[name][fn], fn
 
+    # every module of the package that launches through `_lib`
     calls = {}
-    trees = [ast.parse((PKG / "ops" / f"{m}.py").read_text()) for m in
-             ("ils_kernels", "gap_decode_kernels", "gap_encode_kernels")]
-    for node in (n for tree in trees for n in ast.walk(tree)):
+    trees = [ast.parse(p.read_text()) for p in sorted(PKG.rglob("*.py"))]
+    launchers = [tree for tree in trees if any(
+        isinstance(n, ast.Call) and getattr(n.func, "id", None) == "_lib"
+        for n in ast.walk(tree))]
+    assert len(launchers) >= 4
+    for node in (n for tree in launchers for n in ast.walk(tree)):
         if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
                 and isinstance(node.func.value, ast.Call)
                 and getattr(node.func.value.func, "id", None) == "_lib"):
