@@ -65,17 +65,42 @@ failure raises and exits non-zero with the traceback):
    with its launch counters, timed and profiled the same way; C2, B1 and
    B2 held against their plain versions and timed there, the scan timed
    apart.
-11. One JSON line per kernel list (name, route, source, replaces, launches,
+11. The portability path, small inputs: the encode map B5 against its
+   plain version on the card, bit for bit, on generate_redundant(r=0.1,
+   0.5, 0.9), a one-symbol input, the uniform 256-symbol input, a max_len=16
+   table and a block holding bytes its table lacks; encode_block_fast equals
+   encode_block there (seg_bits 128 and 1024); the step decoders (lut,
+   canonical, twolevel) return each decodable input and count the
+   encoder's counts at seg_bits=128; the streaming fused pack
+   (ils_pack_certify_stream, D1, on A2's kernel) at k=256, chunk_cap=8,
+   stride_rows=128 under both anchors equals its plain version and
+   ils_pack_certify (bits, envelopes, flags, rows [0, w_tile)); B2 on a
+   ragged placement (the chunk-shared TPU placement D3's function); with
+   PREFER_STREAM_PACK on, an ILS section of 2 tiles at k=8192 (16 MiB of
+   r=0.5) gives the same container bytes on the card as on the CPU, and
+   whether they equal the flag-off bytes is logged.
+12. The portability path at phase 7's block: encode_block_fast with
+   encode_device's max_words and n_segs equals encode_device's four
+   outputs (B5's launches of that one counted call), timed (median of 3
+   after a warm-up), B5 held against its plain version and timed there;
+   GapArrayCodec(method=m).decode_device for lut, canonical and twolevel,
+   bit-exact, timed and profiled; decode_yamamoto(method="lut",
+   "canonical") on phase 9's container, bit-exact, timed once, and
+   method="twolevel" raising as in the JAX package.
+13. One JSON line per kernel list (name, route, source, replaces, launches,
    max_abs_err, ms, wrapper_ms, plain_ms, bound_ms, bound_by, library_ms):
    each kernel's launches in its codec's end-to-end run (phase 4 or 6)
    beside its times at that run's shapes; A4 and A5, which phase 4 gives
    only the small tail, also under "full_section" at the main section's
    shape (the two-pass tier's shape when a full section takes it), B1 and
    B2 also under "tail" at the tail group's; C1's launches are phase 9's,
-   C2's phase 10's.  The bench shape's rows, with phase 7's launches, go
-   in the summary line before it under "htc1"."kernels", and B1/B2/C1/C2
-   at the foreign paths' shapes under "yamamoto"."kernels" and
-   "selfsync"."kernels".  Then the card line, then the device line last.
+   C2's phase 10's, B5's phase 12's.  The TPU kernels whose function a
+   kernel here computes are under its "also_replaces" (B3, B4a, D1, D3).
+   The bench shape's rows, with phase 7's launches, go in the summary line
+   before it under "htc1"."kernels", phase 11-12's results under
+   "portable", and B1/B2/C1/C2 at the foreign paths' shapes under
+   "yamamoto"."kernels" and "selfsync"."kernels".  Then the card line,
+   then the device line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
 once) / 3.35 TB/s and (integer ALU operations the algorithm needs on this
@@ -123,12 +148,18 @@ KERNELS = {
                        "huffman_tpu/ops/pallas/decode_kernel.py:325"),
     "sync_transitions": ("huffman_tpu_torch/csrc/selfsync.cu",
                          "huffman_tpu/ops/pallas/selfsync_kernels.py:42"),
+    "encode_map": ("huffman_tpu_torch/csrc/encode_map.cu",
+                   "huffman_tpu/ops/pallas/encode_kernel.py:39"),
 }
 HTC1 = ("gap_decode_ranks", "gap_place_bytes", "gap_row_pack", "gap_row_meta",
         "gap_place_bits")
-# TPU relayout kernels whose work is the addressing of a kernel here
+# TPU kernels whose work a kernel here does: relayouts folded into its
+# addressing (B3, B4a), and VMEM-bound variants of its function (D1, the
+# streaming fused pack; D3, the chunk-shared placement)
 FOLDED = {
+    "ils_pack_certify": ["huffman_tpu/ops/pallas/ils_kernels.py:878"],
     "gap_decode_ranks": ["huffman_tpu/ops/pallas/compact_kernel.py:410"],
+    "gap_place_bytes": ["huffman_tpu/ops/pallas/compact_kernel.py:249"],
     "gap_row_pack": ["huffman_tpu/ops/pallas/gap_encode_kernel.py:201",
                      "huffman_tpu/ops/pallas/compact_kernel.py:410"],
 }
@@ -146,6 +177,9 @@ SYMBOLS = {
     "gap_place_bits": "gap_place_bits_kernel",
     "count_segments": "gap_count_segments_kernel",
     "sync_transitions": "sync_transitions_kernel",
+    "encode_map": "encode_map_kernel",
+    # D1 launches A2's kernel
+    "ils_pack_certify_stream": "ils_encode_kernel<true, true, false>",
 }
 
 
@@ -158,6 +192,10 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+
+
+def sync():
+    torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -409,19 +447,20 @@ def kernel_cases(stats, tk, tils, words, codec, snum, k, rot, e_band, label,
 
 
 def container_parity(tils, IlsCompressed, write, read, data, table, enc,
-                     dec, k, avg, rot, label, **kw):
-    """Container bytes of one section encoded on the card and on the CPU.
+                     dec, k, avg, rot, label, devices=("cuda", "cpu"), **kw):
+    """Container bytes of one section encoded on the card and on the CPU
+    (or on the `devices` given); returns the card's bytes and params.
     Through `ils_encode_to_device`, which also takes the e_band override
     that `ils_encode_device` leaves out."""
     blobs = []
-    for dev in ("cuda", "cpu"):
+    for dev in devices:
         words = torch.from_numpy(data.view(np.int32).reshape(-1, 1024).copy())
         rows, _, p = tils.ils_encode_to_device(
             words.to(dev), enc.to(dev), k=k, avg_bits=avg,
             max_len=table.max_len_present, rot=rot, **kw)
         sec = tils.IlsSection(params=p, payload=rows[: p.total_rows])
         blobs.append(write(IlsCompressed(table, data.size, [sec])))
-    if blobs[0] != blobs[1]:
+    if blobs[0] != blobs[-1]:
         raise AssertionError(f"container bytes differ between the kernel and "
                              f"the plain path on {label}")
     comp = read(blobs[0])
@@ -429,8 +468,10 @@ def container_parity(tils, IlsCompressed, write, read, data, table, enc,
     if not torch.equal(out, torch.from_numpy(data).cuda()):
         raise AssertionError(f"card decode of the {label} container failed")
     p = comp.sections[0].params
-    log(f"  container {label:28s} {len(blobs[0])} bytes equal=True "
+    log(f"  container {label:28s} {len(blobs[0])} bytes "
+        f"{'equal=True' if len(blobs) > 1 else '(card only)'} "
         f"w_band={p.w_band} w_cap={p.w_cap} rot={p.rot}")
+    return blobs[0], p
 
 
 def gap_encode_cases(stats, ge, codec, blocks, label, timing=None):
@@ -622,6 +663,270 @@ def transition_cases(stats, gd, sk, dec, spec, words, total_bits, label,
     return got
 
 
+def portable_cases(stats, ns, data, table, label, dev, decodable=True):
+    """The portability path on one small input on the card: B5 and its
+    plain version, encode_block_fast against encode_block at seg_bits 128
+    and 1024, and, where the table holds every byte of the input, the step
+    decoders (decode_block returns the input, count_segments the encoder's
+    counts at seg_bits=128)."""
+    em, tenc, step, tk, tt = ns.em, ns.tenc, ns.step, ns.tk, ns.tt
+    d = torch.from_numpy(data).to(dev)
+    enc = tk.ils_enc_tabs(table, dev)
+    stats.check("encode_map", em.encode_map(d, enc), em.encode_map_plain(d, enc),
+                label)
+    dec, spec = tt.device_dec_table(table, dev), tt.dec_spec(table)
+    total = int(table.lengths.astype(np.int64)[data].sum())
+    for seg_bits in (128, 1024):
+        kw = dict(seg_bits=seg_bits, max_words=-(-total // 32),
+                  n_segs=max(-(-total // seg_bits), 1))
+        fast = tenc.encode_block_fast(d, enc, **kw)
+        ref = tenc.encode_block(d, enc, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(fast, ref)):
+            raise AssertionError(f"encode_block_fast of {label} at seg_bits="
+                                 f"{seg_bits} differs from encode_block")
+        if not decodable:
+            continue
+        words, tb, gaps, counts = ref
+        for m in ("lut", "canonical", "twolevel"):
+            out = step.decode_block(words, gaps, counts, dec, spec=spec,
+                                    seg_bits=seg_bits,
+                                    max_count=int(counts.max()),
+                                    out_size=d.numel(), method=m)
+            if not torch.equal(out, d):
+                raise AssertionError(f"{m} decode_block of {label} at seg_bits="
+                                     f"{seg_bits} is not the input")
+            if seg_bits == 128:
+                got = step.count_segments(
+                    words, gaps, int(tb), dec, spec=spec, seg_bits=128,
+                    max_count=128 // spec.min_len + 1, method=m)
+                if not torch.equal(got, counts):
+                    raise AssertionError(f"{m} count_segments of {label} "
+                                         f"differs from the encoder's counts")
+    log(f"  portable {label:22s} {data.size} B: encode_map == plain, "
+        f"encode_block_fast == encode_block"
+        + (", lut/canonical/twolevel decode and count exact" if decodable
+           else " (bytes outside the table: not decoded)"))
+
+
+def ils_case(ns, data, k, dev):
+    """(IlsCodec, avg bits, schedule numerator, (rows, 1024) int32 words on
+    dev) of one ILS input, as the main path fits it."""
+    codec = ns.IlsCodec.fit(data, k=k, device=dev)
+    avg = codec._avg_bits(torch.from_numpy(data))
+    words = torch.from_numpy(data.view(np.int32).reshape(-1, 1024).copy())
+    return codec, avg, ns.ils_schedule_numer(avg), words.to(dev)
+
+
+def portable_small(stats, ns, dev):
+    """Phase 11: the portability path's kernels and functions on small
+    inputs on the card.  Returns the D1 and D3 timings and the summary of
+    the streaming tier's container check."""
+    log("phase 11: the portability path, small inputs")
+    tk, gd = ns.tk, ns.gd
+    gen = ns.generate_redundant
+    skew, skew_table = skew16_input(ns.table_from_length_sequence, 65536, 52)
+    lacks = gen(65536, 0.5, seed=53)
+    lacks_table = ns.GapArrayCodec.fit(np.where(lacks >= 200, 65, lacks)
+                                       .astype(np.uint8), device="cpu").table
+    lacks[100:104] = [200, 201, 250, 255]  # one group of absent bytes only
+    for label, small, table, decodable in (
+        ("r=0.1", gen(65536, 0.1, seed=54), None, True),
+        ("r=0.5", gen(65536, 0.5, seed=55), None, True),
+        ("r=0.9", gen(65536, 0.9, seed=56), None, True),
+        ("one symbol", np.full(65536, 9, np.uint8), None, True),
+        ("uniform 256", np.arange(65536, dtype=np.uint8), None, True),
+        ("max_len=16", skew, skew_table, True),
+        ("bytes the table lacks", lacks, lacks_table, False),
+    ):
+        if table is None:
+            table = ns.GapArrayCodec.fit(small, device="cpu").table
+        portable_cases(stats, ns, small, table, label, dev, decodable)
+
+    # D1 on A2's kernel, at tests/test_ils.py's streaming shape
+    k, stride = 256, 128
+    codec, _, snum, words = ils_case(ns, gen(2 * k * 1024, 0.5, seed=21), k,
+                                     dev)
+    for anchor in ("mu", "laggard"):
+        kw = dict(k=k, stride_rows=stride, chunk_cap=8, anchor=anchor)
+        got = tk.ils_pack_certify_stream(words, snum, codec.enc, **kw)
+        stats.check("ils_pack_certify", got,
+                    tk.ils_pack_certify_stream_plain(words, snum, codec.enc, **kw),
+                    f"stream k={k} chunk_cap=8 {anchor}")
+        a2 = tk.ils_pack_certify(words, snum, codec.enc, k=k,
+                                 stride_rows=stride, anchor=anchor)
+        same = all(torch.equal(a, b) for a, b in zip(got[1:], a2[1:]))
+        w_t = [2 * (-(-int(got[1][t].max()) // 64)) for t in range(2)]
+        for t in range(2):
+            rows = slice(t * stride, t * stride + w_t[t])
+            same = same and torch.equal(got[0][rows], a2[0][rows])
+        if not same:
+            raise AssertionError(f"ils_pack_certify_stream ({anchor}) differs "
+                                 f"from ils_pack_certify")
+    n_sym = 2 * k * 1024
+    d1 = timed(
+        "ils_pack_certify_stream",
+        lambda: tk.ils_pack_certify_stream(words, snum, codec.enc, **kw),
+        lambda: tk.ils_pack_certify_stream_plain(words, snum, codec.enc, **kw),
+        10, bytes=n_sym + sum(w_t) * 4096 + sum(x.numel() * 4 for x in got[1:]),
+        ops=8 * n_sym + 24 * n_sym // 4, shape=list(got[0].shape))
+    log(f"  ils_pack_certify_stream == plain == ils_pack_certify on its "
+        f"contract, both anchors")
+
+    # D3's function is B2's: a ragged placement of 65536 segments
+    rng = np.random.default_rng(57)
+    counts = rng.integers(0, 101, 65536)
+    counts[rng.random(65536) < 0.1] = 0
+    ranks = torch.from_numpy(rng.integers(0, 256, (65536, 104), dtype=np.uint8)
+                             ).to(dev)
+    flat = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    offs = torch.cumsum(flat, 0, dtype=torch.int64) - flat
+    sym = torch.from_numpy(rng.permutation(256).astype(np.int32)).to(dev)
+    n = int(counts.sum())
+    stats.check("gap_place_bytes", gd.gap_place_bytes(ranks, flat, offs, sym,
+                                                      n_out=n),
+                gd.gap_place_bytes_plain(ranks, flat, offs, sym, n_out=n),
+                "ragged 65536 segments")
+    d3 = timed(
+        "gap_place_bytes",
+        lambda: gd.gap_place_bytes(ranks, flat, offs, sym, n_out=n),
+        lambda: gd.gap_place_bytes_plain(ranks, flat, offs, sym, n_out=n),
+        10, bytes=2 * n + flat.numel() * 12, ops=2 * n, shape=[n])
+
+    # the streaming tier, flag on and off, on 2 tiles at k=8192
+    data = gen(2 * 8192 * 1024, 0.5, seed=51)
+    codec, avg, _, _ = ils_case(ns, data, 8192, dev)
+    parity = (ns.tils, ns.IlsCompressed, ns.write_ils, ns.read_ils, data,
+              codec.table, codec.enc, codec.dec, 8192, avg, False)
+    tk.reset_launch_counts()
+    ns.tils.PREFER_STREAM_PACK = True
+    try:
+        on, p_on = container_parity(*parity, "2x k=8192 stream tier")
+    finally:
+        ns.tils.PREFER_STREAM_PACK = False
+    tier = tk.launch_counts()
+    if not tier["ils_pack_certify_stream"] or tier["ils_pack"]:
+        raise AssertionError(f"the flag-on section did not take the streaming "
+                             f"tier: {tier}")
+    # the flag-off tier (two-pass) is held against its plain version in
+    # phase 3; its bytes are needed here, from the card alone
+    off, p_off = container_parity(*parity, "2x k=8192 flag off",
+                                  devices=("cuda",))
+    log(f"  flag-on launches {tier}; "
+        f"flag-on container == flag-off container: {on == off} "
+        f"(w_cap {p_on.w_cap} / {p_off.w_cap}, w_band {p_on.w_band} / "
+        f"{p_off.w_band}, {len(on)} / {len(off)} bytes)")
+    summary = {
+        "d1": {"case": f"2x k={k} chunk_cap=8 stride_rows={stride}"},
+        "d3": {"case": f"B2 on a ragged placement of 65536 segments, {n} B"},
+        "stream_flag": {
+            "bytes": int(data.size), "equal": on == off,
+            "on": {"container_bytes": len(on), "w_cap": p_on.w_cap,
+                   "w_band": p_on.w_band},
+            "off": {"container_bytes": len(off), "w_cap": p_off.w_cap,
+                    "w_band": p_off.w_band}}}
+    return {"d1": d1, "d3": d3, "summary": summary}
+
+
+def portable_block(stats, ns, bcodec, blocks, yblob, ydata):
+    """Phase 12: the portability path at phase 7's block (and phase 9's
+    Yamamoto container).  Returns (summary, B5's launches in the one
+    counted encode_block_fast call, B5's timing at that shape)."""
+    em, tenc = ns.em, ns.tenc
+    gb = blocks.shape[1]
+    log(f"phase 12: the portability path, one {gb} B block, seg_bits="
+        f"{bcodec.seg_bits}")
+    ml = bcodec.table.max_len_present
+    # encode_device's sizing: the deepest code's bits, in 512-word steps
+    word_bound = -(-gb * ml // 32)
+    max_words = -(-word_bound // 512) * 512
+    fkw = dict(seg_bits=bcodec.seg_bits, max_words=max_words,
+               n_segs=-(-max_words * 32 // bcodec.seg_bits))
+    block = blocks[0]
+    dcomp = bcodec.encode_device(blocks)
+
+    def fast_encode():
+        return tenc.encode_block_fast(block, bcodec.enc, **fkw)
+
+    sync()
+    em.reset_launch_counts()
+    fast = fast_encode()
+    sync()
+    map_launches = em.launch_counts()
+    log(f"  encode_block_fast launches: {map_launches}")
+    if not map_launches["encode_map"]:
+        raise AssertionError("encode_block_fast did not launch encode_map")
+    ref = (dcomp.words[0], dcomp.total_bits[0], dcomp.gaps[0], dcomp.counts[0])
+    for name, a, b in zip(("words", "total_bits", "gaps", "counts"), fast, ref):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"encode_block_fast {name} differ from "
+                                 f"encode_device's")
+    del fast
+    fast_ms = [cuda_ms(fast_encode, 1) for _ in range(3)]
+    fast_med = statistics.median(fast_ms)
+    fast_prof = device_profile(fast_encode, "encode_block_fast",
+                               em.launch_counts)
+    log(f"  encode_block_fast == encode_device (words, total_bits, gaps, "
+        f"counts); ms {[round(x, 3) for x in fast_ms]} median {fast_med:.3f} "
+        f"= {gb / fast_med / 1e6:.3f} GB/s")
+    got = em.encode_map(block, bcodec.enc)
+    stats.check("encode_map", got, em.encode_map_plain(block, bcodec.enc),
+                f"bench 1x{gb} B")
+    map_timing = timed(
+        "encode_map", lambda: em.encode_map(block, bcodec.enc),
+        lambda: em.encode_map_plain(block, bcodec.enc), 10,
+        bytes=gb + sum(x.numel() * 4 for x in got), ops=10 * gb,
+        shape=list(got[0].shape))
+    del got
+    decode = {}
+    for m in ("lut", "canonical", "twolevel"):
+        codec = ns.GapArrayCodec(bcodec.table, block_bytes=gb, method=m,
+                                 device=block.device)
+
+        def mdecode():
+            return codec.decode_device(dcomp)
+
+        if not torch.equal(mdecode(), blocks):
+            raise AssertionError(f"{m} decode_device is not bit-exact")
+        ms = [cuda_ms(mdecode, 1) for _ in range(3)]
+        med = statistics.median(ms)
+        prof = device_profile(mdecode, f"{m} decode_device", dict)
+        log(f"  {m} decode_device bit-exact; ms {[round(x, 3) for x in ms]} "
+            f"median {med:.3f} = {gb / med / 1e6:.3f} GB/s")
+        decode[m] = {"decode_device_ms_median": med, "decode_device_ms": ms,
+                     "decode_device_gbps": gb / med / 1e6, "profile": prof}
+    del dcomp
+    fs = ydata.numel()
+    yam = {"bytes": fs}
+    for m in ("lut", "canonical"):
+        sync()
+        t0 = time.perf_counter()
+        out = ns.decode_yamamoto(yblob, method=m, device=ydata.device)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(out, ydata):
+            raise AssertionError(f"decode_yamamoto(method={m!r}) is not "
+                                 f"bit-exact")
+        del out
+        log(f"  decode_yamamoto method={m} bit-exact, {ms:.3f} ms with the "
+            f"parse = {fs / ms / 1e6:.3f} GB/s")
+        yam[m] = {"ms_with_parse": ms, "gbps": fs / ms / 1e6}
+    try:
+        ns.decode_yamamoto(yblob, method="twolevel", device=ydata.device)
+    except ValueError as e:
+        log(f"  decode_yamamoto method=twolevel raises, as in the JAX "
+            f"package: {e}")
+        yam["twolevel"] = {"raises": str(e)}
+    else:
+        raise AssertionError("decode_yamamoto(method='twolevel') must raise")
+    summary = {
+        "block_bytes": gb, "seg_bits": bcodec.seg_bits,
+        "encode_block_fast_ms_median": fast_med, "encode_block_fast_ms": fast_ms,
+        "encode_block_fast_gbps": gb / fast_med / 1e6,
+        "encode_block_fast_profile": fast_prof, "decode": decode,
+        "yamamoto": yam}
+    return summary, map_launches, map_timing
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=1 << 28,
@@ -659,11 +964,15 @@ def main(argv=None) -> int:
         selfsync_decode_device,
     )
     from huffman_tpu_torch.ops import cuda_build
+    from huffman_tpu_torch.ops import decode as step
+    from huffman_tpu_torch.ops import encode as tenc
+    from huffman_tpu_torch.ops import encode_map_kernels as em
     from huffman_tpu_torch.ops import gap_decode_kernels as gd
     from huffman_tpu_torch.ops import gap_encode_kernels as ge
     from huffman_tpu_torch.ops import ils as tils
     from huffman_tpu_torch.ops import ils_kernels as tk
     from huffman_tpu_torch.ops import selfsync_kernels as sk
+    from huffman_tpu_torch.ops import tables as tt
     from huffman_tpu_torch.ops.tables import dec_spec, device_dec_table
     from huffman_tpu_torch.utils import generate_redundant
 
@@ -734,7 +1043,9 @@ def main(argv=None) -> int:
     log(f"  launches in that run: {launches}")
     if not ok:
         raise AssertionError("end-to-end round trip is not bit-exact")
-    missing = [name for name, c in launches.items() if c == 0]
+    # the streaming pack runs only where PREFER_STREAM_PACK is on (phase 11)
+    missing = [name for name, c in launches.items()
+               if c == 0 and name != "ils_pack_certify_stream"]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
@@ -1052,7 +1363,23 @@ def main(argv=None) -> int:
     main_timing["count_segments"] = yam_timing["count_segments"]
     main_timing["sync_transitions"] = ss_timing["sync_transitions"]
 
-    # ---- 11. results
+    # ---- 11 + 12. the portability path
+    ns = SimpleNamespace(
+        em=em, tenc=tenc, step=step, tk=tk, tt=tt, tils=tils, gd=gd,
+        GapArrayCodec=GapArrayCodec, IlsCodec=IlsCodec,
+        IlsCompressed=IlsCompressed, write_ils=write_ils_container,
+        read_ils=read_ils_container, decode_yamamoto=decode_yamamoto,
+        table_from_length_sequence=table_from_length_sequence,
+        generate_redundant=generate_redundant,
+        ils_schedule_numer=ils_schedule_numer)
+    small = portable_small(stats, ns, dev)
+    portable, map_launches, map_timing = portable_block(
+        stats, ns, bcodec, blocks, yblob, ydata)
+    portable.update(small["summary"], card=card)
+    launches["encode_map"] = map_launches["encode_map"]
+    main_timing["encode_map"] = map_timing
+
+    # ---- 13. results
     def times(t):
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
         o_ms = t.get("ops", 0) / ALU_OPS_PER_S * 1e3
@@ -1070,6 +1397,8 @@ def main(argv=None) -> int:
             + ("" if t["library_ms"] is None
                else f" library_ms={t['library_ms']}"))
 
+    portable["d1"].update(times(small["d1"]))
+    portable["d3"].update(times(small["d3"]))
     # each kernel's launches in its path's end-to-end run (phase 4 or 6)
     # beside its times at the shapes of that run; A4/A5 also at the full
     # section, B1/B2 also at the tail group
@@ -1133,6 +1462,7 @@ def main(argv=None) -> int:
                  "encode_device_gbps": gb / genc_med / 1e6,
                  "decode_device_gbps": gb / gdec_med / 1e6,
                  "card": card, "profile": gprof, "kernels": bench_rows},
+        "portable": portable,
     }))
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -15,7 +15,14 @@ import numpy as np
 
 from ..constants import ALPHABET_SIZE, MAX_CODEWORD_LENGTH
 
-__all__ = ["CodeTable", "canonical_code_table", "chain_spec", "build_flat_lut"]
+__all__ = [
+    "CodeTable",
+    "TwoLevelTable",
+    "canonical_code_table",
+    "chain_spec",
+    "build_flat_lut",
+    "build_two_level_table",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,10 +149,7 @@ def build_flat_lut(table: CodeTable, lut_bits: int | None = None):
     cs = table.codes[syms].astype(np.int64)
     widths = np.int64(1) << (b - ls)
     reps = np.repeat(np.arange(len(syms)), widths)
-    # concatenated [0, w) ranges, one per codeword
-    ranges = np.arange(int(widths.sum()), dtype=np.int64) - np.repeat(
-        np.cumsum(widths) - widths, widths)
-    idx = np.repeat(cs << (b - ls), widths) + ranges
+    idx = np.repeat(cs << (b - ls), widths) + _ranges(widths)
     lut_sym[idx] = syms[reps]
     lut_len[idx] = ls[reps].astype(np.uint8)
     return lut_sym, lut_len
@@ -170,3 +174,86 @@ def chain_spec(table: CodeTable) -> tuple[tuple[int, int], ...]:
         out.append((j, j - l + 1))
         l = j + 1
     return tuple(out)
+
+
+def _ranges(widths: np.ndarray) -> np.ndarray:
+    """Concatenated [0, w) ranges, one per w in widths."""
+    total = int(widths.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    starts = np.cumsum(widths) - widths
+    return np.arange(total, dtype=np.int64) - np.repeat(starts, widths)
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoLevelTable:
+    """Two-level L1/L2 decode table (the reference's `get_table.cpp`
+    layout).
+
+    Codes of at most prefix_bits bits fill the 2^prefix_bits L1 table; a
+    longer code sits in the L2 subtable of its prefix_bits-bit prefix, whose
+    width is the longest code sharing that prefix minus prefix_bits."""
+
+    prefix_bits: int
+    boundary_code: int  # first L1 index owned by long codes
+    l1_sym: np.ndarray  # (2^prefix_bits,) uint8
+    l1_len: np.ndarray  # (2^prefix_bits,) uint8
+    ptr_table: np.ndarray  # (n_long_prefixes,) uint32: (width << 16) | offset
+    l2_sym: np.ndarray  # (l2_size,) uint8
+    l2_len: np.ndarray  # (l2_size,) uint8
+
+
+def build_two_level_table(table: CodeTable, prefix_bits: int = 10) -> TwoLevelTable:
+    p = int(prefix_bits)
+    l1_sym = np.zeros(1 << p, np.uint8)
+    l1_len = np.zeros(1 << p, np.uint8)
+    syms = table.symtab
+    ls = table.lengths[syms].astype(np.int64)
+    cs = table.codes[syms].astype(np.int64)
+
+    short = ls <= p
+    if np.any(short):
+        widths = np.int64(1) << (p - ls[short])
+        idx = np.repeat(cs[short] << (p - ls[short]), widths) + _ranges(widths)
+        reps = np.repeat(np.arange(int(short.sum())), widths)
+        l1_sym[idx] = syms[short][reps]
+        l1_len[idx] = ls[short][reps].astype(np.uint8)
+
+    if not np.any(~short):
+        return TwoLevelTable(
+            prefix_bits=p, boundary_code=1 << p, l1_sym=l1_sym, l1_len=l1_len,
+            ptr_table=np.zeros(0, np.uint32), l2_sym=np.zeros(0, np.uint8),
+            l2_len=np.zeros(0, np.uint8))
+
+    # canonical order puts every long code's prefix at or above every short
+    # code's L1 index; one subtable per prefix from the boundary up, unused
+    # prefixes as zero-width entries so a prefix indexes (prefix - boundary)
+    long_ls, long_cs, long_syms = ls[~short], cs[~short], syms[~short]
+    long_prefix = long_cs >> (long_ls - p)
+    boundary = int(long_prefix.min())
+    ptr_entries, sym_parts, len_parts = [], [], []
+    off = 0
+    for pref in range(boundary, int(long_prefix.max()) + 1):
+        sel = long_prefix == pref
+        if not np.any(sel):
+            ptr_entries.append(off)
+            continue
+        sub_ls, sub_cs = long_ls[sel], long_cs[sel]
+        width = int(sub_ls.max()) - p
+        ssym = np.zeros(1 << width, np.uint8)
+        slen = np.zeros(1 << width, np.uint8)
+        starts = (sub_cs & ((np.int64(1) << (sub_ls - p)) - 1)) << (
+            p + width - sub_ls)
+        widths = np.int64(1) << (p + width - sub_ls)
+        idx = np.repeat(starts, widths) + _ranges(widths)
+        reps = np.repeat(np.arange(sub_ls.size), widths)
+        ssym[idx] = long_syms[sel][reps]
+        slen[idx] = sub_ls[reps].astype(np.uint8)
+        ptr_entries.append((width << 16) | off)
+        sym_parts.append(ssym)
+        len_parts.append(slen)
+        off += 1 << width
+    return TwoLevelTable(
+        prefix_bits=p, boundary_code=boundary, l1_sym=l1_sym, l1_len=l1_len,
+        ptr_table=np.asarray(ptr_entries, np.uint32),
+        l2_sym=np.concatenate(sym_parts), l2_len=np.concatenate(len_parts))

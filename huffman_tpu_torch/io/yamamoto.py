@@ -21,6 +21,9 @@ sum and the last count, the last segment sheds the padding's surplus
 (the JAX package's CPU check, ROADMAP trap F7), and B1 + B2 decode.  The
 JAX package's TPU path merges segments 8/4/2/1-wide and plans VMEM
 windows; none of that changes a byte, and none of it is carried over.
+``method="lut"`` or ``"canonical"`` runs the step decoders of
+`ops/decode.py` for both passes instead; ``"twolevel"`` raises, as in the
+JAX package, whose decode table here lacks the two-level form.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from ..constants import REF_SEG_BITS
 from ..core import npref
 from ..core.canonical import CodeTable
+from ..ops import decode as step
 from ..ops.gap_decode_kernels import count_segments, decode_blocks, kernel_tabs
 from ..ops.ils import resolve_device
 from ..ops.tables import DecSpec, DeviceDecTable, dec_spec, device_dec_table
@@ -207,15 +211,39 @@ def decode_yamamoto_device(words: torch.Tensor, gaps: torch.Tensor,
     ).view(-1)
 
 
-def decode_yamamoto(buf: bytes, *, device="cuda") -> torch.Tensor:
+def decode_yamamoto(buf: bytes, *, method: str | None = None,
+                    device="cuda") -> torch.Tensor:
     """Decode a reference-format container on `device` (CUDA unless the
-    caller asks for the CPU); returns the bytes as a uint8 tensor there."""
+    caller asks for the CPU); returns the bytes as a uint8 tensor there.
+
+    ``method``: None or "pallas" runs C1 + B1 + B2
+    (`decode_yamamoto_device`); "lut" or "canonical" the step decoders'
+    counting pass, the same surplus check, and their decode."""
     dev = resolve_device(device)
     table, words, gaps, original_size = read_yamamoto(buf)
     if original_size == 0:
         return torch.zeros(0, dtype=torch.uint8, device=dev)
-    return decode_yamamoto_device(
-        torch.from_numpy(words.view(np.int32)).to(dev),
-        torch.from_numpy(gaps.astype(np.int32)).to(dev),
-        original_size, device_dec_table(table, dev), dec_spec(table),
-    )
+    dec = device_dec_table(table, dev, two_level=False)
+    spec = dec_spec(table)
+    gaps_t = torch.from_numpy(gaps.astype(np.int32)).to(dev)
+    if method in (None, "pallas"):
+        return decode_yamamoto_device(
+            torch.from_numpy(words.view(np.int32)).to(dev), gaps_t,
+            original_size, dec, spec)
+    # two zero pad words past the payload, as the JAX package reads it
+    words_t = torch.from_numpy(
+        np.concatenate([words, np.zeros(2, np.uint32)]).view(np.int32)).to(dev)
+    counts = step.count_segments(
+        words_t, gaps_t, words.size * 32, dec, spec=spec,
+        seg_bits=_SEGMENT_BITS, max_count=_SEGMENT_BITS // spec.min_len + 1,
+        method=method)
+    total, last, top = (torch.stack([counts.sum(dtype=torch.int64),
+                                     counts[-1].long(), counts.max().long()])
+                        .tolist() if gaps.size else (0, 0, 0))
+    excess = total - original_size
+    if excess < 0 or excess > last:
+        raise ValueError("corrupt container: symbol count mismatch")
+    counts[-1] -= excess
+    return step.decode_block(
+        words_t, gaps_t, counts, dec, spec=spec, seg_bits=_SEGMENT_BITS,
+        max_count=top, out_size=original_size, method=method)

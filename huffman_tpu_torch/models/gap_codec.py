@@ -6,9 +6,11 @@ into blocks of ``block_bytes`` encoded independently, each segmented into
 ``seg_bits``-bit segments that carry (gap, count) metadata, so decode is
 one pass.  Encode runs the kernels of `ops/gap_encode_kernels.py` for
 blocks whose size is a multiple of 128 bytes and `ops/encode.py::
-encode_block` for the others (a ragged tail always); decode runs the
-kernels of `ops/gap_decode_kernels.py` for every table.  Both run on the
-codec's device, CUDA by default.
+encode_block` for the others (a ragged tail always).  Decode runs, by the
+codec's ``method``, the kernels of `ops/gap_decode_kernels.py` for every
+table (None or "pallas") or a step decoder of `ops/decode.py` ("lut",
+"canonical", "twolevel").  Both run on the codec's device, CUDA by
+default.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..constants import (
 from ..core import npref
 from ..core.canonical import CodeTable, canonical_code_table
 from ..core.package_merge import package_merge_lengths
+from ..ops import decode as step
 from ..ops.encode import encode_block
 from ..ops.gap_decode_kernels import decode_blocks
 from ..ops.gap_encode_kernels import ROW_BYTES, encode_blocks
@@ -102,10 +105,19 @@ class GapArrayCodec:
 
     ``device`` defaults to "cuda" and raises without a card; pass
     device="cpu" to run the plain PyTorch versions of the kernels.
+
+    ``method`` picks the decoder.  None and "pallas" (the JAX package's name
+    for its accelerator path, kept so that an argument means the same in
+    both packages) run the CUDA kernels B1 + B2; "lut", "canonical" and
+    "twolevel" run that step decoder of `ops/decode.py`, in `decode` and
+    `decode_device` alike (the JAX package's `decode_device` takes its
+    Pallas path first whatever the method; the bytes are the same).  Any
+    other method raises when a decode runs, with the JAX package's message.
     """
 
     def __init__(self, table: CodeTable, *, seg_bits: int = SEG_BITS,
-                 block_bytes: int = DEFAULT_BLOCK_BYTES, device="cuda"):
+                 block_bytes: int = DEFAULT_BLOCK_BYTES,
+                 method: str | None = None, device="cuda"):
         self.device = resolve_device(device)
         if block_bytes > MAX_BLOCK_BYTES:
             raise ValueError("block_bytes too large for int32 bit offsets")
@@ -114,19 +126,21 @@ class GapArrayCodec:
         self.table = table
         self.seg_bits = int(seg_bits)
         self.block_bytes = int(block_bytes)
+        self.method = "pallas" if method is None else method
         self.enc = ils_enc_tabs(table, self.device)  # (len << 20) | code
-        self.dec = device_dec_table(table, self.device)
+        self.dec = device_dec_table(table, self.device,
+                                    two_level=self.method == "twolevel")
         self.spec = dec_spec(table)
 
     @classmethod
     def fit(cls, data, *, max_len: int = MAX_CODEWORD_LENGTH,
             seg_bits: int = SEG_BITS, block_bytes: int = DEFAULT_BLOCK_BYTES,
-            device="cuda") -> "GapArrayCodec":
+            method: str | None = None, device="cuda") -> "GapArrayCodec":
         """Build the code table from a uint8 array or tensor's histogram."""
         resolve_device(device)
         lengths = package_merge_lengths(npref.histogram(data), max_len)
         return cls(canonical_code_table(lengths, max_len), seg_bits=seg_bits,
-                   block_bytes=block_bytes, device=device)
+                   block_bytes=block_bytes, method=method, device=device)
 
     # ------------------------------------------------------------------
     def _encode_blocks(self, blocks: torch.Tensor, max_words: int, n_segs: int):
@@ -179,15 +193,27 @@ class GapArrayCodec:
         return (dcomp.words, gaps[:, :ns_used].contiguous(),
                 counts[:, :ns_used].contiguous(), _round_up(max(top, 1), 8))
 
+    def _decode_group(self, words, gaps, counts, *, seg_bits: int,
+                      max_count: int, out_size: int) -> torch.Tensor:
+        """(G, out_size) uint8 from G blocks' (words, gaps, counts), by the
+        codec's method: the kernels, or the step decoder block by block."""
+        if self.method == "pallas":
+            return decode_blocks(
+                words, gaps, counts, self.dec, spec=self.spec,
+                seg_bits=seg_bits, max_count=max_count, out_size=out_size)
+        return torch.stack([
+            step.decode_block(w, gp, c, self.dec, spec=self.spec,
+                              seg_bits=seg_bits, max_count=max_count,
+                              out_size=out_size, method=self.method)
+            for w, gp, c in zip(words, gaps, counts)])
+
     def decode_device(self, dcomp: DeviceCompressed) -> torch.Tensor:
         """Decode a device-resident group; returns (G, block_bytes) uint8 on
         the device.  The payload and the output never leave it."""
         words, gaps, counts, max_count = self.decode_device_plan(dcomp)
-        return decode_blocks(
-            words, gaps, counts, self.dec, spec=self.spec,
-            seg_bits=dcomp.seg_bits, max_count=max_count,
-            out_size=dcomp.block_bytes,
-        )
+        return self._decode_group(words, gaps, counts, seg_bits=dcomp.seg_bits,
+                                  max_count=max_count,
+                                  out_size=dcomp.block_bytes)
 
     def stage_host(self, dcomp: DeviceCompressed, comp: Compressed) -> None:
         """Append a device group's blocks to a host `Compressed` (exact,
@@ -267,10 +293,9 @@ class GapArrayCodec:
         for grp, out_size in groups:
             words, gaps, counts, max_count = self.decode_plan(comp, grp)
             lo = grp[0] * bb
-            out[lo : lo + len(grp) * out_size] = decode_blocks(
-                words, gaps, counts, self.dec, spec=self.spec,
-                seg_bits=comp.seg_bits, max_count=max_count, out_size=out_size,
-            ).view(-1)
+            out[lo : lo + len(grp) * out_size] = self._decode_group(
+                words, gaps, counts, seg_bits=comp.seg_bits,
+                max_count=max_count, out_size=out_size).view(-1)
         return out
 
     def roundtrip_check(self, data) -> bool:

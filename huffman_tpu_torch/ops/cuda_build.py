@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "huffman_tpu_torch"
 KERNEL_SOURCES = (
     "ils_decode", "ils_encode", "ils_compact", "gap_decode", "gap_encode",
-    "selfsync",
+    "selfsync", "encode_map",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,6 +72,9 @@ _SIGNATURES = {
     },
     "selfsync": {
         "sync_transitions_launch": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _P],
+    },
+    "encode_map": {
+        "encode_map_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
     },
 }
 

@@ -1,22 +1,31 @@
 """Data-parallel HTC1 encode of one block as PyTorch operations.
 
-Counterpart of `huffman_tpu/ops/encode.py::encode_block`, bit-identical
-to it: gather the code lengths, one cumsum for the start
-bits, a scatter-add of each codeword's two u32 pieces (their bit ranges are
-disjoint, so the sum is the OR) and a ``searchsorted`` of the segment
-bounds for the (gap, count) metadata.  These are XLA functions in the JAX
-package, not kernels, and run as plain tensor code on any device.  The
-codec takes this route for blocks whose size is not a multiple of 128
-bytes; `ops/gap_encode_kernels.py` encodes the others.
+Counterpart of `huffman_tpu/ops/encode.py`, bit-identical to it.
+
+- `encode_block`: gather the code lengths, one cumsum for the start bits,
+  a scatter-add of each codeword's two u32 pieces (their bit ranges are
+  disjoint, so the sum is the OR) and a ``searchsorted`` of the segment
+  bounds for the (gap, count) metadata.  The codec takes this route for
+  blocks whose size is not a multiple of 128 bytes;
+  `ops/gap_encode_kernels.py` encodes the others.
+- `encode_block_fast`: the same outputs from the encode map kernel B5
+  (`ops/encode_map_kernels.py`), which packs each 4-byte group into 64
+  bits, so the placement and the metadata run once per group.
+
+Around the kernel these are XLA functions in the JAX package, not kernels,
+and run as plain tensor code on any device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ils_kernels import _M32, _to_i32
+from .encode_map_kernels import MAP_ALIGN, encode_map
+from .ils_kernels import _M32, _to_i32, _u32
 
-__all__ = ["encode_block"]
+__all__ = ["encode_block", "encode_block_fast"]
+
+_I32_MAX = (1 << 31) - 1
 
 
 def encode_block(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,
@@ -59,3 +68,74 @@ def encode_block(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,
     first_next = torch.cat([first[1:], first.new_full((1,), idx.numel())])
     return (_to_i32(words[:num_units]), total_bits.to(torch.int32),
             gaps.to(torch.int32), (first_next - first).to(torch.int32))
+
+
+def encode_block_fast(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,
+                      max_words: int, n_segs: int):
+    """`encode_block` through the encode map kernel, with its outputs bit
+    for bit; ``data`` is (B,) uint8 with B a multiple of 4096.
+
+    Each 4-byte group is one left-justified 64-bit item: an int64 cumsum of
+    the group lengths places it, its three u32 pieces at words w0, w0+1
+    and w0+2 are scatter-added (disjoint bit ranges), and the metadata
+    comes from group-level reductions.  A group spans at most 64 bits, so
+    its symbols start in at most two segments of a codec's seg_bits (128
+    and up): counts by scatter-adds and each segment's first start by a
+    scatter-min at the group's segment and the next.  Segment ids from
+    n_segs on, and words past max_words, go to a spare last slot, as the
+    JAX package's segment reductions drop them."""
+    b = data.numel()
+    if b % MAP_ALIGN or b == 0:
+        raise ValueError(f"encode_block_fast needs a block of a positive "
+                         f"multiple of {MAP_ALIGN} bytes, got {b}")
+    shift = seg_bits.bit_length() - 1
+    if seg_bits != 1 << shift:
+        raise ValueError(f"seg_bits must be a power of two, got {seg_bits}")
+    data = data.reshape(-1)
+    if data.data_ptr() % 16:  # the kernel loads whole words
+        data = data.clone()
+    dev = data.device
+    hi, lo, l4, lens_p = encode_map(data, enc)
+    hi, lo, l4 = _u32(hi), _u32(lo), l4.to(torch.int64)
+    ends4 = torch.cumsum(l4, 0)
+    total_bits = ends4[-1]
+    goffs = ends4 - l4
+    sh = goffs & 31
+    w0 = goffs >> 5
+    low = (1 << sh) - 1  # the bits of a word that spill into the next
+    pieces = (hi >> sh, ((hi & low) << (32 - sh)) | (lo >> sh),
+              (lo & low) << (32 - sh))
+    num_units = max_words + 1
+    words = torch.zeros(num_units + 1, dtype=torch.int64, device=dev)
+    for j, c in enumerate(pieces):
+        words.index_add_(0, (w0 + j).clamp(max=num_units), c)
+
+    l0 = (lens_p >> 15) & 31
+    l1 = (lens_p >> 10) & 31
+    l2 = (lens_p >> 5) & 31
+    sid0 = goffs >> shift
+    s1 = goffs + l0
+    s2 = s1 + l1
+    s3 = s2 + l2
+    in0 = [(s >> shift) == sid0 for s in (s1, s2, s3)]
+    m = 1 + in0[0].long() + in0[1].long() + in0[2].long()  # in the first seg
+    here = sid0.clamp(max=n_segs)
+    nxt = (sid0 + 1).clamp(max=n_segs)
+    counts = torch.zeros(n_segs + 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, here, m)
+    counts.index_add_(0, nxt, 4 - m)
+    # a segment's first start: a group's own start (monotone), or the first
+    # symbol of the group before it that crosses into it
+    big = torch.full_like(goffs, _I32_MAX)
+    x = torch.where(~in0[0], s1, torch.where(~in0[1], s2,
+                                             torch.where(~in0[2], s3, big)))
+    first = torch.full((n_segs + 1,), _I32_MAX, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, here, goffs, "amin")
+    first.scatter_reduce_(0, nxt, x, "amin")
+    # a final segment without a start of its own keeps the identity; its
+    # gap points at total_bits, as encode_block's searchsorted does
+    bounds = torch.arange(n_segs, dtype=torch.int64, device=dev) * seg_bits
+    gaps = torch.where(bounds < total_bits,
+                       torch.minimum(first[:n_segs], total_bits) - bounds, 0)
+    return (_to_i32(words[:num_units]), total_bits.to(torch.int32),
+            gaps.to(torch.int32), counts[:n_segs].to(torch.int32))

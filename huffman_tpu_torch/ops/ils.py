@@ -17,6 +17,7 @@ The two-pass tier is part of that policy, not a device fallback.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ import torch
 from ..core.canonical import CodeTable
 from ..core.ils_ref import ILS_LANES, IlsParams, ils_schedule_numer
 from .ils_kernels import (
+    CHUNK_I,
     FUSED_E_BAND,
     IlsDecTabs,
     ils_compact,
@@ -31,6 +33,8 @@ from .ils_kernels import (
     ils_lengths_pass,
     ils_pack,
     ils_pack_certify,
+    ils_pack_certify_stream,
+    ils_stream_span_rows,
 )
 
 __all__ = [
@@ -65,6 +69,19 @@ _CAP_BUCKETS = (
 VMEM_ROW_BUDGET = 2800
 MIN_K = 2048
 FUSED_STRIDE_BUDGET = 2048
+
+# The streaming fused pack (TPU kernel D1, `ils_pack_certify_stream`) may
+# encode a section whose stride is over the budget while its sliding span
+# is under it.  Off by default, as in the JAX package.  Its payload is the
+# two-pass tier's, but it certifies w_cap from the decode envelope alone,
+# where the two-pass tier also fits the emission band (trap F2): the two
+# can write different w_cap, and so different container bytes, where that
+# band is the wider.  On 2 tiles of k=8192 at r=0.5 both wrote the same
+# bytes on an H100 (chip_smoke.py phase 11 logs the comparison).
+PREFER_STREAM_PACK = False
+# bodies per grid chunk of the streaming pack; it sets that pack's flush
+# cadence (`flush_group`) and its span
+_STREAM_CHUNK_CAP = CHUNK_I
 
 
 def resolve_device(device) -> torch.device:
@@ -258,10 +275,11 @@ def ils_encode_to_device(
     int32, compacted, with w_cap zero slack rows); only per-tile metadata
     comes to the host.  ``stride_budget`` is the worst-case stride above
     which the two-pass pipeline runs (default FUSED_STRIDE_BUDGET; 0 forces
-    two-pass).  ``e_band`` overrides `fused_e_band(k)`, the fused pass's
-    emission band; it exists to drive the anchor escalation in checks and is
-    not part of `ils_encode_device`.  Both change which tier runs, and so
-    possibly w_cap.
+    two-pass), or the streaming pack where `PREFER_STREAM_PACK` is on.
+    ``e_band`` overrides `fused_e_band(k)`, the fused pass's emission band;
+    it exists to drive the anchor escalation in checks and is not part of
+    `ils_encode_device`.  Both change which tier runs, and so possibly
+    w_cap.
 
     ``rot="auto"``: encode unrotated; if the certified band exceeds
     `auto_rot_band(k)`, re-encode rotated and keep whichever band is
@@ -285,12 +303,23 @@ def ils_encode_to_device(
     stride_rows = stride_rows_for(k, max_len)
     # Tier gates, as the JAX package: stride_rows < 8 can never pass the
     # compact gate below (the certified cap is at least 16), so tiny tail
-    # sections go straight to two-pass; a stride over the budget too.  (The
-    # JAX package's streaming variant of the fused pack is off by default
-    # and not ported; it gives the same bytes as the two-pass tier.)
-    if 8 <= stride_rows <= stride_budget:
+    # sections go straight to two-pass.  A stride over the budget takes the
+    # streaming pack when PREFER_STREAM_PACK is on and its span is within
+    # the same budget, else two-pass.
+    fused = None
+    if stride_rows < 8:
+        pass
+    elif stride_rows <= stride_budget:
+        fused = ils_pack_certify
+    elif PREFER_STREAM_PACK:
+        span = ils_stream_span_rows(k, stride_rows, e_band,
+                                    chunk_cap=_STREAM_CHUNK_CAP)
+        if span is not None and span <= stride_budget:
+            fused = functools.partial(ils_pack_certify_stream,
+                                      chunk_cap=_STREAM_CHUNK_CAP)
+    if fused is not None:
         for anchor in ("mu", "laggard"):
-            pay_s, bits, dn, dx, viol = ils_pack_certify(
+            pay_s, bits, dn, dx, viol = fused(
                 data_i32, snum, enc, k=k, stride_rows=stride_rows,
                 e_band=e_band, rot=rot, anchor=anchor,
             )

@@ -37,11 +37,14 @@ __all__ = [
     "ils_dec_tabs",
     "ils_lengths_pass",
     "ils_pack_certify",
+    "ils_pack_certify_stream",
+    "ils_stream_span_rows",
     "ils_pack",
     "ils_compact",
     "ils_decode",
     "ils_lengths_pass_plain",
     "ils_pack_certify_plain",
+    "ils_pack_certify_stream_plain",
     "ils_pack_plain",
     "ils_compact_plain",
     "ils_decode_plain",
@@ -75,15 +78,19 @@ def _chunk_iters(k, cap=CHUNK_I):
     return 1
 
 
-def flush_group(k: int, w_band: int) -> int:
-    """Bodies per flush of the TPU pack kernels (ROADMAP.md trap F2).
+def flush_group(k: int, w_band: int, chunk_cap: int = CHUNK_I) -> int:
+    """Bodies per flush of the TPU pack kernels (ROADMAP.md trap F2: the
+    cadence decides the dropped out-of-band pairs and the violation flag,
+    and so the tier and the container bytes).
 
     The TPU kernels flush every ``G = 2`` bodies when their unroll factor is
     even, else every body.  The unroll is the largest of 16/8/4/2 that
-    divides `_chunk_iters(k)` under a cap set by the band (1 above 192
-    pairs, at least 2 otherwise), so it is even exactly when the chunk is
-    even and the band is at most 192 pairs."""
-    return 2 if _chunk_iters(k) % 2 == 0 and w_band <= 192 else 1
+    divides the bodies per grid chunk, `_chunk_iters(k, chunk_cap)`, under a
+    cap set by the band (1 above 192 pairs, at least 2 otherwise), so it is
+    even exactly when the chunk is even and the band is at most 192 pairs.
+    The streaming pack (D1) chunks by its own ``chunk_cap``, so its cadence
+    can differ from the other kernels' at the same k."""
+    return 2 if _chunk_iters(k, chunk_cap) % 2 == 0 and w_band <= 192 else 1
 
 
 # ----------------------------------------------------------------------
@@ -340,10 +347,10 @@ def ils_lengths_pass(data_i32, snum, enc, *, k, rot=False):
 # ----------------------------------------------------------------------
 # A2: fused certify + pack at worst-case stride
 # ----------------------------------------------------------------------
-def _certify_geometry(k, stride_rows, e_band, anchor):
+def _certify_geometry(k, stride_rows, e_band, anchor, G=None):
     if anchor not in ("mu", "laggard"):
         raise ValueError("anchor must be 'mu' or 'laggard'")
-    G = flush_group(k, e_band)
+    G = flush_group(k, e_band) if G is None else G
     cap_pairs = stride_rows // 2
     # the stale laggard base lags one flush (<= 2 retired pairs) behind
     W = min(e_band + G + (2 if anchor == "laggard" else 0), cap_pairs)
@@ -351,9 +358,10 @@ def _certify_geometry(k, stride_rows, e_band, anchor):
 
 
 def ils_pack_certify_plain(data_i32, snum, enc, *, k, stride_rows, rot=False,
-                           e_band=FUSED_E_BAND, anchor="mu"):
+                           e_band=FUSED_E_BAND, anchor="mu", G=None):
     n_tiles = data_i32.shape[0] // (k // 4)
-    G, W, cap_pairs, boff_est = _certify_geometry(k, stride_rows, e_band, anchor)
+    G, W, cap_pairs, boff_est = _certify_geometry(k, stride_rows, e_band,
+                                                  anchor, G)
     row0 = torch.arange(n_tiles, device=data_i32.device) * stride_rows
     pay, bits, dn, dx, _, _, viol = _encode_plain(
         data_i32, enc, k=k, snum=snum, rot=rot, pack=True, certify=True,
@@ -375,15 +383,26 @@ def ils_pack_certify(data_i32, snum, enc, *, k, stride_rows, rot=False,
     payload (an emission left the ``anchor``-placed window of ``e_band``
     pairs) and the caller escalates the anchor or takes the two-pass path.
     """
+    return _pack_certify_launch(ils_pack_certify, data_i32, snum, enc, k=k,
+                                stride_rows=stride_rows, rot=rot,
+                                e_band=e_band, anchor=anchor,
+                                G=flush_group(k, e_band))
+
+
+def _pack_certify_launch(wrapper, data_i32, snum, enc, *, k, stride_rows, rot,
+                         e_band, anchor, G):
+    """A2 at flush cadence G: its kernel for a CUDA tensor, counted as a
+    launch of `wrapper`, its plain version for a CPU tensor."""
     n_tiles = _n_tiles(data_i32, k)
     _check("data_i32", data_i32, torch.int32)
     _check("enc", enc, torch.int32, (256,))
     _same_device(data_i32, enc)
-    G, W, cap_pairs, boff_est = _certify_geometry(k, stride_rows, e_band, anchor)
+    G, W, cap_pairs, boff_est = _certify_geometry(k, stride_rows, e_band,
+                                                  anchor, G)
     if not _use_kernel(data_i32):
         return ils_pack_certify_plain(data_i32, snum, enc, k=k,
                                       stride_rows=stride_rows, rot=rot,
-                                      e_band=e_band, anchor=anchor)
+                                      e_band=e_band, anchor=anchor, G=G)
     n_win = ils_n_win(k)
     dev = data_i32.device
     # zero-filled: rows past a stream's end and the slack stay zero
@@ -398,8 +417,64 @@ def ils_pack_certify(data_i32, snum, enc, *, k, stride_rows, rot=False,
         dn.data_ptr(), dx.data_ptr(), viol.data_ptr(), n_tiles, k, int(snum), int(bool(rot)), G, W, cap_pairs,
         boff_est, int(anchor == "laggard"), int(stride_rows), _stream(data_i32),
     )
-    _launched(ils_pack_certify, rc)
+    _launched(wrapper, rc)
     return pay, bits, dn, dx, viol
+
+
+# ----------------------------------------------------------------------
+# D1: the streaming fused pack, on A2's kernel
+# ----------------------------------------------------------------------
+def ils_stream_span_rows(k, stride_rows, e_band=FUSED_E_BAND,
+                         chunk_cap=CHUNK_I):
+    """Rows of the TPU streaming pack's sliding window, or None where that
+    pack is not viable (a single chunk, or a span no narrower than the
+    stride).  The span decides, in `ops.ils.ils_encode_to_device`, whether
+    the streaming tier may encode a section (format policy)."""
+    iters = _chunk_iters(k, chunk_cap)
+    if (k // 4) // iters < 2:
+        return None
+    span_rows = 2 * (iters + min(e_band + 2, stride_rows // 2) + 4)
+    return None if span_rows > stride_rows else span_rows
+
+
+def _stream_flush_group(k, e_band, chunk_cap, flush_g):
+    if flush_g is not None and flush_g not in (1, 2):
+        raise ValueError("flush_g must be 1 or 2")
+    return 1 if flush_g == 1 else flush_group(k, e_band, chunk_cap)
+
+
+def ils_pack_certify_stream_plain(data_i32, snum, enc, *, k, stride_rows,
+                                  rot=False, flush_g=None,
+                                  e_band=FUSED_E_BAND, chunk_cap=CHUNK_I,
+                                  anchor="mu"):
+    return ils_pack_certify_plain(
+        data_i32, snum, enc, k=k, stride_rows=stride_rows, rot=rot,
+        e_band=e_band, anchor=anchor,
+        G=_stream_flush_group(k, e_band, chunk_cap, flush_g))
+
+
+def ils_pack_certify_stream(data_i32, snum, enc, *, k, stride_rows, rot=False,
+                            flush_g=None, e_band=FUSED_E_BAND,
+                            chunk_cap=CHUNK_I, anchor="mu"):
+    """The streaming fused pack (TPU kernel D1), computed by A2's kernel.
+
+    The TPU kernel holds only the live span of pairs in VMEM and ships it
+    chunk by chunk; its bits, envelopes and violation flags are A2's, and
+    its payload rows [0, w_tile) of each tile too.  A2 writes every row of
+    the full stride here, so nothing of the TPU's window survives but its
+    flush cadence: the stream kernel chunks by ``chunk_cap``, which sets G
+    (`flush_group`) and with it the window W and the flags.  Same return
+    as `ils_pack_certify`; the rows past a tile's w_tile are zero here
+    (unspecified on the TPU).  Raises where the TPU kernel is not viable
+    (`ils_stream_span_rows` is None)."""
+    if anchor not in ("mu", "laggard"):
+        raise ValueError("anchor must be 'mu' or 'laggard'")
+    G = _stream_flush_group(k, e_band, chunk_cap, flush_g)
+    if ils_stream_span_rows(k, stride_rows, e_band, chunk_cap) is None:
+        raise ValueError("streaming pack not viable; use ils_pack_certify")
+    return _pack_certify_launch(ils_pack_certify_stream, data_i32, snum, enc,
+                                k=k, stride_rows=stride_rows, rot=rot,
+                                e_band=e_band, anchor=anchor, G=G)
 
 
 # ----------------------------------------------------------------------
@@ -628,7 +703,7 @@ def ils_decode(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
 
 
 _WRAPPERS = (ils_decode, ils_pack_certify, ils_compact, ils_lengths_pass,
-             ils_pack)
+             ils_pack, ils_pack_certify_stream)
 for _fn in _WRAPPERS:
     _fn.launches = 0
 

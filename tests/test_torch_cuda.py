@@ -340,3 +340,97 @@ def test_foreign_decoders_match_cpu(cuda, kind, n):
     seq = write_seq(data, table)
     assert np.array_equal(decode_seq(seq).cpu().numpy(), data)
     assert gd.launch_counts()["gap_decode_ranks"] == 3
+
+
+# ----------------------------------------------------------------------
+# The portability path: B5, encode_block_fast, the step decoders, D1
+# ----------------------------------------------------------------------
+def _map_case(kind):
+    from huffman_tpu_torch import GapArrayCodec
+
+    if kind == "lacks":  # a group of bytes the table lacks: length 0
+        data = generate_redundant(8192, 0.5, seed=25)
+        table = GapArrayCodec.fit(np.where(data >= 200, 65, data)
+                                  .astype(np.uint8), device="cpu").table
+        data[100:104] = [200, 201, 250, 255]
+        return data, table
+    if kind == "max_len=16":
+        from huffman_tpu_torch.io import table_from_length_sequence
+
+        syms = np.r_[np.arange(40, 55), 56, 55].astype(np.uint8)
+        lens = np.r_[np.arange(1, 16), 16, 16]
+        p = 2.0 ** -np.arange(1, 18)
+        rng = np.random.default_rng(26)
+        data = syms[rng.choice(17, size=8192, p=p / p.sum())]
+        return data, table_from_length_sequence(syms, lens)
+    data = _gap_data(kind, 8192)
+    return data, GapArrayCodec.fit(data, device="cpu").table
+
+
+@pytest.mark.parametrize("kind", ["0.1", "0.5", "0.9", "single", "uniform",
+                                  "max_len=16", "lacks"])
+def test_encode_map_and_encode_block_fast_match(cuda, kind):
+    from huffman_tpu_torch.ops import encode as tenc
+    from huffman_tpu_torch.ops import encode_map_kernels as em
+
+    data, table = _map_case(kind)
+    d = torch.from_numpy(data).to(cuda)
+    enc = tk.ils_enc_tabs(table, cuda)
+    em.reset_launch_counts()
+    assert _equal(em.encode_map(d, enc), em.encode_map_plain(d, enc))
+    assert em.launch_counts() == {"encode_map": 1}
+    total = int(table.lengths.astype(np.int64)[data].sum())
+    for seg_bits in (128, 1024):
+        kw = dict(seg_bits=seg_bits, max_words=-(-total // 32) + 3,
+                  n_segs=-(-total // seg_bits) + 2)
+        assert _equal(tenc.encode_block_fast(d, enc, **kw),
+                      tenc.encode_block(d, enc, **kw))
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        em.encode_map(torch.zeros(4097, dtype=torch.uint8,
+                                  device=cuda)[1:], enc)
+
+
+@pytest.mark.parametrize("method", ["lut", "canonical", "twolevel"])
+def test_gap_codec_methods_round_trip_on_card(cuda, method):
+    from huffman_tpu_torch import (
+        GapArrayCodec,
+        decode_yamamoto,
+        read_container,
+        write_container,
+        write_yamamoto,
+    )
+
+    data = generate_redundant(3 * 16384 + 999, 0.5, seed=27)
+    codec = GapArrayCodec.fit(data, block_bytes=16384, method=method,
+                              device=cuda)
+    out = codec.decode(read_container(write_container(codec.encode(data))))
+    assert out.device.type == "cuda"
+    assert np.array_equal(out.cpu().numpy(), data)
+    blocks = torch.from_numpy(data[: 3 * 16384].reshape(3, 16384)).to(cuda)
+    assert torch.equal(codec.decode_device(codec.encode_device(blocks)), blocks)
+    blob = write_yamamoto(data, codec.table)
+    if method == "twolevel":
+        with pytest.raises(ValueError, match="two-level form"):
+            decode_yamamoto(blob, method=method)
+    else:
+        got = decode_yamamoto(blob, method=method)
+        assert np.array_equal(got.cpu().numpy(), data)
+
+
+@pytest.mark.parametrize("anchor", ["mu", "laggard"])
+def test_stream_pack_matches_plain_and_a2(cuda, anchor):
+    k, stride = 256, 128
+    codec, snum, words = _inputs(generate_redundant(2 * k * ILS_LANES, 0.5,
+                                                    seed=21), k, cuda)
+    kw = dict(k=k, stride_rows=stride, chunk_cap=8, anchor=anchor)
+    got = tk.ils_pack_certify_stream(words, snum, codec.enc, **kw)
+    assert tk.launch_counts()["ils_pack_certify_stream"] == 1
+    assert _equal(got, tk.ils_pack_certify_stream_plain(words, snum, codec.enc,
+                                                        **kw))
+    a2 = tk.ils_pack_certify(words, snum, codec.enc, k=k, stride_rows=stride,
+                             anchor=anchor)
+    assert _equal(got[1:], a2[1:])
+    for t in range(2):
+        w_t = 2 * (-(-int(got[1][t].max()) // 64))
+        rows = slice(t * stride, t * stride + w_t)
+        assert torch.equal(got[0][rows], a2[0][rows])

@@ -51,6 +51,11 @@ def test_imports_with_jax_and_huffman_tpu_blocked():
         "assert np.array_equal(y.numpy(), d)\n"
         "s = decode_seq(write_seq(d, g.table), device='cpu')\n"
         "assert np.array_equal(s.numpy(), d)\n"
+        "import huffman_tpu_torch.ops.decode\n"
+        "import huffman_tpu_torch.ops.encode_map_kernels\n"
+        "y = decode_yamamoto(write_yamamoto(d, g.table), method='lut', "
+        "device='cpu')\n"
+        "assert np.array_equal(y.numpy(), d)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
         "assert not bad, bad\n"
