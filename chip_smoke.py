@@ -9,7 +9,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels from ``huffman_tpu_torch/
 csrc`` itself.  Imports no JAX and nothing of `huffman_tpu`.  Phases (any
 failure raises and exits non-zero with the traceback):
 
-1. Card: name and power limit (nvidia-smi), torch/CUDA versions, build time.
+1. Card: name and power limit (nvidia-smi), torch/CUDA versions, build time,
+   and what ptxas reported for every kernel (registers, static shared
+   memory, stack and spill bytes), with the shared-memory tiles of B4b and
+   B1 (`row_pack_tile`, `ranks_tile`), a line each for those two.
 2. Kernels A1-A5 against their plain PyTorch versions on the card, bit for
    bit, on: 4 tiles at k=4096 of generate_redundant(r=0.5) with rotation
    off and on; the zeros-then-uniform input at k=256, e_band=8 (the "mu"
@@ -25,8 +28,9 @@ failure raises and exits non-zero with the traceback):
    bit-exact on the device, with the launch counters of that one run.  Then
    the kernels are held against their plain versions again at the shapes
    that run gave them and timed: ms is the kernel's own device time
-   (torch.profiler), wrapper_ms, plain_ms and library_ms are CUDA-event
-   times of whole calls.  Encode and decode are timed as the median of
+   (torch.profiler; where every trace lost its launches, CUDA events around
+   its wrapper, and ms_by says "cuda_events"), wrapper_ms, plain_ms and
+   library_ms are CUDA-event times of whole calls.  Encode and decode are timed as the median of
    several runs after the warm-up run, and one run of each is profiled
    (device-busy share, top kernels).
 5. HTC1 kernels B1, B2, B4b-B4d against their plain versions, bit for
@@ -88,7 +92,8 @@ failure raises and exits non-zero with the traceback):
    "canonical") on phase 9's container, bit-exact, timed once, and
    method="twolevel" raising as in the JAX package.
 13. One JSON line per kernel list (name, route, source, replaces, launches,
-   max_abs_err, ms, wrapper_ms, plain_ms, bound_ms, bound_by, library_ms):
+   max_abs_err, ms, ms_by, wrapper_ms, plain_ms, bound_ms, bound_by,
+   library_ms):
    each kernel's launches in its codec's end-to-end run (phase 4 or 6)
    beside its times at that run's shapes; A4 and A5, which phase 4 gives
    only the small tail, also under "full_section" at the main section's
@@ -99,8 +104,9 @@ failure raises and exits non-zero with the traceback):
    The bench shape's rows, with phase 7's launches, go in the summary line
    before it under "htc1"."kernels", phase 11-12's results under
    "portable", and B1/B2/C1/C2 at the foreign paths' shapes under
-   "yamamoto"."kernels" and "selfsync"."kernels".  Then the card line,
-   then the device line last.
+   "yamamoto"."kernels" and "selfsync"."kernels".  B1's and B4b's rows
+   also carry their "ptxas" report.  Then the card line, then the device
+   line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
 once) / 3.35 TB/s and (integer ALU operations the algorithm needs on this
@@ -250,13 +256,16 @@ def profiled(fn, reps=1):
 
 
 def kernel_ms(fn, symbol, reps, tries=3):
-    """Device ms per launch of the kernel whose name holds `symbol`, over
-    `reps` calls of its wrapper `fn` after a warm-up: the kernel alone,
-    without the wrapper's host checks, allocation and zero fill.
+    """(ms, source): device ms per launch of the kernel whose name holds
+    `symbol`, over `reps` calls of its wrapper `fn` after a warm-up, the
+    kernel alone, without the wrapper's host checks, allocation and zero
+    fill ("profiler").
 
     The profiler can drop some, and now and then all, of a trace's device
     events: a trace that recorded no launch is taken again (up to `tries`
-    traces)."""
+    traces); where every trace lost them, the wrapper calls are timed by
+    CUDA events instead ("cuda_events", which adds the wrapper's own device
+    work, if any)."""
     fn()
     for _ in range(tries):
         _, rows = profiled(fn, reps)
@@ -264,10 +273,10 @@ def kernel_ms(fn, symbol, reps, tries=3):
         # the mean over the launches the profiler recorded
         launches = sum(count for _, count in hits)
         if 0 < launches <= reps:
-            return sum(ms for ms, _ in hits) / launches
+            return sum(ms for ms, _ in hits) / launches, "profiler"
         log(f"  profiler saw {launches} launches of {symbol} in {reps} calls")
-    raise AssertionError(f"profiler saw {launches} launches of {symbol} in "
-                         f"{reps} calls, in each of {tries} traces")
+    log(f"  {symbol}: timed by CUDA events around its wrapper instead")
+    return cuda_ms(fn, reps), "cuda_events"
 
 
 def device_profile(fn, label, launch_counts, tries=3):
@@ -332,10 +341,11 @@ class Stats:
 
 def timed(name, call, plain, reps, plain_reps=1, **extra):
     """Times of one kernel at one shape: `ms` the kernel alone on the device
-    (profiler), `wrapper_ms` its wrapper call with the host checks and
-    output allocation (CUDA events), `plain_ms` the plain version."""
-    return dict(ms=kernel_ms(call, SYMBOLS[name], reps),
-                wrapper_ms=cuda_ms(call, reps),
+    (profiler; `ms_by` says when CUDA events had to stand in), `wrapper_ms`
+    its wrapper call with the host checks and output allocation (CUDA
+    events), `plain_ms` the plain version."""
+    ms, ms_by = kernel_ms(call, SYMBOLS[name], reps)
+    return dict(ms=ms, ms_by=ms_by, wrapper_ms=cuda_ms(call, reps),
                 plain_ms=cuda_ms(plain, plain_reps), **extra)
 
 
@@ -984,6 +994,25 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cuda_build.load_kernels()
     log(f"build {time.perf_counter() - t0:.1f} s (nvcc, one process per source)")
+    resources = cuda_build.kernel_resources()
+    ptxas = {}
+    for name, tile in (
+        ("gap_row_pack", "dynamic tiles row_pack_tile(cap_words): "
+         + ", ".join(f"{c} words {ge.row_pack_tile(c)[1]} B"
+                     for c in (16, 32, 48, 64))
+         + f", {ge.row_pack_tile(64)[0]} rows a block"),
+        ("gap_decode_ranks", "dynamic tile ranks_tile(max_count): "
+         f"{gd.ranks_tile(1 << 20)[2]} B at most, "
+         f"{gd.ranks_tile(1)[0]} rows a block, column chunk "
+         f"{gd.ranks_tile(1)[1]}..{gd.ranks_tile(1 << 20)[1]}"),
+    ):
+        hits = [r for key, r in resources.items() if SYMBOLS[name] in key]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas reported {len(hits)} kernels named "
+                                 f"{SYMBOLS[name]}")
+        ptxas[name] = hits[0]
+        log(f"  ptxas {SYMBOLS[name]}: {hits[0]}; {tile}")
+    log(json.dumps({"ptxas": resources}))
 
     stats = Stats()
     dev = torch.device("cuda")
@@ -1384,6 +1413,7 @@ def main(argv=None) -> int:
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
         o_ms = t.get("ops", 0) / ALU_OPS_PER_S * 1e3
         return {"shape": t.get("shape"), "ms": t.get("ms"),
+                "ms_by": t.get("ms_by"),
                 "wrapper_ms": t.get("wrapper_ms"), "plain_ms": t.get("plain_ms"),
                 "bound_ms": max(b_ms, o_ms),
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
@@ -1413,7 +1443,8 @@ def main(argv=None) -> int:
                **({"also_replaces": FOLDED[name]} if name in FOLDED else {}),
                "max_abs_err": stats.rows[name]["max_abs_err"],
                "checks": stats.rows[name]["checks"],
-               **times(main_timing.get(name, {}))}
+               **times(main_timing.get(name, {})),
+               **({"ptxas": ptxas[name]} if name in ptxas else {})}
         show(name, "", row, launches[name])
         if name in extra:
             key, t = extra[name]

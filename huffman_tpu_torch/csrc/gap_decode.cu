@@ -14,6 +14,20 @@
 // block's end read as zeros (the JAX package pads each block to the
 // segment grid instead).
 //
+// The ranks go through a shared-memory tile.  A block takes R consecutive
+// segments (flat index t, R threads), so its R rows of the matrix are one
+// contiguous range.  A row can hold ~8,200 ranks (seg_bits=8192, 1-bit
+// codes), so the block walks the columns in chunks of C (a multiple of 8,
+// at most 64; the wrapper picks R and C): each thread decodes up to C
+// codewords into its row of a tile [R][C + 4] bytes, zeros past its count,
+// then after a barrier the block stores the tile, consecutive lanes on
+// consecutive 4-byte words (bytes where max_count % 4 != 0) of each row's
+// chunk, so a warp store fills whole sectors.  The pitch (C + 4) / 4 words
+// is odd, so the threads of a warp, each on its own row, write 32 banks.
+// The bit window stays in registers across chunks; shared memory does not
+// depend on max_count.  (Stored from each thread at its row's stride, every
+// warp store of a rank would touch 32 sectors.)
+//
 // gap_place_bytes_kernel replaces compact_kernel.py:_kernel (wrapper
 // ragged_concat_pallas): out[off[s] + i] = symtab[rank[s, i]] for
 // i < count[s], with off the exclusive prefix sum of the counts.  The
@@ -36,10 +50,11 @@
 // which the self-sync kernel C2 shares.
 //
 // Bounds on this card.  B1 reads the payload once and writes the rank
-// matrix (~1 byte per symbol); its time is the serial bit chain of each
-// segment (length compare -> shift -> next window), ~200 symbols at
-// seg_bits=1024, with one thread per segment.  B2 is bytes-bound: rank
-// matrix in, output out.  C1 reads the payload once and writes one int
+// matrix (~1 byte per symbol); with its stores tiled, its time is the
+// serial bit chain of each segment (length compare -> shift -> next
+// window), ~200 symbols at seg_bits=1024, with one thread per segment.
+// B2 is bytes-bound: rank matrix in, output out.  C1 reads the payload
+// once and writes one int
 // per segment; at 128-bit segments a thread's chain is ~20 codewords, so
 // it has many more threads than B1 at 1024 bits for the same payload.
 
@@ -48,17 +63,36 @@
 
 #include "bitwalk.cuh"
 
-#define RANK_THREADS 128
+#define RANK_MAX_ROWS 256
+#define RANK_PAD 4  // tile pitch chunk + 4 bytes: odd words for chunk % 8 == 0
 #define COUNT_THREADS 256
 #define PLACE_THREADS 256
 #define PLACE_WARPS (PLACE_THREADS / 32)
 
-__global__ void __launch_bounds__(RANK_THREADS) gap_decode_ranks_kernel(
+// Rows [0, nv) of a tile of `pitch` bytes a row to rows of `dst_pitch`
+// bytes from dst: `width` bytes each, in units U (width and the addresses
+// multiples of sizeof(U)); consecutive threads on consecutive units.
+template <typename U>
+__device__ __forceinline__ void store_rows(const uint8_t* tile, int pitch,
+                                           uint8_t* dst, long long dst_pitch,
+                                           int nv, int width) {
+  const int units = width / (int)sizeof(U);  // <= blockDim.x
+  const int per = blockDim.x / units;        // rows a pass
+  const int r0 = threadIdx.x / units;
+  if (r0 >= per) return;
+  const int c = threadIdx.x - r0 * units;
+  for (int r = r0; r < nv; r += per)
+    reinterpret_cast<U*>(dst + r * dst_pitch)[c] =
+        reinterpret_cast<const U*>(tile + r * pitch)[c];
+}
+
+__global__ void __launch_bounds__(RANK_MAX_ROWS) gap_decode_ranks_kernel(
     const uint32_t* __restrict__ words, const int* __restrict__ gaps,
     const int* __restrict__ counts, const uint32_t* __restrict__ lim,
     const int* __restrict__ bias, uint8_t* __restrict__ ranks,
     long long n_segs_all, int n_segs, long long n_words, int seg_bits,
-    int max_count, int min_len, int max_len) {
+    int max_count, int min_len, int max_len, int chunk) {
+  extern __shared__ uint4 smem[];
   __shared__ uint32_t s_lim[32];
   __shared__ int s_bias[32];
   if (threadIdx.x < 32) {
@@ -67,23 +101,43 @@ __global__ void __launch_bounds__(RANK_THREADS) gap_decode_ranks_kernel(
   }
   __syncthreads();
 
-  const long long t = (long long)blockIdx.x * RANK_THREADS + threadIdx.x;
-  if (t >= n_segs_all) return;
-  const long long g = t / n_segs;
-  const long long s = t - g * n_segs;
-  const int n = min(max(counts[t], 0), max_count);
-  uint8_t* row = ranks + t * max_count;
-
-  // the words of this block; zero outside it
-  BitWindow bw(words + g * n_words, n_words, s * seg_bits + gaps[t]);
-  for (int i = 0; i < n; ++i) {
-    const uint32_t win = bw.peek();
-    const int ln = canon_len(win, s_lim, min_len, max_len);
-    // ln is in [1, 16], so the shift is in range
-    row[i] = (uint8_t)(s_bias[ln] + (int)(win >> (32 - ln)));
-    bw.skip(ln);
+  // the block's segments [t0, t0 + nv): every thread reaches every barrier,
+  // those past the last segment decode nothing
+  const long long t0 = (long long)blockIdx.x * blockDim.x;
+  const long long t = t0 + threadIdx.x;
+  const int nv = (int)min((long long)blockDim.x, n_segs_all - t0);
+  long long g = 0, pos = 0;
+  int n = 0;
+  if (threadIdx.x < nv) {
+    g = t / n_segs;
+    pos = (t - g * n_segs) * seg_bits + gaps[t];
+    n = min(max(counts[t], 0), max_count);
   }
-  for (int i = n; i < max_count; ++i) row[i] = 0;
+  // the words of this block; zero outside it
+  BitWindow bw(words + g * n_words, n_words, pos);
+  const int pitch = chunk + RANK_PAD;
+  uint8_t* tile = reinterpret_cast<uint8_t*>(smem);
+  uint8_t* row = tile + threadIdx.x * pitch;
+  uint8_t* dst = ranks + t0 * max_count;
+  for (int lo = 0; lo < max_count; lo += chunk) {
+    const int width = min(chunk, max_count - lo);
+    const int m = min(max(n - lo, 0), width);  // codewords in this chunk
+    for (int i = 0; i < m; ++i) {
+      const uint32_t win = bw.peek();
+      const int ln = canon_len(win, s_lim, min_len, max_len);
+      // ln is in [1, 16], so the shift is in range
+      row[i] = (uint8_t)(s_bias[ln] + (int)(win >> (32 - ln)));
+      bw.skip(ln);
+    }
+    for (int i = m; i < width; ++i) row[i] = 0;
+    __syncthreads();
+    if (max_count % 4 == 0) {
+      store_rows<uint32_t>(tile, pitch, dst + lo, max_count, nv, width);
+    } else {
+      store_rows<uint8_t>(tile, pitch, dst + lo, max_count, nv, width);
+    }
+    __syncthreads();
+  }
 }
 
 __global__ void __launch_bounds__(PLACE_THREADS) gap_place_bytes_kernel(
@@ -146,13 +200,30 @@ extern "C" int gap_decode_ranks_launch(const void* words, const void* gaps,
                                        long long n_segs_all, int n_segs,
                                        long long n_words, int seg_bits,
                                        int max_count, int min_len,
-                                       int max_len, void* stream) {
-  const long long blocks = (n_segs_all + RANK_THREADS - 1) / RANK_THREADS;
-  gap_decode_ranks_kernel<<<(unsigned)blocks, RANK_THREADS, 0,
+                                       int max_len, int rows_per_block,
+                                       int chunk, int smem_bytes,
+                                       void* stream) {
+  // the wrapper's `ranks_tile` computes the same geometry
+  if (rows_per_block < 32 || rows_per_block > RANK_MAX_ROWS ||
+      rows_per_block % 32 || chunk < 8 || chunk % 8 ||
+      chunk > rows_per_block ||
+      smem_bytes != rows_per_block * (chunk + RANK_PAD))
+    return (int)cudaErrorInvalidValue;
+  // a refusal is returned, and cleared so that it does not surface at a
+  // later launch's check
+  cudaError_t err = cudaFuncSetAttribute(
+      gap_decode_ranks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  const long long blocks = (n_segs_all + rows_per_block - 1) / rows_per_block;
+  gap_decode_ranks_kernel<<<(unsigned)blocks, rows_per_block, smem_bytes,
                             (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const int*)gaps, (const int*)counts,
       (const uint32_t*)lim, (const int*)bias, (uint8_t*)ranks, n_segs_all,
-      n_segs, n_words, seg_bits, max_count, min_len, max_len);
+      n_segs, n_words, seg_bits, max_count, min_len, max_len, chunk);
   return (int)cudaGetLastError();
 }
 

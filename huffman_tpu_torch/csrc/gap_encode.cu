@@ -6,15 +6,27 @@
 //
 // gap_row_pack_kernel replaces _row_pack_kernel (B4b), with the input
 // relayout _relayout_kernel (B4a) and the encode use of
-// compact_kernel.py:_assemble_kernel (B3) folded into its addressing: the
-// thread loads its row's 32 words in natural order (eight 16-byte loads)
-// instead of the TPU's lane-per-row transpose, and writes its packed words
-// row-major.  Bytes are little-endian within a word, codes come from a
-// shared-memory table of (len << 20) | code, and are packed MSB-first
-// through a 64-bit accumulator into cap_words words (zero past the row's
-// bits).  It also writes the row's bit count and each symbol's start bit
-// within the row (< 128 * 16, an int16).  The TPU's static flush windows
-// (_flush_bounds / _flush_window) bounded VMEM writes and do not survive.
+// compact_kernel.py:_assemble_kernel (B3) folded into its addressing.  A
+// row is still one thread: bytes little-endian within a word, codes from a
+// shared-memory table of (len << 20) | code, packed MSB-first through a
+// 64-bit accumulator into cap_words words (zero past the row's bits), with
+// the row's bit count and each symbol's start bit within the row (< 128 *
+// 16, an int16).  The TPU's static flush windows (_flush_bounds /
+// _flush_window) bounded VMEM writes and do not survive.
+//
+// Its stores go through shared-memory tiles.  A block takes R consecutive
+// rows (R threads; the wrapper picks R and the tile bytes), so each of its
+// outputs is one contiguous range of device memory.  The block loads its R
+// * 128 input bytes with coalesced 16-byte loads into a tile of pitch 33
+// words, each thread packs its row from there into a pay tile of pitch
+// cap_words + 1 words and, 32 symbols at a time, a starts tile of pitch 34
+// int16 (17 words); after a barrier the block copies the starts chunk (64
+// bytes a row, four 16-byte stores) and, at the end, the whole pay range
+// (16-byte stores; the range starts at row0 * cap_words words, row0 a
+// multiple of 32) to device memory.  The odd pitches put the 32 threads of
+// a warp, each on its own row, in 32 banks.  (Stored from each thread at
+// its row's stride, every warp store of a word or a start would touch 32
+// sectors, and its 16-byte loads would sit 128 bytes apart.)
 //
 // gap_row_meta_kernel replaces _row_meta_kernel (B4c) and the sorted
 // segment_sum / segment_min after it.  Each row walks its 128 absolute
@@ -37,7 +49,10 @@
 // cap_words words, 2 bytes of start per symbol and the bit counts; the
 // metadata reads the starts; the placement reads the rows and writes the
 // payload.  One thread per 128-byte row gives n/128 threads: 524,288 for a
-// 64 MiB block.
+// 64 MiB block.  With its stores tiled, the pack is held by its serial
+// chain (a table lookup and the accumulator per symbol, 128 symbols a
+// thread) and by the occupancy its tiles allow (R * (33 + cap_words + 1 +
+// 17) * 4 bytes a block: 50,688 at cap_words 48).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,50 +61,112 @@
 #define ROW_WORDS 32
 #define ENC_THREADS 128
 
-__global__ void __launch_bounds__(ENC_THREADS) gap_row_pack_kernel(
+#define IN_PITCH (ROW_WORDS + 1)  // words of a row in the input tile
+#define ST_CHUNK 32                // starts staged per pass, symbols
+#define ST_PITCH (ST_CHUNK + 2)    // int16 of a row in the starts tile
+#define PACK_MAX_ROWS 256
+
+__global__ void __launch_bounds__(PACK_MAX_ROWS) gap_row_pack_kernel(
     const uint32_t* __restrict__ data, const int* __restrict__ enc,
     uint32_t* __restrict__ pay, int* __restrict__ row_bits,
     int16_t* __restrict__ starts, long long n_rows, int cap_words) {
+  extern __shared__ uint4 smem[];
   __shared__ int s_enc[256];
-  for (int j = threadIdx.x; j < 256; j += ENC_THREADS) s_enc[j] = enc[j];
+  const int R = blockDim.x;
+  const int tid = threadIdx.x;
+  const int pay_pitch = cap_words + 1;
+  uint32_t* s_in = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* s_pay = s_in + R * IN_PITCH;
+  int16_t* s_st = reinterpret_cast<int16_t*>(s_pay + R * pay_pitch);
+  for (int j = tid; j < 256; j += R) s_enc[j] = enc[j];
+
+  // the block's rows [row0, row0 + nv): every thread reaches every barrier,
+  // those past the last row skip only their own row's work
+  const long long row0 = (long long)blockIdx.x * R;
+  const int nv = (int)min((long long)R, n_rows - row0);
+  const uint4* src = reinterpret_cast<const uint4*>(data + row0 * ROW_WORDS);
+  for (int k = tid; k < nv * (ROW_WORDS / 4); k += R) {
+    const uint4 v = src[k];
+    uint32_t* d = s_in + (k >> 3) * IN_PITCH + 4 * (k & 7);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
   __syncthreads();
 
-  const long long r = (long long)blockIdx.x * ENC_THREADS + threadIdx.x;
-  if (r >= n_rows) return;
-  const uint4* in = reinterpret_cast<const uint4*>(data + r * ROW_WORDS);
-  uint32_t* out = pay + r * cap_words;
-  int16_t* st = starts + r * ROW_BYTES;
+  const bool active = tid < nv;
+  const uint32_t* in = s_in + tid * IN_PITCH;
+  uint32_t* out = s_pay + tid * pay_pitch;
+  int16_t* st = s_st + tid * ST_PITCH;
   uint64_t acc = 0;  // top `nacc` bits pending, nacc < 32 between symbols
   int nacc = 0, tot = 0, nw = 0;
-  for (int q = 0; q < ROW_WORDS / 4; ++q) {
-    const uint4 v = in[q];
-    const uint32_t ws[4] = {v.x, v.y, v.z, v.w};
+  for (int c = 0; c < ROW_BYTES / ST_CHUNK; ++c) {
+    if (active) {
+      for (int q = 0; q < ST_CHUNK / 4; ++q) {
+        const uint32_t w = in[c * (ST_CHUNK / 4) + q];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int e = s_enc[(ws[j] >> (8 * b)) & 255];
-        const int ln = e >> 20;
-        st[16 * q + 4 * j + b] = (int16_t)tot;
-        tot += ln;
-        // ln == 0 (a symbol absent from the table) adds nothing
-        if (ln) acc |= (uint64_t)(e & 0xFFFF) << (64 - nacc - ln);
-        nacc += ln;
-        if (nacc >= 32) {
-          if (nw < cap_words) out[nw] = (uint32_t)(acc >> 32);
-          ++nw;
-          acc <<= 32;
-          nacc -= 32;
+        for (int b = 0; b < 4; ++b) {
+          const int e = s_enc[(w >> (8 * b)) & 255];
+          const int ln = e >> 20;
+          st[4 * q + b] = (int16_t)tot;
+          tot += ln;
+          // ln == 0 (a symbol absent from the table) adds nothing
+          if (ln) acc |= (uint64_t)(e & 0xFFFF) << (64 - nacc - ln);
+          nacc += ln;
+          if (nacc >= 32) {
+            if (nw < cap_words) out[nw] = (uint32_t)(acc >> 32);
+            ++nw;
+            acc <<= 32;
+            nacc -= 32;
+          }
         }
       }
     }
+    __syncthreads();
+    // the chunk's 64 bytes of each row: four 16-byte stores (R % 4 == 0)
+    const int part = tid & 3;
+    for (int r = tid >> 2; r < nv; r += R >> 2) {
+      const uint32_t* s =
+          reinterpret_cast<const uint32_t*>(s_st + r * ST_PITCH) + 4 * part;
+      reinterpret_cast<uint4*>(starts + (row0 + r) * ROW_BYTES +
+                               c * ST_CHUNK)[part] =
+          make_uint4(s[0], s[1], s[2], s[3]);
+    }
+    __syncthreads();
   }
-  if (nacc > 0) {
-    if (nw < cap_words) out[nw] = (uint32_t)(acc >> 32);
-    ++nw;
+  if (active) {
+    if (nacc > 0) {
+      if (nw < cap_words) out[nw] = (uint32_t)(acc >> 32);
+      ++nw;
+    }
+    for (; nw < cap_words; ++nw) out[nw] = 0;
+    row_bits[row0 + tid] = tot;
   }
-  for (; nw < cap_words; ++nw) out[nw] = 0;
-  row_bits[r] = tot;
+  __syncthreads();
+
+  // the block's pay words, one contiguous range from word row0 * cap_words
+  // (16-byte aligned: row0 is a multiple of 32)
+  uint32_t* dst = pay + row0 * cap_words;
+  const int n_words = nv * cap_words;
+  for (int k = tid; k < n_words / 4; k += R) {
+    int r = 4 * k / cap_words;
+    int col = 4 * k - r * cap_words;
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = s_pay[r * pay_pitch + col];
+      if (++col == cap_words) {
+        col = 0;
+        ++r;
+      }
+    }
+    reinterpret_cast<uint4*>(dst)[k] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  for (int f = (n_words & ~3) + tid; f < n_words; f += R) {
+    const int r = f / cap_words;
+    dst[f] = s_pay[r * pay_pitch + f - r * cap_words];
+  }
 }
 
 __global__ void __launch_bounds__(ENC_THREADS) gap_row_meta_kernel(
@@ -162,12 +239,32 @@ __global__ void __launch_bounds__(ENC_THREADS) gap_place_bits_kernel(
   }
 }
 
+// The tile bytes a block of `rows` rows needs (the wrapper's
+// `row_pack_tile` computes the same).
+static long long row_pack_smem(int rows, int cap_words) {
+  return 4LL * rows * (IN_PITCH + cap_words + 1 + ST_PITCH / 2);
+}
+
 extern "C" int gap_row_pack_launch(const void* data, const void* enc,
                                    void* pay, void* row_bits, void* starts,
                                    long long n_rows, int cap_words,
+                                   int rows_per_block, int smem_bytes,
                                    void* stream) {
-  const long long blocks = (n_rows + ENC_THREADS - 1) / ENC_THREADS;
-  gap_row_pack_kernel<<<(unsigned)blocks, ENC_THREADS, 0,
+  if (rows_per_block < 32 || rows_per_block > PACK_MAX_ROWS ||
+      rows_per_block % 32 || cap_words < 0 ||
+      smem_bytes != row_pack_smem(rows_per_block, cap_words))
+    return (int)cudaErrorInvalidValue;
+  // above 48 KB only after this; a refusal is returned, and cleared so
+  // that it does not surface at a later launch's check
+  cudaError_t err = cudaFuncSetAttribute(
+      gap_row_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  gap_row_pack_kernel<<<(unsigned)blocks, rows_per_block, smem_bytes,
                         (cudaStream_t)stream>>>(
       (const uint32_t*)data, (const int*)enc, (uint32_t*)pay, (int*)row_bits,
       (int16_t*)starts, n_rows, cap_words);

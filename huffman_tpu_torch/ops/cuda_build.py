@@ -6,7 +6,9 @@ at first use, one ``nvcc`` per source, all started together, into
 ``build/huffman_tpu_torch/<hash>/`` beside the package, where ``<hash>`` is
 a digest of every source and the compiler flags: an edited source builds
 anew, an unchanged one is loaded as built.  A missing ``nvcc`` or a failed
-build raises; nothing falls back to the plain PyTorch versions.
+build raises; nothing falls back to the plain PyTorch versions.  Each
+library's compiler output (``-Xptxas -v``: registers, shared memory and
+spills of every kernel) is kept beside it and read by `kernel_resources`.
 """
 
 from __future__ import annotations
@@ -14,13 +16,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load_kernels", "build_kernels", "KERNEL_SOURCES"]
+__all__ = ["load_kernels", "build_kernels", "kernel_resources",
+           "KERNEL_SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "huffman_tpu_torch"
@@ -30,7 +34,7 @@ KERNEL_SOURCES = (
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -58,7 +62,8 @@ _SIGNATURES = {
     },
     "gap_decode": {
         "gap_decode_ranks_launch": [
-            _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _I, _I,
+            _P,
         ],
         "gap_place_bytes_launch": [_P, _P, _P, _P, _P, _L, _I, _L, _P],
         "gap_count_segments_launch": [
@@ -66,7 +71,7 @@ _SIGNATURES = {
         ],
     },
     "gap_encode": {
-        "gap_row_pack_launch": [_P, _P, _P, _P, _P, _L, _I, _P],
+        "gap_row_pack_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
         "gap_row_meta_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
         "gap_place_bits_launch": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
     },
@@ -129,11 +134,40 @@ def build_kernels() -> dict[str, Path]:
             os.unlink(tmp)
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
         else:
+            targets[name].with_suffix(".log").write_text(log)
             # atomic publish: a concurrent loader never sees a partial file
             os.replace(tmp, targets[name])
     if errors:
         raise RuntimeError("\n".join(errors))
     return targets
+
+
+_PTXAS = (
+    ("registers", r"Used (\d+) registers"),
+    ("static_smem_bytes", r"(\d+) bytes smem"),
+    ("stack_bytes", r"(\d+) bytes stack frame"),
+    ("spill_store_bytes", r"(\d+) bytes spill stores"),
+    ("spill_load_bytes", r"(\d+) bytes spill loads"),
+)
+
+
+def kernel_resources() -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name), what ptxas reported when the libraries
+    were built: registers, static shared memory, stack and spill bytes."""
+    out = {}
+    for so in build_kernels().values():
+        log = so.with_suffix(".log")
+        cur = None
+        for line in log.read_text().splitlines() if log.exists() else ():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = out.setdefault(m.group(1), {})
+                continue
+            for key, pattern in _PTXAS if cur is not None else ():
+                m = re.search(pattern, line)
+                if m:
+                    cur[key] = int(m.group(1))
+    return out
 
 
 def load_kernels() -> dict[str, ctypes.CDLL]:

@@ -10,7 +10,9 @@ that of `ops/ils_kernels.py`: a CUDA tensor launches the kernel of
 
 - `gap_decode_ranks` (B1, with B3's decode use folded in): one segment per
   thread, its ranks written as bytes into its own row of a
-  ``(segments, max_count)`` matrix, zero past its count.
+  ``(segments, max_count)`` matrix, zero past its count; a CUDA block
+  stores its R rows through a shared-memory tile, C columns at a time
+  (`ranks_tile`).
 - `gap_place_bytes` (B2): ``out[off[s] + i] = symtab[rank[s, i]]`` for
   ``i < count[s]``, ``off`` the exclusive prefix sum of the counts.
 - `decode_blocks`: both, for G equal-size blocks in one launch each.
@@ -42,6 +44,7 @@ from .tables import DecSpec, DeviceDecTable
 
 __all__ = [
     "kernel_tabs",
+    "ranks_tile",
     "gap_decode_ranks",
     "gap_decode_ranks_plain",
     "gap_place_bytes",
@@ -53,6 +56,19 @@ __all__ = [
     "reset_launch_counts",
     "launch_counts",
 ]
+
+
+RANK_ROWS = 128  # segments of a B1 block
+RANK_CHUNK = 64  # widest column chunk of B1's tile
+
+
+def ranks_tile(max_count: int) -> tuple[int, int, int]:
+    """(rows per block, column chunk C, dynamic shared-memory bytes) of
+    B1: a tile of R rows of C + 4 bytes, C a multiple of 8 (so the pitch
+    is odd in words) no wider than the row needs.  At most 8,704 bytes
+    whatever max_count; ``csrc/gap_decode.cu`` checks the same product."""
+    chunk = min(RANK_CHUNK, -(-max(max_count, 1) // 8) * 8)
+    return RANK_ROWS, chunk, RANK_ROWS * (chunk + 4)
 
 
 def kernel_tabs(dec: DeviceDecTable):
@@ -172,11 +188,12 @@ def gap_decode_ranks(words, gaps, counts, lim, bias, *, seg_bits, max_count,
                         device=words.device)
     if ranks.numel() == 0:
         return ranks
+    tile_rows, chunk, smem = ranks_tile(max_count)
     rc = _lib("gap_decode").gap_decode_ranks_launch(
         words.data_ptr(), gaps.data_ptr(), counts.data_ptr(), lim.data_ptr(),
         bias.data_ptr(), ranks.data_ptr(), g_n * n_segs, n_segs,
-        words.shape[1], seg_bits, max_count, min_len, max_len,
-        _stream(words),
+        words.shape[1], seg_bits, max_count, min_len, max_len, tile_rows,
+        chunk, smem, _stream(words),
     )
     _launched(gap_decode_ranks, rc)
     return ranks

@@ -9,7 +9,8 @@ tensor runs the plain version.  A block is cut into rows of
 
 - `gap_row_pack` (B4b; the input relayout B4a and B3's encode use are its
   addressing): each row packed MSB-first into ``cap_words`` u32 words,
-  with its bit count and each symbol's start bit within the row;
+  with its bit count and each symbol's start bit within the row; a CUDA
+  block packs `row_pack_tile`'s R rows through shared-memory tiles;
 - `gap_row_meta` (B4c): per segment, the number of codewords starting in
   it and its first start;
 - `gap_place_bits` (B4d): each row's bits written at its block-local start
@@ -39,6 +40,7 @@ from .ils_kernels import (
 __all__ = [
     "ROW_BYTES",
     "row_cap_words",
+    "row_pack_tile",
     "gap_row_pack",
     "gap_row_pack_plain",
     "gap_row_meta",
@@ -53,12 +55,23 @@ __all__ = [
 ROW_BYTES = 128  # input bytes per row
 ROW_WORDS = ROW_BYTES // 4
 _INT32_MAX = (1 << 31) - 1
+PACK_ROWS = 128  # rows of a B4b block
+_ST_CHUNK = 32  # starts staged per pass of B4b, symbols
 
 
 def row_cap_words(max_len: int) -> int:
     """u32 words a row of 128 codewords of at most max_len bits needs,
     rounded to whole 64-bit pairs as in the JAX package."""
     return 2 * -(-ROW_BYTES * max_len // 64)
+
+
+def row_pack_tile(cap_words: int) -> tuple[int, int]:
+    """(rows per block, dynamic shared-memory bytes) of B4b: tiles of the
+    block's input (pitch 33 words), packed words (cap_words + 1) and one
+    chunk of starts (34 int16), each pitch odd in words.  At most 58,880
+    bytes (cap_words 64); ``csrc/gap_encode.cu`` checks the same sum."""
+    pitch_words = ROW_WORDS + 1 + cap_words + 1 + (_ST_CHUNK + 2) // 2
+    return PACK_ROWS, 4 * PACK_ROWS * pitch_words
 
 
 def _low_bits(x, n):
@@ -114,9 +127,10 @@ def gap_row_pack(rows, enc, *, cap_words):
     starts = torch.empty((n_rows, ROW_BYTES), dtype=torch.int16, device=dev)
     if n_rows == 0:
         return pay, bits, starts
+    tile_rows, smem = row_pack_tile(cap_words)
     rc = _lib("gap_encode").gap_row_pack_launch(
         rows.data_ptr(), enc.data_ptr(), pay.data_ptr(), bits.data_ptr(),
-        starts.data_ptr(), n_rows, cap_words, _stream(rows),
+        starts.data_ptr(), n_rows, cap_words, tile_rows, smem, _stream(rows),
     )
     _launched(gap_row_pack, rc)
     return pay, bits, starts

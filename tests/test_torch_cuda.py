@@ -150,6 +150,8 @@ def _gap_data(kind, n):
 @pytest.mark.parametrize("kind,g,b,seg_bits", [
     ("0.1", 2, 8192, 1024), ("0.5", 3, 4096, 128), ("0.9", 1, 65536, 4096),
     ("single", 2, 4096, 128), ("uniform", 2, 4096, 1024),
+    # 1-bit codes filling 8192-bit segments: max_count 8192, 128 chunks
+    ("single", 2, 16384, 8192),
 ])
 def test_gap_kernels_match_plain(cuda, kind, g, b, seg_bits):
     from huffman_tpu_torch import GapArrayCodec
@@ -186,6 +188,19 @@ def test_gap_kernels_match_plain(cuda, kind, g, b, seg_bits):
     ranks = gd.gap_decode_ranks(dcomp.words, dcomp.gaps, counts, lim, bias, **kw)
     assert _equal(ranks, gd.gap_decode_ranks_plain(dcomp.words, dcomp.gaps,
                                                    counts, lim, bias, **kw))
+    # B1's tile edges: a max_count that is a multiple of neither 4 nor the
+    # column chunk (byte stores), and G blocks of a segment count that is
+    # no multiple of a tile's rows, so that a tile spans two blocks
+    ns = counts.shape[1]
+    cut = next(c for c in range(ns - 1, 0, -1) if g * c % gd.RANK_ROWS)
+    for gaps_e, counts_e, mc_e in ((dcomp.gaps, counts, mc + 5),
+                                   (dcomp.gaps[:, :cut].contiguous(),
+                                    counts[:, :cut].contiguous(), mc)):
+        kw_e = dict(kw, max_count=mc_e)
+        assert _equal(
+            gd.gap_decode_ranks(dcomp.words, gaps_e, counts_e, lim, bias, **kw_e),
+            gd.gap_decode_ranks_plain(dcomp.words, gaps_e, counts_e, lim, bias,
+                                      **kw_e))
     flat = counts.reshape(-1)
     offs = torch.cumsum(flat, 0, dtype=torch.int64) - flat
     out = gd.gap_place_bytes(ranks, flat, offs, codec.dec.symtab, n_out=g * b)
@@ -227,6 +242,32 @@ def test_gap_row_pack_rejects_misaligned_rows(cuda):
         ge.gap_row_pack(rows.view(2, 32), codec.enc, cap_words=8)
 
 
+@pytest.mark.parametrize("n_rows", [1, 3, 129, 4097])
+def test_gap_row_pack_tile_edges(cuda, n_rows):
+    # row counts around the rows of a block; a 16-bit-deep table (64 words
+    # a row, its last row filled to them) and bytes the table lacks (length
+    # 0, its last row all such); a cap_words that is no multiple of 4 (the
+    # word-by-word end of a block's copy, rows cut short as in the plain
+    # version)
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
+
+    rng = np.random.default_rng(n_rows)
+    ge.reset_launch_counts()
+    for kind, deep in (("max_len=16", 55), ("lacks", 200)):
+        sample, table = _map_case(kind)
+        data = rng.choice(sample, n_rows * 128)
+        data[-128:] = deep
+        enc = tk.ils_enc_tabs(table, cuda)
+        rows = torch.from_numpy(data.view(np.int32).reshape(n_rows, 32)
+                                .copy()).to(cuda)
+        for cap in (ge.row_cap_words(table.max_len_present), 6):
+            assert _equal(ge.gap_row_pack(rows, enc, cap_words=cap),
+                          ge.gap_row_pack_plain(rows, enc, cap_words=cap)), \
+                (kind, cap)
+    assert ge.row_cap_words(_map_case("max_len=16")[1].max_len_present) == 64
+    assert ge.launch_counts()["gap_row_pack"] == 4
+
+
 def test_gap_decode_kernels_stay_inside_buffers(cuda):
     # corrupt metadata (negative gaps, counts past max_count or negative,
     # offsets outside the output) is clamped in the kernels as in the
@@ -244,17 +285,21 @@ def test_gap_decode_kernels_stay_inside_buffers(cuda):
     gaps = torch.from_numpy(rng.integers(-40, 40, (g, ns)).astype(np.int32)).to(cuda)
     counts = torch.from_numpy(rng.integers(-5, 300, (g, ns)).astype(np.int32)).to(cuda)
     lim, bias = gd.kernel_tabs(codec.dec)
-    kw = dict(seg_bits=128, max_count=64, min_len=codec.spec.min_len,
-              max_len=codec.spec.max_len)
-    ranks = gd.gap_decode_ranks(words, gaps, counts, lim, bias, **kw)
-    assert _equal(ranks, gd.gap_decode_ranks_plain(words, gaps, counts, lim,
-                                                   bias, **kw))
-    flat = counts.reshape(-1)
-    kept = flat.clamp(0, 64).to(torch.int64)
-    offs = torch.cumsum(kept, 0) - kept - 500  # disjoint, some outside
-    out = gd.gap_place_bytes(ranks, flat, offs, codec.dec.symtab, n_out=1500)
-    assert _equal(out, gd.gap_place_bytes_plain(ranks, flat, offs,
-                                                codec.dec.symtab, n_out=1500))
+    # 64 is one column chunk of B1's tile; 37 and 100 end in a partial one
+    for mc in (64, 37, 100):
+        kw = dict(seg_bits=128, max_count=mc, min_len=codec.spec.min_len,
+                  max_len=codec.spec.max_len)
+        ranks = gd.gap_decode_ranks(words, gaps, counts, lim, bias, **kw)
+        assert _equal(ranks, gd.gap_decode_ranks_plain(words, gaps, counts,
+                                                       lim, bias, **kw))
+        flat = counts.reshape(-1)
+        kept = flat.clamp(0, mc).to(torch.int64)
+        offs = torch.cumsum(kept, 0) - kept - 500  # disjoint, some outside
+        out = gd.gap_place_bytes(ranks, flat, offs, codec.dec.symtab,
+                                 n_out=1500)
+        assert _equal(out, gd.gap_place_bytes_plain(ranks, flat, offs,
+                                                    codec.dec.symtab,
+                                                    n_out=1500))
     torch.cuda.synchronize()
 
 

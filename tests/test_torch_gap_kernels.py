@@ -325,6 +325,39 @@ def test_row_pack_meta_place_match_oracle(kind):
         assert (firsts[g, ns:].numpy() == 2**31 - 1).all()
 
 
+# ----------------------------------------------------------------------
+# Tile geometry of the CUDA kernels B4b and B1
+# ----------------------------------------------------------------------
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block can have (H100)
+
+
+@pytest.mark.parametrize("max_len", range(1, 17))
+def test_row_pack_tile_fits_shared_memory(max_len):
+    cap = ge.row_cap_words(max_len)
+    rows, smem = ge.row_pack_tile(cap)
+    assert rows % 32 == 0 and 32 <= rows <= 256
+    # input, packed words and one chunk of starts, each pitch odd in words;
+    # the (256,) int32 code table is static shared memory besides
+    assert smem == 4 * rows * (33 + cap + 1 + 17)
+    assert cap % 2 == 0 and (cap + 1) % 2 == 1
+    assert smem + 1024 <= SMEM_PER_BLOCK
+    # a block's pay range starts 16-byte aligned
+    assert rows * cap * 4 % 16 == 0
+
+
+@pytest.mark.parametrize("seg_bits", [2 ** k for k in range(3, 14)])
+def test_ranks_tile_fits_shared_memory(seg_bits):
+    # every max_count a segment of seg_bits can need, 1-bit codes included
+    for max_count in range(1, gd.count_max(seg_bits, 1) + 9):
+        rows, chunk, smem = gd.ranks_tile(max_count)
+        assert rows % 32 == 0 and 32 <= rows <= 256
+        assert chunk % 8 == 0 and 8 <= chunk <= min(64, rows)
+        assert chunk >= min(max_count, 64)
+        assert (chunk + 4) // 4 % 2 == 1  # odd pitch in words
+        # lim and bias, (32,) each, are static shared memory besides
+        assert smem == rows * (chunk + 4) and smem + 256 <= SMEM_PER_BLOCK
+
+
 def test_wrappers_reject_bad_input():
     with pytest.raises(TypeError):
         ge.gap_row_pack(torch.zeros((2, 32), dtype=torch.int64),

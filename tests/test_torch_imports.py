@@ -180,3 +180,24 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build_kernels()
+
+
+def test_kernel_resources_read_ptxas_logs(monkeypatch, tmp_path):
+    # chip_smoke.py reports registers, shared memory and spills from the
+    # ptxas output kept beside each library
+    from huffman_tpu_torch.ops import cuda_build
+
+    so = tmp_path / "libgap_encode.so"
+    so.write_bytes(b"")
+    so.with_suffix(".log").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z19gap_row_pack_kernelPKj'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z19gap_row_pack_kernelPKj\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 1024 bytes smem, "
+        "400 bytes cmem[0]\n")
+    monkeypatch.setattr(cuda_build, "build_kernels", lambda: {"gap_encode": so})
+    assert cuda_build.kernel_resources() == {"_Z19gap_row_pack_kernelPKj": {
+        "registers": 40, "static_smem_bytes": 1024, "stack_bytes": 8,
+        "spill_store_bytes": 4, "spill_load_bytes": 12}}
