@@ -11,8 +11,9 @@ failure raises and exits non-zero with the traceback):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, build time,
    and what ptxas reported for every kernel (registers, static shared
-   memory, stack and spill bytes), with the shared-memory tiles of B4b and
-   B1 (`row_pack_tile`, `ranks_tile`), a line each for those two.
+   memory, stack and spill bytes), with the shared memory of B4b, B1 and
+   C2 (`row_pack_tile`, `ranks_tile`, `sync_tile`) and A1's
+   length-and-symbol table, a line each for those four.
 2. Kernels A1-A5 against their plain PyTorch versions on the card, bit for
    bit, on: 4 tiles at k=4096 of generate_redundant(r=0.5) with rotation
    off and on; the zeros-then-uniform input at k=256, e_band=8 (the "mu"
@@ -68,7 +69,10 @@ failure raises and exits non-zero with the traceback):
    selfsync_decode_device (C2, the composition scan, B1 + B2), bit-exact,
    with its launch counters, timed and profiled the same way; C2, B1 and
    B2 held against their plain versions and timed there, the scan timed
-   apart.
+   apart.  Then C2 on as many bytes of the uniform 256-symbol input (8-bit
+   codes: entries at offsets that differ mod 8 never meet), held against
+   its plain version and timed, on a line of its own and under
+   "selfsync"."uniform_c2".
 11. The portability path, small inputs: the encode map B5 against its
    plain version on the card, bit for bit, on generate_redundant(r=0.1,
    0.5, 0.9), a one-symbol input, the uniform 256-symbol input, a max_len=16
@@ -97,16 +101,16 @@ failure raises and exits non-zero with the traceback):
    each kernel's launches in its codec's end-to-end run (phase 4 or 6)
    beside its times at that run's shapes; A4 and A5, which phase 4 gives
    only the small tail, also under "full_section" at the main section's
-   shape (the two-pass tier's shape when a full section takes it), B1 and
-   B2 also under "tail" at the tail group's; C1's launches are phase 9's,
+   shape (the two-pass tier's shape when a full section takes it), A1, B1
+   and B2 also under "tail" at the tail's; C1's launches are phase 9's,
    C2's phase 10's, B5's phase 12's.  The TPU kernels whose function a
    kernel here computes are under its "also_replaces" (B3, B4a, D1, D3).
    The bench shape's rows, with phase 7's launches, go in the summary line
    before it under "htc1"."kernels", phase 11-12's results under
    "portable", and B1/B2/C1/C2 at the foreign paths' shapes under
-   "yamamoto"."kernels" and "selfsync"."kernels".  B1's and B4b's rows
-   also carry their "ptxas" report.  Then the card line, then the device
-   line last.
+   "yamamoto"."kernels" and "selfsync"."kernels".  The rows of A1, B1,
+   B4b and C2 also carry their "ptxas" report.  Then the card line, then
+   the device line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
 once) / 3.35 TB/s and (integer ALU operations the algorithm needs on this
@@ -1005,6 +1009,12 @@ def main(argv=None) -> int:
          f"{gd.ranks_tile(1 << 20)[2]} B at most, "
          f"{gd.ranks_tile(1)[0]} rows a block, column chunk "
          f"{gd.ranks_tile(1)[1]}..{gd.ranks_tile(1 << 20)[1]}"),
+        ("sync_transitions", "dynamic shared memory sync_tile(seg_bits) "
+         "(rows, bitmap words, bytes): " + ", ".join(
+             f"{b} bits {sk.sync_tile(b)}" for b in (32, 1024, 65504))
+         + "; the 1 KB length table static"),
+        ("ils_decode", f"length-and-symbol table on {tk.ILS_LUT_BITS} bits: "
+         f"{2 << tk.ILS_LUT_BITS} B of the static shared memory"),
     ):
         hits = [r for key, r in resources.items() if SYMBOLS[name] in key]
         if len(hits) != 1:
@@ -1108,6 +1118,7 @@ def main(argv=None) -> int:
                      f"tail 1x k={kt}", timing)
         main_timing["ils_lengths_pass"] = timing["ils_lengths_pass"]
         main_timing["ils_pack"] = timing["ils_pack"]
+        a1_tail = timing["ils_decode"]
 
     enc_ms = [cuda_ms(lambda: codec.encode(data), 1) for _ in range(3)]
     dec_ms = [cuda_ms(lambda: codec.decode(comp), 1) for _ in range(5)]
@@ -1387,6 +1398,25 @@ def main(argv=None) -> int:
         (ywords.view(1, -1), entry.to(torch.int32).view(1, -1),
          counts.view(1, -1), -(-int(counts.max()) // 8) * 8),
         ytb, ydata.view(1, -1), label, ss_timing)
+    # C2 on 256 8-bit codes: entries at offsets that differ mod 8 never
+    # meet, so stopping walks where they meet saves nothing there
+    ucodec = GapArrayCodec.fit(np.arange(256, dtype=np.uint8), seg_bits=128,
+                               block_bytes=fs, device="cuda")
+    udata = (torch.arange(fs, device=dev) & 255).to(torch.uint8)
+    ucomp = ucodec.encode_device(udata.view(1, -1))
+    utb = int(ucomp.total_bits[0])
+    uwords = ucomp.words[0, : -(-utb // 32)]
+    del ucomp, udata
+    u_timing = {}
+    transition_cases(stats, gd, sk, device_dec_table(ucodec.table, dev),
+                     dec_spec(ucodec.table), uwords, utb,
+                     f"selfsync uniform {fs} B", u_timing)
+    uniform_c2 = u_timing["sync_transitions"]
+    log(f"  C2 on the uniform input ({fs} B, 8-bit codes, {utb} bits): "
+        f"kernel_ms={uniform_c2['ms']} ({uniform_c2['ms_by']}) "
+        f"wrapper_ms={uniform_c2['wrapper_ms']} "
+        f"plain_ms={uniform_c2['plain_ms']} ({card})")
+    del uwords
     launches["count_segments"] = y_launches["count_segments"]
     launches["sync_transitions"] = s_launches["sync_transitions"]
     main_timing["count_segments"] = yam_timing["count_segments"]
@@ -1435,6 +1465,8 @@ def main(argv=None) -> int:
     main_timing.update(htc1_timing)
     extra = {name: ("full_section", t) for name, t in section_timing.items()}
     extra.update({name: ("tail", t) for name, t in tail_timing.items()})
+    if n % tile_bytes:
+        extra["ils_decode"] = ("tail", a1_tail)
     log(f"per kernel at the main path's shapes ({card}):")
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -1478,7 +1510,8 @@ def main(argv=None) -> int:
                      "decode_ms_median": s_med, "decode_ms": s_ms,
                      "decode_gbps": fs / s_med / 1e6, "scan_ms": scan_ms,
                      "card": card, "profile": sprof,
-                     "kernels": foreign["selfsync"]},
+                     "kernels": foreign["selfsync"],
+                     "uniform_c2": {"payload_bits": utb, **times(uniform_c2)}},
     }))
     log(json.dumps({
         "e2e": {"bytes": n, "encode_ms_median": enc_med,

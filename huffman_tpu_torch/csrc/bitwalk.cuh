@@ -1,6 +1,8 @@
-// Canonical bit walks over an MSB-first u32 stream, shared by the
-// gap-array kernels (gap_decode.cu: B1, C1) and the self-sync kernel
-// (selfsync.cu: C2).  Words outside [0, n_words) read as zeros.
+// Canonical bit walks over an MSB-first u32 stream, used by the gap-array
+// kernels (gap_decode.cu: B1, C1); the self-sync kernel (selfsync.cu: C2)
+// and the ILS decoder (ils_decode.cu: A1) take the compare chain with its
+// limits in registers (CanonRegs).  Words outside [0, n_words) read as
+// zeros.
 #pragma once
 
 #include <cstdint>
@@ -51,6 +53,30 @@ __device__ __forceinline__ int canon_len(uint32_t win, const uint32_t* lim,
   for (int l = min_len; l < max_len; ++l) ln += (win >= lim[l]);
   return ln;
 }
+
+// canon_len with the limits held in registers, no loads per codeword:
+// lim[l - 1] holds lim[l] for l in [min_len, max_len) and 0 elsewhere, so
+// canon_len = max_len - #{l : win < lim[l - 1]} (win < 0 is never true).
+// `src` may be global or shared memory.
+struct CanonRegs {
+  uint32_t lim[15];
+  int max_len;
+
+  __device__ __forceinline__ CanonRegs(const uint32_t* src, int min_len,
+                                       int max_len_)
+      : max_len(max_len_) {
+#pragma unroll
+    for (int l = 1; l < 16; ++l)
+      lim[l - 1] = (l >= min_len && l < max_len_) ? src[l] : 0u;
+  }
+
+  __device__ __forceinline__ int len(uint32_t win) const {
+    int ln = max_len;
+#pragma unroll
+    for (int l = 0; l < 15; ++l) ln -= (win < lim[l]);
+    return ln;
+  }
+};
 
 // Counts the codewords that start below `end`, walking from `pos`, at most
 // max_count of them; leaves `pos` just past the last one counted.

@@ -7,32 +7,66 @@
 //
 // Bound on this card: bytes.  The kernel reads the payload once (~ratio x
 // the data) and writes the data once; at 3.35 TB/s a 256 MiB section at a
-// 60% ratio needs ~0.13 ms.  The serial dependence of each stream (length ->
-// shift -> next window) makes it latency-bound in practice: one thread per
-// stream, so only n_tiles*1024 threads exist (65,536 for 256 MiB at
-// k=4096).
+// 60% ratio needs ~0.13 ms.  The format fixes one serial chain per stream
+// (length -> shift -> next window) and k fixes the streams (65,536 for
+// 256 MiB at k=4096), so the time is the chain's: the design shortens it.
 //
 // Design: one thread per stream, the grid is (tile, 1024/threads-per-block).
-// The decode tables (lim_left <= 17 u32, bias <= 17 i32, symtab 256 B) live
-// in shared memory.  The 128-bit register is two uint64_t.  A refill loads
-// pair pptr straight from its own column of the payload (two coalesced
-// 32-bit loads) instead of the TPU's banded one-hot window: the certified
-// band guarantees every refill the TPU kernel could serve lies at pptr <
-// w_cap/2, and pairs at or past it are read as zeros exactly as the TPU
-// window clamp does.  Rows outside the payload (n_rows of them) read as
-// zeros too: the host appends no slack rows and checks no row offsets, and a
-// corrupt container still stays inside the buffer (the host checks the band
-// before launching, ops/ils.py).
+//  - Length and symbol from one lookup.  Each block builds, in shared
+//    memory, a table on the top B = lut_bits bits of the window: for every
+//    B-bit prefix whose codeword the compare chain decides within B bits,
+//    (len << 8) | symbol; 0 where it needs more bits (`build_lut`; its
+//    plain mirror is ops/ils_kernels.py:ils_decode_lut).  A codeword takes
+//    one shared load; a longer one takes the compare chain against the
+//    limits held in registers (CanonRegs, bitwalk.cuh), then bias and
+//    symtab from shared memory.
+//  - The 128-bit register is four u32 words, shifted by funnel shifts.
+//  - A refill loads pair pptr straight from its own column of the payload
+//    (two coalesced 32-bit loads) instead of the TPU's banded one-hot
+//    window; the load for the next refill is issued right after a refill,
+//    so it overlaps the ~10 codewords in between.  The certified band
+//    guarantees every refill the TPU kernel could serve lies at pptr <
+//    w_cap/2, and pairs at or past it are read as zeros exactly as the TPU
+//    window clamp does.  Rows outside the payload (n_rows of them) read as
+//    zeros too: the host appends no slack rows and checks no row offsets,
+//    and a corrupt container still stays inside the buffer (the host
+//    checks the band before launching, ops/ils.py).
 
+#include "bitwalk.cuh"
 #include "ils_common.cuh"
 
 #define DEC_THREADS 256
+#define DEC_LUT_MAX_BITS 12
+
+// Entry x of the table: the compare chain on the lowest and the highest
+// window with prefix x.  The chain counts the limits a window reaches, so
+// it never falls as the window grows, whatever the limits: equal lengths
+// at both ends decide every window of the prefix, and the symbol then
+// depends on the top len <= B bits only.
+__device__ __forceinline__ void build_lut(uint16_t* s_lut, int lut_bits,
+                                          const int* s_bias,
+                                          const uint8_t* s_sym,
+                                          const CanonRegs& cr) {
+  const uint32_t span = 0xFFFFFFFFu >> lut_bits;
+  for (int x = threadIdx.x; x < (1 << lut_bits); x += blockDim.x) {
+    const uint32_t lo = (uint32_t)x << (32 - lut_bits);
+    const int ln = cr.len(lo);
+    uint16_t e = 0;
+    if (ln <= lut_bits && cr.len(lo | span) == ln) {
+      const int rank = s_bias[ln] + (int)(lo >> (32 - ln));
+      e = (uint16_t)((ln << 8) | s_sym[rank & 255]);
+    }
+    s_lut[x] = e;
+  }
+}
 
 __global__ void __launch_bounds__(DEC_THREADS) ils_decode_kernel(
     const uint32_t* __restrict__ payload, const int* __restrict__ row_starts,
     const uint32_t* __restrict__ lim, const int* __restrict__ bias,
     const int* __restrict__ symtab, uint32_t* __restrict__ out, int k,
-    int w_cap, int min_len, int max_len, int rot, long long n_rows) {
+    int w_cap, int min_len, int max_len, int rot, long long n_rows,
+    int lut_bits) {
+  __shared__ uint16_t s_lut[1 << DEC_LUT_MAX_BITS];
   __shared__ uint32_t s_lim[32];
   __shared__ int s_bias[32];
   __shared__ uint8_t s_sym[256];
@@ -44,49 +78,71 @@ __global__ void __launch_bounds__(DEC_THREADS) ils_decode_kernel(
     }
   }
   __syncthreads();
+  const CanonRegs cr(s_lim, min_len, max_len);
+  build_lut(s_lut, lut_bits, s_bias, s_sym, cr);
+  __syncthreads();
 
   const int t = blockIdx.x;
   const int s = blockIdx.y * DEC_THREADS + threadIdx.x;
   const int nb = k >> 2;
   const int cap_pairs = w_cap >> 1;
+  const int lut_shift = 32 - lut_bits;
   // 64-bit offsets: a 1 GiB section holds ~2.7e8 payload words
   const long long row0 = row_starts[t];
   const uint32_t* col = payload + s;
   uint32_t* out_t = out + (size_t)t * nb * ILS_LANES;
   // word of this stream in tile row r; zero outside the payload
-  auto word = [&](long long r) -> uint64_t {
+  auto word = [&](long long r) -> uint32_t {
     r += row0;
     return (r >= 0 && r < n_rows) ? col[(size_t)r * ILS_LANES] : 0u;
   };
+  auto pair_at = [&](int p) -> uint64_t {
+    return p < cap_pairs ? ((uint64_t)word(2 * p) << 32) | word(2 * p + 1)
+                         : 0ull;
+  };
 
-  uint64_t hi = (word(0) << 32) | word(1);
-  uint64_t lo = (word(2) << 32) | word(3);
+  // the 128-bit register, MSB first
+  uint32_t a0 = word(0), a1 = word(1), a2 = word(2), a3 = word(3);
   int valid = 128;
   int pptr = 2;
+  uint64_t pending = pair_at(pptr);  // the next refill's pair, in flight
 
   for (int i = 0; i < nb; ++i) {
     uint32_t pack = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint32_t win = (uint32_t)(hi >> 32);
-      // canonical length: min_len + #{l in [min_len, max_len) : win >= lim}
-      int ln = min_len;
-      for (int l = min_len; l < max_len; ++l) ln += (win >= s_lim[l]);
-      // ln is in [1, 16], so every shift below is in range
-      const int rank = s_bias[ln] + (int)(win >> (32 - ln));
-      pack |= (uint32_t)s_sym[rank & 255] << (8 * j);
-      hi = (hi << ln) | (lo >> (64 - ln));
-      lo <<= ln;
+      const uint32_t win = a0;
+      const uint32_t e = s_lut[win >> lut_shift];
+      int ln;
+      uint32_t sym;
+      if (e != 0) {
+        ln = (int)(e >> 8);
+        sym = e & 255u;
+      } else {
+        ln = cr.len(win);
+        // ln is in [1, 16], so the shift is in range
+        sym = s_sym[(s_bias[ln] + (int)(win >> (32 - ln))) & 255];
+      }
+      pack |= sym << (8 * j);
+      a0 = __funnelshift_l(a1, a0, ln);
+      a1 = __funnelshift_l(a2, a1, ln);
+      a2 = __funnelshift_l(a3, a2, ln);
+      a3 <<= ln;
       valid -= ln;
     }
     if (valid <= 64) {
       // valid is in [1, 64]: insert the pair at bit offset `valid`
-      uint64_t pair = 0;
-      if (pptr < cap_pairs) pair = (word(2 * pptr) << 32) | word(2 * pptr + 1);
-      if (valid < 64) hi |= pair >> valid;  // pair >> 64 is undefined
-      lo |= pair << (64 - valid);
+      uint64_t hi = ((uint64_t)a0 << 32) | a1;
+      uint64_t lo = ((uint64_t)a2 << 32) | a3;
+      if (valid < 64) hi |= pending >> valid;  // pending >> 64 is undefined
+      lo |= pending << (64 - valid);
+      a0 = (uint32_t)(hi >> 32);
+      a1 = (uint32_t)hi;
+      a2 = (uint32_t)(lo >> 32);
+      a3 = (uint32_t)lo;
       ++pptr;
       valid += 64;
+      pending = pair_at(pptr);
     }
     out_t[(size_t)i * ILS_LANES + (rot ? ils_rot_src(s, i) : s)] = pack;
   }
@@ -96,11 +152,14 @@ extern "C" int ils_decode_launch(const void* payload, const void* row_starts,
                                  const void* lim, const void* bias,
                                  const void* symtab, void* out, int n_tiles,
                                  int k, int w_cap, int min_len, int max_len,
-                                 int rot, long long n_rows, void* stream) {
+                                 int rot, long long n_rows, int lut_bits,
+                                 void* stream) {
+  if (lut_bits < 1 || lut_bits > DEC_LUT_MAX_BITS)
+    return (int)cudaErrorInvalidValue;
   dim3 grid(n_tiles, ILS_LANES / DEC_THREADS);
   ils_decode_kernel<<<grid, DEC_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)payload, (const int*)row_starts, (const uint32_t*)lim,
       (const int*)bias, (const int*)symtab, (uint32_t*)out, k, w_cap, min_len,
-      max_len, rot, n_rows);
+      max_len, rot, n_rows, lut_bits);
   return (int)cudaGetLastError();
 }

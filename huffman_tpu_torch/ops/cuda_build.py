@@ -44,7 +44,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ils_decode": {
         "ils_decode_launch": [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P,
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P,
         ],
     },
     "ils_encode": {
@@ -76,7 +76,9 @@ _SIGNATURES = {
         "gap_place_bits_launch": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
     },
     "selfsync": {
-        "sync_transitions_launch": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _P],
+        "sync_transitions_launch": [
+            _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P,
+        ],
     },
     "encode_map": {
         "encode_map_launch": [_P, _P, _P, _P, _P, _P, _L, _P],

@@ -42,6 +42,7 @@ __all__ = [
     "ils_pack",
     "ils_compact",
     "ils_decode",
+    "ils_decode_lut",
     "ils_lengths_pass_plain",
     "ils_pack_certify_plain",
     "ils_pack_certify_stream_plain",
@@ -65,6 +66,11 @@ FUSED_E_BAND = 32
 
 _BIG = 1 << 30  # int32 envelope sentinels (+-2^30), as the JAX kernels
 _M32 = 0xFFFFFFFF
+
+# Window bits of A1's length-and-symbol table (2 ** ILS_LUT_BITS u16
+# entries in shared memory, built by each block; `ils_decode_lut`); 10 and
+# 12 measured the same on an H100
+ILS_LUT_BITS = 11
 
 
 def _chunk_iters(k, cap=CHUNK_I):
@@ -659,6 +665,35 @@ def ils_decode_plain(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
     return _to_i32(out.view(n_tiles * nb, ILS_LANES))
 
 
+def ils_decode_lut(dec: IlsDecTabs, *, max_len, min_len=1,
+                   bits=ILS_LUT_BITS) -> torch.Tensor:
+    """(2**bits,) int64: the table each block of A1's kernel builds in
+    shared memory (``csrc/ils_decode.cu:build_lut``), its plain mirror.
+
+    Entry x is ``(len << 8) | symbol`` when the compare chain gives the
+    lowest and the highest window with prefix x the same length len <=
+    bits (the chain never falls as the window grows, so then it decides
+    every window of the prefix), else 0: those windows take the chain."""
+    min_len = max(min(min_len, max_len), 1)
+    lim = _u32(dec.lim)
+    bias = dec.bias.to(torch.int64)
+    symtab = dec.symtab.to(torch.int64)
+    lo = torch.arange(1 << bits, dtype=torch.int64, device=dec.lim.device) \
+        << (32 - bits)
+    hi = lo | (_M32 >> bits)
+
+    def length(win):
+        ln = torch.full_like(win, min_len)
+        for lv in range(min_len, max_len):
+            ln = ln + (win >= lim[lv])
+        return ln
+
+    ln = length(lo)
+    rank = bias[ln] + (lo >> (32 - ln))
+    entry = (ln << 8) | symtab[rank & 255]
+    return torch.where((ln <= bits) & (length(hi) == ln), entry, 0)
+
+
 def ils_decode(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
                n_tiles, max_len, min_len=1, rot=False):
     """Decode n_tiles tiles: returns (n_tiles * k//4, 1024) int32, the
@@ -670,7 +705,10 @@ def ils_decode(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
     Refills load pair pptr directly; pairs at or past w_cap // 2 read as
     zeros (the TPU window clamp), which the certified band makes equivalent
     to the banded window, so neither boffs nor w_band reach the kernel (the
-    caller checks the band)."""
+    caller checks the band).  The kernel takes each codeword's length and
+    symbol from a table on the top ``ILS_LUT_BITS`` bits of the window
+    (`ils_decode_lut`), the compare chain where that table has no entry;
+    the plain version runs the chain for every codeword."""
     _check("payload_rows", payload_rows, torch.int32)
     _check("row_starts", row_starts, torch.int32, (n_tiles,))
     for name, x, n in (("lim", dec.lim, 32), ("bias", dec.bias, 32),
@@ -696,7 +734,7 @@ def ils_decode(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
         payload_rows.data_ptr(), row_starts.data_ptr(), dec.lim.data_ptr(),
         dec.bias.data_ptr(), dec.symtab.data_ptr(), out.data_ptr(), n_tiles, k,
         int(w_cap), min_len, max_len, int(bool(rot)), payload_rows.shape[0],
-        _stream(payload_rows),
+        ILS_LUT_BITS, _stream(payload_rows),
     )
     _launched(ils_decode, rc)
     return out

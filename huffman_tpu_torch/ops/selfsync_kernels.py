@@ -10,6 +10,12 @@ bits, so a subsequence is a function of its entry offset: for every
 (entry e, subsequence i) `sync_transitions` gives ``(exit << 16) | count``,
 the codewords that start in the subsequence from bit ``i * seg_bits + e``
 and the offset at which the last one leaves it.
+
+The kernel stops each entry where it meets an earlier entry's walk and
+takes the rest of its count from that walk (``csrc/selfsync.cu``); the
+plain version walks all 16 entries to the end, as the JAX kernel does.
+The kernel's block geometry comes from `sync_tile`, which the launcher
+checks.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from .ils_kernels import (
 
 __all__ = [
     "SYNC_STATES",
+    "sync_tile",
     "sync_transitions",
     "sync_transitions_plain",
     "reset_launch_counts",
@@ -35,6 +42,21 @@ __all__ = [
 ]
 
 SYNC_STATES = 16  # entry states: a codeword crosses an edge by < max_len bits
+SYNC_ROWS = 128  # subsequences (threads) a block
+SYNC_MAP_WORDS = 16  # walk 0's bitmap: a subsequence's first 512 bits
+SYNC_OWN_WORDS = 8  # owner map of entries 1..15: 4 bits an offset, 64 offsets
+
+
+def sync_tile(seg_bits: int) -> tuple[int, int, int]:
+    """(subsequences per block, bitmap words per subsequence, dynamic
+    shared-memory bytes) of C2 at ``seg_bits``: for each subsequence of a
+    block, walk 0's bitmap of its first ``SYNC_MAP_WORDS`` words, the owner
+    map of its first 64 bits and the 16 entries' records (at most 20,480
+    bytes, beside the static 1 KB length table).  ``csrc/selfsync.cu``
+    checks the same formula."""
+    map_words = min(seg_bits // 32, SYNC_MAP_WORDS)
+    smem = (map_words + SYNC_OWN_WORDS + SYNC_STATES) * SYNC_ROWS * 4
+    return SYNC_ROWS, map_words, smem
 
 
 def sync_transitions_plain(words, lim, *, total_bits, seg_bits, n_subseq,
@@ -78,10 +100,11 @@ def sync_transitions(words, lim, *, total_bits, seg_bits, n_subseq, min_len,
                       device=words.device)
     if n_subseq == 0:
         return out
+    rows, map_words, smem = sync_tile(seg_bits)
     rc = _lib("selfsync").sync_transitions_launch(
         words.data_ptr(), lim.data_ptr(), out.data_ptr(), n_subseq,
-        words.shape[0], total_bits, seg_bits, min_len, max_len,
-        _stream(words),
+        words.shape[0], total_bits, seg_bits, min_len, max_len, rows,
+        map_words, smem, _stream(words),
     )
     _launched(sync_transitions, rc)
     return out

@@ -479,3 +479,129 @@ def test_stream_pack_matches_plain_and_a2(cuda, anchor):
         w_t = 2 * (-(-int(got[1][t].max()) // 64))
         rows = slice(t * stride, t * stride + w_t)
         assert torch.equal(got[0][rows], a2[0][rows])
+
+
+# ----------------------------------------------------------------------
+# C2 with reference walks and merges, A1 with its length-and-symbol table
+# ----------------------------------------------------------------------
+def _skew16(n, seed):
+    """A max_len=16 table (every length 1..16) and n bytes drawn from it."""
+    from huffman_tpu_torch.io import table_from_length_sequence
+
+    syms = np.r_[np.arange(40, 55), 56, 55].astype(np.uint8)
+    lens = np.r_[np.arange(1, 16), 16, 16]
+    p = 2.0 ** -np.arange(1, 18)
+    rng = np.random.default_rng(seed)
+    data = syms[rng.choice(17, size=n, p=p / p.sum())]
+    return data, table_from_length_sequence(syms, lens)
+
+
+def _sync_case(kind, bits):
+    """(words, total_bits, table) of about `bits` stream bits, the last
+    subsequence partial at every seg_bits of the tests; "random" is seeded
+    random words under an r=0.5 table, no valid stream."""
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.core import npref
+
+    per_symbol = {"single": 1, "uniform": 8, "skew16": 2}.get(kind, 4)
+    n = bits // per_symbol + 3
+    if kind == "skew16":
+        data, table = _skew16(n, 27)
+    else:
+        data = _gap_data("0.5" if kind == "random" else kind, n)
+        table = GapArrayCodec.fit(data, device="cpu").table
+    words, total_bits = npref.encode_bits(data, table)
+    words = words[:-1]
+    if kind == "random":
+        rng = np.random.default_rng(28)
+        words = rng.integers(0, 1 << 32, words.size, dtype=np.uint64)
+        words = words.astype(np.uint32)
+        total_bits = words.size * 32 - 7
+    return words, int(total_bits), table
+
+
+@pytest.mark.parametrize("kind,seg_bits", [
+    *[(kind, s) for kind in ("uniform", "single", "skew16", "random", "0.5")
+      for s in (32, 1024, 8192)],
+    ("uniform", 65504), ("random", 65504), ("0.5", 65504),
+    # walk 0's bitmap as wide as the owner map, and just past 512 bits
+    ("0.5", 64), ("0.5", 544),
+])
+def test_sync_transitions_redesign_match_plain(cuda, kind, seg_bits):
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.ops import selfsync_kernels as sk
+    from huffman_tpu_torch.ops.tables import device_dec_table
+
+    words, total_bits, table = _sync_case(kind, max(300_000, 3 * seg_bits))
+    if total_bits % seg_bits == 0:
+        total_bits -= 5
+    lim = gd.kernel_tabs(device_dec_table(table, cuda))[0]
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    lens = dict(min_len=table.min_len, max_len=table.max_len_present)
+    sk.reset_launch_counts()
+    # past the stream; and a view one word in
+    for ww, tb, extra in ((w, total_bits, 0), (w, total_bits, 5),
+                          (w[1:], total_bits - 32, 0)):
+        kw = dict(total_bits=tb, seg_bits=seg_bits,
+                  n_subseq=-(-tb // seg_bits) + extra, **lens)
+        got = sk.sync_transitions(ww, lim, **kw)
+        assert _equal(got, sk.sync_transitions_plain(ww, lim, **kw)), extra
+    assert got.shape == (16, -(-(total_bits - 32) // seg_bits))
+    assert sk.launch_counts()["sync_transitions"] == 3
+
+
+@pytest.mark.parametrize("n_words", [128 * 32, 128 * 32 + 4, 129 * 32 + 1])
+def test_sync_transitions_tile_edges(cuda, n_words):
+    # 1024-bit subsequences: one full block of 128, its last subsequence
+    # reading words past the stream (zeros), and a block of one
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.ops import selfsync_kernels as sk
+    from huffman_tpu_torch.ops.tables import device_dec_table
+
+    rng = np.random.default_rng(n_words)
+    words = rng.integers(0, 1 << 32, n_words, dtype=np.uint64)
+    w = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(cuda)
+    table = GapArrayCodec.fit(_gap_data("0.9", 4096), device="cpu").table
+    lim = gd.kernel_tabs(device_dec_table(table, cuda))[0]
+    for tb in (n_words * 32, n_words * 32 - 1000):
+        kw = dict(total_bits=tb, seg_bits=1024, n_subseq=-(-tb // 1024),
+                  min_len=table.min_len, max_len=table.max_len_present)
+        assert _equal(sk.sync_transitions(w, lim, **kw),
+                      sk.sync_transitions_plain(w, lim, **kw))
+
+
+def _ils_lut_case(kind, n):
+    from huffman_tpu_torch import GapArrayCodec
+
+    if kind == "skew16":
+        return _skew16(n, 29)
+    data = _gap_data(kind, n)
+    return data, GapArrayCodec.fit(data, device="cpu").table
+
+
+@pytest.mark.parametrize("k", [8, 12])
+@pytest.mark.parametrize("kind", ["skew16", "single", "uniform", "0.9"])
+def test_ils_decode_redesign_matches_plain(cuda, kind, k):
+    # codes longer than the table's 11 bits (skew16), min_len = max_len = 1,
+    # 8-bit codes, r = 0.9; rotation off and on; with and without the slack
+    # rows past the payload
+    data, table = _ils_lut_case(kind, 3 * k * ILS_LANES)
+    codec = IlsCodec(table, k=k, device=cuda)
+    words = torch.from_numpy(data.view(np.int32).reshape(-1, ILS_LANES)
+                             .copy()).to(cuda)
+    avg = float(table.lengths.astype(np.int64)[data].mean())
+    if kind == "skew16":
+        assert table.max_len_present > tk.ILS_LUT_BITS
+    for rot in (False, True):
+        rows, starts, p = tils.ils_encode_to_device(
+            words, codec.enc, k=k, avg_bits=avg,
+            max_len=table.max_len_present, rot=rot)
+        kw = dict(k=k, w_cap=p.w_cap, n_tiles=p.n_tiles,
+                  max_len=table.max_len_present, min_len=table.min_len,
+                  rot=rot)
+        for pay in (rows, rows[: p.total_rows]):
+            got = tk.ils_decode(pay, starts, codec.dec, **kw)
+            assert _equal(got, tk.ils_decode_plain(pay, starts, codec.dec, **kw))
+            assert torch.equal(got, words)
+    assert tk.launch_counts()["ils_decode"] == 4

@@ -248,6 +248,67 @@ def test_decode_matches_jax_sections(r, rot):
     assert np.array_equal(ref, data)
 
 
+def _lut_table(kind):
+    """Port code tables for A1's length-and-symbol table: every length
+    1..16 (skew16), one symbol (min_len = max_len = 1), 256 8-bit codes,
+    and fitted r=0.9 / r=0.5 tables."""
+    if kind == "skew16":
+        lengths = np.zeros(256, np.uint8)
+        lengths[40:57] = np.r_[np.arange(1, 16), 16, 16]
+        return code_table_from_numpy(lengths, 16)
+    data = {"single": np.full(4096, 9, np.uint8),
+            "uniform": np.arange(4096, dtype=np.uint8)}.get(kind)
+    if data is None:
+        data = generate_redundant(1 << 16, float(kind), seed=8)
+    jt = _fit(data)
+    return code_table_from_numpy(jt.lengths, jt.max_len)
+
+
+def _chain(table, win):
+    """The compare chain of the plain decode (`canon_len` -> bias ->
+    symtab) on u32 windows (int64): (length, symbol)."""
+    dec = tk.ils_dec_tabs(table)
+    lim = dec.lim.numpy().astype(np.int64) & 0xFFFFFFFF
+    bias, symtab = dec.bias.numpy().astype(np.int64), dec.symtab.numpy()
+    lo, hi = max(table.min_len, 1), max(table.max_len_present, 1)
+    ln = lo + sum(((win >= lim[lv]).astype(np.int64) for lv in range(lo, hi)),
+                  np.zeros_like(win))
+    return ln, symtab[(bias[ln] + (win >> (32 - ln))) & 255]
+
+
+@pytest.mark.parametrize("bits", [1, 8, 10, 11, 12])
+@pytest.mark.parametrize("kind", ["skew16", "single", "uniform", "0.9", "0.5"])
+def test_decode_lut_matches_compare_chain(kind, bits):
+    # every B-bit prefix: an entry (len << 8) | symbol must be the chain's
+    # answer for every window with that prefix (its lowest, its highest and
+    # 16 random ones); an empty entry is a prefix the chain does not decide
+    # within B bits
+    table = _lut_table(kind)
+    lut = tk.ils_decode_lut(tk.ils_dec_tabs(table),
+                            max_len=max(table.max_len_present, 1),
+                            min_len=table.min_len, bits=bits).numpy()
+    assert lut.shape == (1 << bits,)
+    x = np.arange(1 << bits, dtype=np.int64)
+    span = (1 << (32 - bits)) - 1
+    rng = np.random.default_rng(bits)
+    low = x << (32 - bits)
+    fills = [0, span] + list(rng.integers(0, span + 1, 16))
+    got = [_chain(table, low | f) for f in fills]
+    full = lut != 0
+    for ln, sym in got:
+        assert np.array_equal(lut[full] >> 8, ln[full])
+        assert np.array_equal(lut[full] & 255, sym[full])
+    ln0, ln1 = got[0][0], got[1][0]
+    assert np.array_equal(~full, (ln0 > bits) | (ln0 != ln1))
+    # where every code fits in B bits the table covers every window
+    if table.max_len_present <= bits:
+        assert full.all()
+    if kind == "single":
+        # the 1-bit code 0 is symbol 9; a window from 1 reads rank 1, the
+        # zero padding of symtab, as the chain does
+        assert np.array_equal(lut, (1 << 8) | np.where(x >> (bits - 1), 0, 9))
+
+
 def test_wrappers_route_cpu_to_plain_and_check_inputs():
     k = 12
     data = generate_redundant(2 * k * ILS_LANES, 0.5, seed=4)

@@ -43,6 +43,9 @@ def _input(kind, n, seed=1):
         return np.full(n, 7, np.uint8)
     if kind == "uniform":
         return np.arange(n, dtype=np.uint8)
+    if kind == "three":  # lengths 1, 2, 2: walks that meet, few levels
+        return np.random.default_rng(seed).choice(
+            np.array([5, 6, 7], np.uint8), n, p=[0.5, 0.25, 0.25])
     if kind == "skew16":
         # every length 1..16 present: symbol i drawn with weight 2**-i
         rng = np.random.default_rng(seed)
@@ -255,6 +258,133 @@ def test_sync_transitions_match_jax(kind, n):
                                min_len=spec.min_len, max_len=spec.max_len)
     assert np.array_equal(past[:, :n_subseq].numpy(), got.numpy())
     assert not past[:, n_subseq:].any()
+
+
+def _c2_model(words, lim, *, total_bits, seg_bits, n_subseq, min_len,
+              max_len):
+    """NumPy model of the kernel's merge rule (csrc/selfsync.cu).  One code
+    length: every walk is arithmetic.  Else walk 0 runs to the end, marking
+    its starts below min(seg_bits, 512); entry e = 1..15 stops at the
+    first start q that walk 0 or an earlier entry reached, where entries
+    mark their starts below 64 bits, and then count_e = steps_e + count_r -
+    #{walk r's starts below q}, exit_e = exit_r (r the walk it met).
+    Returns the (16, n_subseq) transitions and the number of entries that
+    stopped so."""
+    lim = np.asarray(lim, np.int64) & 0xFFFFFFFF
+    w = np.asarray(words, np.uint32).astype(np.int64)
+    map_bits = min(seg_bits, 512)
+    out = np.zeros((16, n_subseq), np.int64)
+    merges = 0
+
+    def word(j):
+        return int(w[j]) if 0 <= j < w.size else 0
+
+    def length(pos):
+        j, sh = int(pos) >> 5, int(pos) & 31
+        win = (((word(j) << 32) | word(j + 1)) << sh) >> 32 & 0xFFFFFFFF
+        return min_len + sum(win >= lim[l] for l in range(min_len, max_len))
+
+    for i in range(n_subseq):
+        base = i * seg_bits
+        q_end = min(max(int(total_bits) - base, 0), seg_bits)
+        starts = [[] for _ in range(16)]  # the marked starts of each walk
+        owner = {}
+        for e in range(16):
+            q, count, met = e, 0, None
+            if min_len == max_len:
+                count = -(-(q_end - e) // max_len) if e < q_end else 0
+                q = e + count * max_len
+            while min_len < max_len and q < q_end:
+                if e and q in owner:
+                    met = owner[q]
+                    break
+                if q < (map_bits if e == 0 else 64):
+                    owner[q] = e
+                    starts[e].append(q)
+                q += length(base + q)
+                count += 1
+            if met is None:
+                out[e, i] = (min(max(q - seg_bits, 0), 15) << 16) | count
+            else:
+                below = sum(1 for m in starts[met] if m < q)
+                r = out[met, i]
+                out[e, i] = (r & ~0xFFFF) | (count + (r & 0xFFFF) - below)
+                merges += 1
+    return out, merges
+
+
+def _c2_case(kind, n):
+    """(words, total_bits, lim, min_len, max_len) of one C2 input; "random"
+    is seeded random words under the r=0.5 table: no valid stream."""
+    if kind == "random":
+        _, _, pt, words, _ = _encoded("0.5", n)
+        words = np.random.default_rng(5).integers(0, 1 << 32, words.size,
+                                                  dtype=np.uint64)
+        words = words.astype(np.uint32)
+        total_bits = words.size * 32 - 7
+    else:
+        _, _, pt, words, total_bits = _encoded(kind, n)
+    spec = tt.dec_spec(pt)
+    return words, total_bits, _lim(pt), spec.min_len, spec.max_len
+
+
+@pytest.mark.parametrize("seg_bits", [32, 64, 1024])
+@pytest.mark.parametrize("kind,n", [
+    ("uniform", 2001), ("single", 3000), ("skew16", 1500), ("random", 600),
+    ("0.5", 1500), ("three", 2001),
+])
+def test_sync_merge_model_matches_plain_and_jax(kind, n, seg_bits):
+    words, total_bits, lim, min_len, max_len = _c2_case(kind, n)
+    n_subseq = -(-total_bits // seg_bits) + 2  # two past the stream
+    assert total_bits % seg_bits  # a partial last subsequence
+    kw = dict(total_bits=total_bits, seg_bits=seg_bits, n_subseq=n_subseq,
+              min_len=min_len, max_len=max_len)
+    model, merges = _c2_model(words, lim.numpy().view(np.uint32), **kw)
+    plain = sk.sync_transitions_plain(_t32(words), lim, **kw)
+    assert np.array_equal(model, plain.numpy())
+    # one code length takes the closed form; else entries meet earlier walks
+    assert (merges == 0) == (min_len == max_len)
+    if (kind, seg_bits) in (("uniform", 1024), ("three", 64), ("three", 1024)):
+        # the Pallas kernel in interpret mode, where it runs in seconds
+        # (test_sync_transitions_match_jax holds the plain version to it on
+        # other inputs); it takes no 32-bit subsequences
+        jlim = np.zeros((1, 32), np.uint32)
+        jlim[0] = lim.numpy().view(np.uint32)
+        ref = jsync(jnp.asarray(words), jnp.int32(total_bits),
+                    jnp.asarray(jlim), seg_bits=seg_bits, n_subseq=n_subseq,
+                    max_len=max_len, min_len=min_len, interpret=True)
+        assert np.array_equal(model, np.asarray(ref)[:, :n_subseq])
+
+
+def test_sync_merge_model_non_monotone_limits():
+    # limits that fall (no canonical table has them): the length still
+    # never falls as the window grows, and the model equals the plain
+    # version on random words
+    rng = np.random.default_rng(6)
+    words = rng.integers(0, 1 << 32, 300, dtype=np.uint64).astype(np.uint32)
+    lim = np.zeros(32, np.uint32)
+    lim[2:8] = [0x9000_0000, 0x4000_0000, 0xC000_0000, 0xC000_0000,
+                0xE000_0000, 0x2000_0000]
+    kw = dict(total_bits=300 * 32 - 5, seg_bits=1024, n_subseq=10, min_len=2,
+              max_len=8)
+    model, merges = _c2_model(words, lim, **kw)
+    plain = sk.sync_transitions_plain(_t32(words), _t32(lim), **kw)
+    assert np.array_equal(model, plain.numpy()) and merges > 0
+
+
+def test_sync_tile_geometry():
+    # every seg_bits the wrapper accepts: multiples of 32 below 65536
+    for seg_bits in range(32, 65536, 32):
+        rows, map_words, smem = sk.sync_tile(seg_bits)
+        assert rows == 128 and map_words == min(seg_bits // 32, 16)
+        # walk 0's bitmap, the 8-word owner map and 16 records a
+        # subsequence; with the static 1 KB length table within the 48 KB a
+        # block takes without opting in to more
+        assert smem == (map_words + 8 + 16) * rows * 4
+        assert smem + 1024 <= 48 * 1024
+    # the bitmap saturates at 512 bits; merges reach 511 bits, which the
+    # kernel's 10-bit offset field holds
+    assert sk.sync_tile(512)[1] == sk.sync_tile(544)[1] == 16
 
 
 def test_sync_transitions_rejects_bad_shapes():
