@@ -11,13 +11,15 @@ failure raises and exits non-zero with the traceback):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, build time,
    and what ptxas reported for every kernel (registers, static shared
-   memory, stack and spill bytes), with the shared memory of B4b, B1 and
-   C2 (`row_pack_tile`, `ranks_tile`, `sync_tile`) and A1's
-   length-and-symbol table, a line each for those four.
+   memory, stack and spill bytes), with the geometry of B4b, B1, C2, B2
+   and A2 (`row_pack_tile`, `ranks_tile`, `sync_tile`, `place_tile`,
+   `certify_chunks`) and A1's length-and-symbol table, a line each for
+   those six.
 2. Kernels A1-A5 against their plain PyTorch versions on the card, bit for
    bit, on: 4 tiles at k=4096 of generate_redundant(r=0.5) with rotation
-   off and on; the zeros-then-uniform input at k=256, e_band=8 (the "mu"
-   anchor violates, "laggard" passes); a k=8 tail tile.
+   off and on (A2 in its chunks, `certify_chunks`); the zeros-then-uniform
+   input at k=256, e_band=8 (the "mu" anchor violates, "laggard" passes);
+   a k=8 tail tile.
 3. Container parity: for those inputs, and for the two-pass tier forced with
    stride_budget=0, the container bytes of the kernel path (device="cuda")
    equal those of the plain path (device="cpu"), and the card decodes them.
@@ -28,9 +30,11 @@ failure raises and exits non-zero with the traceback):
    IlsCodec fit, encode, write_ils_container, read_ils_container, decode,
    bit-exact on the device, with the launch counters of that one run.  Then
    the kernels are held against their plain versions again at the shapes
-   that run gave them and timed: ms is the kernel's own device time
-   (torch.profiler; where every trace lost its launches, CUDA events around
-   its wrapper, and ms_by says "cuda_events"), wrapper_ms, plain_ms and
+   that run gave them and timed: ms is the kernel's own device time, the
+   sum of its kernels per wrapper call where it launches two (A2 at more
+   than one chunk a stream; each under "ms_parts") (torch.profiler; where
+   every trace lost its launches, CUDA events around its wrapper, and
+   ms_by says "cuda_events"), wrapper_ms, plain_ms and
    library_ms are CUDA-event times of whole calls.  Encode and decode are timed as the median of
    several runs after the warm-up run, and one run of each is profiled
    (device-busy share, top kernels).
@@ -108,9 +112,9 @@ failure raises and exits non-zero with the traceback):
    The bench shape's rows, with phase 7's launches, go in the summary line
    before it under "htc1"."kernels", phase 11-12's results under
    "portable", and B1/B2/C1/C2 at the foreign paths' shapes under
-   "yamamoto"."kernels" and "selfsync"."kernels".  The rows of A1, B1,
-   B4b and C2 also carry their "ptxas" report.  Then the card line, then
-   the device line last.
+   "yamamoto"."kernels" and "selfsync"."kernels".  The rows of A1, A2,
+   B1, B2, B4b and C2 also carry their "ptxas" report.  Then the card
+   line, then the device line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
 once) / 3.35 TB/s and (integer ALU operations the algorithm needs on this
@@ -173,23 +177,26 @@ FOLDED = {
     "gap_row_pack": ["huffman_tpu/ops/pallas/gap_encode_kernel.py:201",
                      "huffman_tpu/ops/pallas/compact_kernel.py:410"],
 }
-# wrapper name -> the kernel's name as the profiler reports it
+# wrapper name -> the names of its kernels as the profiler reports them;
+# the last one is launched once per wrapper call, an earlier one at most
+# once (A2's bits kernel, where a stream has more than one chunk)
+A2_KERNELS = ("ils_certify_bits_kernel", "ils_pack_certify_kernel")
 SYMBOLS = {
-    "ils_decode": "ils_decode_kernel",
-    "ils_pack_certify": "ils_encode_kernel<true, true, false>",
-    "ils_compact": "ils_compact_kernel",
-    "ils_lengths_pass": "ils_encode_kernel<false, false, false>",
-    "ils_pack": "ils_encode_kernel<true, false, true>",
-    "gap_decode_ranks": "gap_decode_ranks_kernel",
-    "gap_place_bytes": "gap_place_bytes_kernel",
-    "gap_row_pack": "gap_row_pack_kernel",
-    "gap_row_meta": "gap_row_meta_kernel",
-    "gap_place_bits": "gap_place_bits_kernel",
-    "count_segments": "gap_count_segments_kernel",
-    "sync_transitions": "sync_transitions_kernel",
-    "encode_map": "encode_map_kernel",
-    # D1 launches A2's kernel
-    "ils_pack_certify_stream": "ils_encode_kernel<true, true, false>",
+    "ils_decode": ("ils_decode_kernel",),
+    "ils_pack_certify": A2_KERNELS,
+    "ils_compact": ("ils_compact_kernel",),
+    "ils_lengths_pass": ("ils_encode_kernel<false, false, false>",),
+    "ils_pack": ("ils_encode_kernel<true, false, true>",),
+    "gap_decode_ranks": ("gap_decode_ranks_kernel",),
+    "gap_place_bytes": ("gap_place_bytes_kernel",),
+    "gap_row_pack": ("gap_row_pack_kernel",),
+    "gap_row_meta": ("gap_row_meta_kernel",),
+    "gap_place_bits": ("gap_place_bits_kernel",),
+    "count_segments": ("gap_count_segments_kernel",),
+    "sync_transitions": ("sync_transitions_kernel",),
+    "encode_map": ("encode_map_kernel",),
+    # D1 launches A2's kernels
+    "ils_pack_certify_stream": A2_KERNELS,
 }
 
 
@@ -259,28 +266,35 @@ def profiled(fn, reps=1):
     return wall_ms, sorted(rows, reverse=True)
 
 
-def kernel_ms(fn, symbol, reps, tries=3):
-    """(ms, source): device ms per launch of the kernel whose name holds
-    `symbol`, over `reps` calls of its wrapper `fn` after a warm-up, the
-    kernel alone, without the wrapper's host checks, allocation and zero
-    fill ("profiler").
+def kernel_ms(fn, symbols, reps, tries=3):
+    """(ms, source, parts): device ms per call of the wrapper `fn` spent in
+    the kernels whose names hold `symbols` (each launched once a call),
+    over `reps` calls after a warm-up, the kernels alone, without the
+    wrapper's host checks, allocation and zero fill ("profiler"); parts
+    gives each kernel's ms per launch.
 
     The profiler can drop some, and now and then all, of a trace's device
-    events: a trace that recorded no launch is taken again (up to `tries`
-    traces); where every trace lost them, the wrapper calls are timed by
-    CUDA events instead ("cuda_events", which adds the wrapper's own device
-    work, if any)."""
+    events: a trace that recorded no launch of a kernel is taken again (up
+    to `tries` traces); where every trace lost some, the wrapper calls are
+    timed by CUDA events instead ("cuda_events", which adds the wrapper's
+    own device work, if any)."""
     fn()
     for _ in range(tries):
         _, rows = profiled(fn, reps)
-        hits = [(ms, count) for ms, count, key in rows if symbol in key]
-        # the mean over the launches the profiler recorded
-        launches = sum(count for _, count in hits)
-        if 0 < launches <= reps:
-            return sum(ms for ms, _ in hits) / launches, "profiler"
-        log(f"  profiler saw {launches} launches of {symbol} in {reps} calls")
-    log(f"  {symbol}: timed by CUDA events around its wrapper instead")
-    return cuda_ms(fn, reps), "cuda_events"
+        parts = {}
+        for symbol in symbols:
+            hits = [(ms, count) for ms, count, key in rows if symbol in key]
+            # the mean over the launches the profiler recorded
+            launches = sum(count for _, count in hits)
+            if not 0 < launches <= reps:
+                log(f"  profiler saw {launches} launches of {symbol} in "
+                    f"{reps} calls")
+                break
+            parts[symbol] = sum(ms for ms, _ in hits) / launches
+        else:
+            return sum(parts.values()), "profiler", parts
+    log(f"  {symbols}: timed by CUDA events around the wrapper instead")
+    return cuda_ms(fn, reps), "cuda_events", None
 
 
 def device_profile(fn, label, launch_counts, tries=3):
@@ -294,7 +308,8 @@ def device_profile(fn, label, launch_counts, tries=3):
         before = launch_counts()
         wall_ms, rows = profiled(fn)
         launched = {name: c - before[name] for name, c in launch_counts().items()}
-        seen = {name: sum(count for _, count, key in rows if SYMBOLS[name] in key)
+        seen = {name: sum(count for _, count, key in rows
+                          if SYMBOLS[name][-1] in key)
                 for name in launched}
         lost = sorted(name for name in launched if seen[name] < launched[name])
         if not lost:
@@ -343,14 +358,23 @@ class Stats:
                                  f"on {label}: max |diff| {err}")
 
 
-def timed(name, call, plain, reps, plain_reps=1, **extra):
+def timed(name, call, plain, reps, plain_reps=1, symbols=None, **extra):
     """Times of one kernel at one shape: `ms` the kernel alone on the device
-    (profiler; `ms_by` says when CUDA events had to stand in), `wrapper_ms`
-    its wrapper call with the host checks and output allocation (CUDA
-    events), `plain_ms` the plain version."""
-    ms, ms_by = kernel_ms(call, SYMBOLS[name], reps)
+    (profiler; `ms_by` says when CUDA events had to stand in), its kernels
+    summed where the call launches `symbols` (default all of SYMBOLS[name]),
+    `wrapper_ms` its wrapper call with the host checks and output
+    allocation (CUDA events), `plain_ms` the plain version."""
+    ms, ms_by, parts = kernel_ms(call, symbols or SYMBOLS[name], reps)
     return dict(ms=ms, ms_by=ms_by, wrapper_ms=cuda_ms(call, reps),
-                plain_ms=cuda_ms(plain, plain_reps), **extra)
+                plain_ms=cuda_ms(plain, plain_reps),
+                **({"ms_parts": parts} if parts and len(parts) > 1 else {}),
+                **extra)
+
+
+def a2_kernels(tk, k):
+    """A2's kernels of one call at k: the bits kernel too where a stream
+    has more than one chunk."""
+    return A2_KERNELS if tk.certify_chunks(k)[0] > 1 else A2_KERNELS[1:]
 
 
 def kernel_cases(stats, tk, tils, words, codec, snum, k, rot, e_band, label,
@@ -387,7 +411,7 @@ def kernel_cases(stats, tk, tils, words, codec, snum, k, rot, e_band, label,
             "ils_pack_certify",
             lambda: tk.ils_pack_certify(words, snum, enc, **kw),
             lambda: tk.ils_pack_certify_plain(words, snum, enc, **kw), 5,
-            bytes=data_bytes + p.total_rows * 4096
+            symbols=a2_kernels(tk, k), bytes=data_bytes + p.total_rows * 4096
             + sum(x.numel() * 4 for x in got[1:]),
             ops=8 * n_sym + 24 * n_body, shape=list(got[0].shape))
     compact = None
@@ -781,7 +805,8 @@ def portable_small(stats, ns, dev):
         "ils_pack_certify_stream",
         lambda: tk.ils_pack_certify_stream(words, snum, codec.enc, **kw),
         lambda: tk.ils_pack_certify_stream_plain(words, snum, codec.enc, **kw),
-        10, bytes=n_sym + sum(w_t) * 4096 + sum(x.numel() * 4 for x in got[1:]),
+        10, symbols=a2_kernels(tk, k),
+        bytes=n_sym + sum(w_t) * 4096 + sum(x.numel() * 4 for x in got[1:]),
         ops=8 * n_sym + 24 * n_sym // 4, shape=list(got[0].shape))
     log(f"  ils_pack_certify_stream == plain == ils_pack_certify on its "
         f"contract, both anchors")
@@ -1015,13 +1040,24 @@ def main(argv=None) -> int:
          + "; the 1 KB length table static"),
         ("ils_decode", f"length-and-symbol table on {tk.ILS_LUT_BITS} bits: "
          f"{2 << tk.ILS_LUT_BITS} B of the static shared memory"),
+        ("gap_place_bytes", "dynamic buffer place_tile(max_count) (rows, "
+         "column chunk, bytes): " + ", ".join(
+             f"{m} {gd.place_tile(m)}"
+             for m in (1, 48, 256, 1100, 8193, 65505))),
+        ("ils_pack_certify", "certify_chunks(k) (chunks, windows a chunk): "
+         + ", ".join(f"k={k} {tk.certify_chunks(k)}"
+                     for k in (8, 2048, 4096, 8192, 16384))
+         + f"; grid (tile, chunk) of {ILS_LANES} threads"),
     ):
-        hits = [r for key, r in resources.items() if SYMBOLS[name] in key]
-        if len(hits) != 1:
-            raise AssertionError(f"ptxas reported {len(hits)} kernels named "
-                                 f"{SYMBOLS[name]}")
-        ptxas[name] = hits[0]
-        log(f"  ptxas {SYMBOLS[name]}: {hits[0]}; {tile}")
+        ptxas[name] = {}
+        for symbol in SYMBOLS[name]:
+            hits = [r for key, r in resources.items() if symbol in key]
+            if len(hits) != 1:
+                raise AssertionError(f"ptxas reported {len(hits)} kernels "
+                                     f"named {symbol}")
+            ptxas[name][symbol] = hits[0]
+            log(f"  ptxas {symbol}: {hits[0]}")
+        log(f"    {tile}")
     log(json.dumps({"ptxas": resources}))
 
     stats = Stats()
@@ -1447,7 +1483,8 @@ def main(argv=None) -> int:
                 "wrapper_ms": t.get("wrapper_ms"), "plain_ms": t.get("plain_ms"),
                 "bound_ms": max(b_ms, o_ms),
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                "library_ms": t.get("library_ms")}
+                "library_ms": t.get("library_ms"),
+                **({"ms_parts": t["ms_parts"]} if "ms_parts" in t else {})}
 
     def show(name, label, t, n_launches):
         log(f"  {name + label:30s} out{tuple(t['shape'] or ())} "

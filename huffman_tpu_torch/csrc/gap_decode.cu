@@ -32,8 +32,22 @@
 // ragged_concat_pallas): out[off[s] + i] = symtab[rank[s, i]] for
 // i < count[s], with off the exclusive prefix sum of the counts.  The
 // extents are disjoint, so there are no atomics, and no band plan
-// (plan_compact / plan_tiles) is needed: one warp per segment, its lanes
-// striding over the row, so reads and writes are coalesced.
+// (plan_compact / plan_tiles) is needed.  A block takes a run of R
+// consecutive segments (the wrapper's `place_tile` picks R from
+// max_count, the launcher checks it): their rows are one contiguous range
+// of the rank matrix, and where the offsets are the exclusive prefix sum
+// their output is one contiguous range from off[s0].  The block scans the
+// clamped counts, loads the range with 16-byte loads (bytes at its ragged
+// ends), maps each byte it needs through symtab and writes it, compacted,
+// into a shared-memory buffer at the output's phase mod 16, then stores
+// the buffer with 16-byte stores at 16-byte-aligned addresses (bytes at
+// the ragged head and tail, which neighbouring blocks share).  Rows wider
+// than the tile go one at a time in column chunks (R = 1).  A run whose
+// offsets do not follow each other (a count above max_count, corrupt
+// metadata) is placed a thread per segment, byte by byte; every byte
+// store stays inside [0, n_out).  The shared memory holds the compacted
+// bytes only: staging the loaded rows too (cp.async) halved the blocks an
+// SM and measured slower on an H100.
 //
 // gap_count_segments_kernel replaces decode_kernel.py:_count_kernel
 // (wrapper count_segments_pallas), the counting pass of gap-only
@@ -53,7 +67,9 @@
 // matrix (~1 byte per symbol); with its stores tiled, its time is the
 // serial bit chain of each segment (length compare -> shift -> next
 // window), ~200 symbols at seg_bits=1024, with one thread per segment.
-// B2 is bytes-bound: rank matrix in, output out.  C1 reads the payload
+// B2 is bytes-bound: rank matrix in, output out (it reads the matrix's
+// rows whole, padding past the counts included, except the last row of a
+// run).  C1 reads the payload
 // once and writes one int
 // per segment; at 128-bit segments a thread's chain is ~20 codewords, so
 // it has many more threads than B1 at 1024 bits for the same payload.
@@ -66,8 +82,11 @@
 #define RANK_MAX_ROWS 256
 #define RANK_PAD 4  // tile pitch chunk + 4 bytes: odd words for chunk % 8 == 0
 #define COUNT_THREADS 256
-#define PLACE_THREADS 256
+#define PLACE_THREADS 256  // threads of a B2 block
 #define PLACE_WARPS (PLACE_THREADS / 32)
+#define PLACE_MAX_ROWS 1024  // most rows of a B2 block: 4 a thread
+#define PLACE_RPT (PLACE_MAX_ROWS / PLACE_THREADS)
+#define PLACE_MAX_TILE 32768  // most rows x chunk bytes of a B2 block
 
 // Rows [0, nv) of a tile of `pitch` bytes a row to rows of `dst_pitch`
 // bytes from dst: `width` bytes each, in units U (width and the addresses
@@ -140,24 +159,187 @@ __global__ void __launch_bounds__(RANK_MAX_ROWS) gap_decode_ranks_kernel(
   }
 }
 
+// Exclusive prefix sum of v over the PLACE_THREADS threads of the block
+// (all must call it); `total` gets the sum.  s_warp[] is read after the
+// second barrier and rewritten only after the caller's next barrier.
+__device__ __forceinline__ int place_scan(int v, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const int y = lane < PLACE_WARPS ? s_warp[lane] : 0;
+    int z = y;
+#pragma unroll
+    for (int o = 1; o < PLACE_WARPS; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, z, o);
+      if (lane >= o) z += u;
+    }
+    if (lane < PLACE_WARPS) s_warp[lane] = z - y;
+    if (lane == PLACE_WARPS - 1) s_warp[PLACE_WARPS] = z;
+  }
+  __syncthreads();
+  total = s_warp[PLACE_WARPS];
+  return s_warp[warp] + x - v;
+}
+
+// Bytes of B2's buffer for `rows` rows of `chunk` bytes: rounded up to
+// 16, and 16 more for a phase of up to 15 bytes.
+__host__ __device__ inline int place_buf_bytes(int rows, int chunk) {
+  return 16 * ((rows * chunk + 15) / 16 + 1);
+}
+
 __global__ void __launch_bounds__(PLACE_THREADS) gap_place_bytes_kernel(
     const uint8_t* __restrict__ ranks, const int* __restrict__ counts,
     const long long* __restrict__ offsets, const int* __restrict__ symtab,
     uint8_t* __restrict__ out, long long n_segs_all, int max_count,
-    long long n_out) {
+    long long n_out, int rows, int chunk) {
+  // dynamic: the compacted bytes of a run at their phase mod 16, then the
+  // bytes of each row in this chunk and their exclusive prefix sum (rows +
+  // 1 each; entry `rows` stays 0 for the scatter's look past the last row)
+  extern __shared__ uint4 smem[];
   __shared__ uint8_t s_sym[256];
-  for (int j = threadIdx.x; j < 256; j += PLACE_THREADS) s_sym[j] = (uint8_t)symtab[j];
-  __syncthreads();
+  __shared__ int s_warp[PLACE_WARPS + 1];
+  __shared__ long long s_d0;
+  const int tid = threadIdx.x;
+  uint8_t* dense = reinterpret_cast<uint8_t*>(smem);
+  int* s_m = reinterpret_cast<int*>(dense + place_buf_bytes(rows, chunk));
+  int* s_pre = s_m + rows + 1;
+  for (int j = tid; j < 256; j += PLACE_THREADS) s_sym[j] = (uint8_t)symtab[j];
+  if (tid == 0) s_m[rows] = s_pre[rows] = 0;
 
-  const long long seg = (long long)blockIdx.x * PLACE_WARPS + (threadIdx.x >> 5);
-  if (seg >= n_segs_all) return;
-  const int n = min(max(counts[seg], 0), max_count);
-  const long long o = offsets[seg];
-  const uint8_t* row = ranks + seg * max_count;
-  // a corrupt count or offset stays inside the output
-  for (int i = threadIdx.x & 31; i < n; i += 32) {
-    const long long d = o + i;
-    if (d >= 0 && d < n_out) out[d] = s_sym[row[i]];
+  // the run [s0, s0 + nv): rows 1 of the chunked case, where chunk <
+  // max_count.  Thread tid holds rows tid + q * PLACE_THREADS.
+  const long long s0 = (long long)blockIdx.x * rows;
+  const int nv = (int)min((long long)rows, n_segs_all - s0);
+  const int rounds = (nv + PLACE_THREADS - 1) / PLACE_THREADS;
+  int n[PLACE_RPT];
+  long long off[PLACE_RPT];
+#pragma unroll
+  for (int q = 0; q < PLACE_RPT; ++q) {
+    const int r = tid + q * PLACE_THREADS;
+    n[q] = 0;
+    off[q] = 0;
+    if (r < nv) {
+      n[q] = min(max(counts[s0 + r], 0), max_count);
+      off[q] = offsets[s0 + r];
+    }
+  }
+  const uint8_t* run = ranks + s0 * max_count;
+  for (int lo = 0; lo < max_count; lo += chunk) {
+    // read after the scan's barriers; the last reads of the previous
+    // chunk's value come before a barrier
+    if (tid == 0) s_d0 = off[0] + lo;
+    int m[PLACE_RPT], pre[PLACE_RPT], total = 0;
+#pragma unroll
+    for (int q = 0; q < PLACE_RPT; ++q) {
+      m[q] = min(max(n[q] - lo, 0), chunk);
+      pre[q] = total;
+      if (q < rounds) {  // uniform
+        int sum;
+        pre[q] += place_scan(m[q], s_warp, sum);
+        total += sum;
+      }
+      const int r = tid + q * PLACE_THREADS;
+      if (r < rows) {
+        s_m[r] = m[q];
+        s_pre[r] = pre[q];
+      }
+    }
+    __syncthreads();
+    // a run is dense where every row that places a byte starts where the
+    // rows before it end (always for one row)
+    const long long d0 = s_d0;
+    bool dense_rows = true;
+#pragma unroll
+    for (int q = 0; q < PLACE_RPT; ++q)
+      dense_rows = dense_rows && (m[q] == 0 || off[q] + lo == d0 + pre[q]);
+    if (!__syncthreads_and(dense_rows)) {
+      // each thread its own rows, byte by byte
+#pragma unroll
+      for (int q = 0; q < PLACE_RPT; ++q) {
+        const uint8_t* row =
+            run + (long long)(tid + q * PLACE_THREADS) * max_count + lo;
+        for (int i = 0; i < m[q]; ++i) {
+          const long long d = off[q] + lo + i;
+          if (d >= 0 && d < n_out) out[d] = s_sym[row[i]];
+        }
+      }
+    } else if (total > 0) {
+      // load: the bytes [0, L) of the run from row 0's column lo (rows at
+      // stride max_count: chunk == max_count unless nv == 1), cut after
+      // the last row's bytes; units of 16 at 16-byte-aligned addresses
+      const uint8_t* src = run + lo;
+      const int L = (nv - 1) * max_count + s_m[nv - 1];
+      const int ph_in = (int)((uintptr_t)src & 15);
+      const int ph_out = (int)(((uintptr_t)out + (uintptr_t)d0) & 15);
+      for (int u = tid; u < (ph_in + L + 15) >> 4; u += PLACE_THREADS) {
+        // run bytes [q0 + j0, q0 + j1) of the unit's 16
+        const int q0 = 16 * u - ph_in;
+        const int j0 = max(0, -q0), j1 = min(16, L - q0);
+        uint32_t wd[4];
+        if (j0 == 0 && j1 == 16) {
+          const uint4 v = *reinterpret_cast<const uint4*>(src + q0);
+          wd[0] = v.x;
+          wd[1] = v.y;
+          wd[2] = v.z;
+          wd[3] = v.w;
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            wd[q] = 0;
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const int j = 4 * q + b;
+              if (j >= j0 && j < j1) wd[q] |= (uint32_t)src[q0 + j] << (8 * b);
+            }
+          }
+        }
+        // scatter: run byte q is byte i of row r
+        int r = (q0 + j0) / max_count;
+        int i = q0 + j0 - r * max_count;
+        int mr = s_m[r], pr = ph_out + s_pre[r];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (j >= j0 && j < j1) {
+            if (i < mr)
+              dense[pr + i] = s_sym[(wd[j >> 2] >> (8 * (j & 3))) & 255];
+            if (++i == max_count) {
+              i = 0;
+              ++r;
+              mr = s_m[r];
+              pr = ph_out + s_pre[r];
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // store: dense byte x is out[d0 - ph_out + x] for x in [ph_out,
+      // ph_out + total), 16-byte units at aligned addresses
+      const long long base = d0 - ph_out;
+      for (int u = tid; u < (ph_out + total + 15) >> 4; u += PLACE_THREADS) {
+        const int x0 = 16 * u;
+        const long long d = base + x0;
+        if (x0 >= ph_out && x0 + 16 <= ph_out + total && d >= 0 &&
+            d + 16 <= n_out) {
+          *reinterpret_cast<uint4*>(out + d) =
+              *reinterpret_cast<const uint4*>(dense + x0);
+        } else {
+          for (int j = 0; j < 16; ++j) {
+            const int xj = x0 + j;
+            if (xj >= ph_out && xj < ph_out + total && d + j >= 0 &&
+                d + j < n_out)
+              out[d + j] = dense[xj];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the buffer is refilled by the next chunk
   }
 }
 
@@ -231,11 +413,31 @@ extern "C" int gap_place_bytes_launch(const void* ranks, const void* counts,
                                       const void* offsets, const void* symtab,
                                       void* out, long long n_segs_all,
                                       int max_count, long long n_out,
-                                      void* stream) {
-  const long long blocks = (n_segs_all + PLACE_WARPS - 1) / PLACE_WARPS;
-  gap_place_bytes_kernel<<<(unsigned)blocks, PLACE_THREADS, 0,
+                                      int rows_per_block, int chunk,
+                                      int smem_bytes, void* stream) {
+  // the wrapper's `place_tile` computes the same geometry: R whole rows,
+  // or one row in column chunks
+  if (max_count < 1 || rows_per_block < 1 || rows_per_block > PLACE_MAX_ROWS ||
+      chunk < 1 || chunk > max_count ||
+      (rows_per_block > 1 && chunk != max_count) ||
+      (long long)rows_per_block * chunk > PLACE_MAX_TILE ||
+      smem_bytes != place_buf_bytes(rows_per_block, chunk) +
+                        8 * (rows_per_block + 1))
+    return (int)cudaErrorInvalidValue;
+  // a refusal is returned, and cleared so that it does not surface at a
+  // later launch's check
+  cudaError_t err = cudaFuncSetAttribute(
+      gap_place_bytes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  const long long blocks = (n_segs_all + rows_per_block - 1) / rows_per_block;
+  gap_place_bytes_kernel<<<(unsigned)blocks, PLACE_THREADS, smem_bytes,
                            (cudaStream_t)stream>>>(
       (const uint8_t*)ranks, (const int*)counts, (const long long*)offsets,
-      (const int*)symtab, (uint8_t*)out, n_segs_all, max_count, n_out);
+      (const int*)symtab, (uint8_t*)out, n_segs_all, max_count, n_out,
+      rows_per_block, chunk);
   return (int)cudaGetLastError();
 }

@@ -1,53 +1,68 @@
-// ILS encode kernels A2, A4 and A5 for Hopper: one per-stream encoder step
-// under three template flags.
+// ILS encode kernels for Hopper: the fused pack + certify (A2, two kernels
+// over chunked streams) and the per-stream encoder step of A4 and A5 (one
+// template under three flags).
 //
 // Replaces huffman_tpu/ops/pallas/ils_kernels.py:
-//   <false, false, false>  _lengths_kernel       (ils_lengths_pass, A4)
-//   <true,  true,  false>  _pack_certify_kernel  (ils_pack_certify, A2)
-//   <true,  false, true>   _pack_kernel          (ils_pack, A5)
+//   ils_certify_bits_kernel + ils_pack_certify_kernel:
+//       _pack_certify_kernel (ils_pack_certify, A2; also
+//       ils_pack_certify_stream, D1)
+//   ils_encode_kernel<false, false, false>: _lengths_kernel
+//       (ils_lengths_pass, A4)
+//   ils_encode_kernel<true, false, true>: _pack_kernel (ils_pack, A5)
 //
 // Bound on this card: bytes.  Each kernel reads the data once (k*1024 bytes
 // per tile) and writes the payload once (~ratio x data) plus small per-lane
-// outputs; at 3.35 TB/s a 256 MiB section needs ~0.13 ms.  One thread per
-// stream runs a serial bit accumulator, so in practice the kernels are bound
-// by the latency of that chain and by the few blocks in flight (one
-// 1024-thread block per tile: 64 blocks for 256 MiB at k=4096).
+// outputs; at 3.35 TB/s a 256 MiB section needs ~0.13 ms.  Every stream is
+// one serial bit accumulator, so one thread per stream is bound by the
+// instructions of that chain and by the blocks in flight: a block per tile
+// gives 256 MiB at k=4096 64 blocks of 1024 threads, half the card.
 //
-// Design: one block of 1024 threads per tile, thread s = stream s, because
-// the laggard anchor needs the minimum of e_ptr over the whole tile at every
-// flush.  A thread does four lookups per body in a 256-entry shared table
-// of (len << 20) | code, keeps a 128-bit accumulator (two uint64_t) and
-// writes every finished pair straight to its own column: in the strided
-// region (A2) or at the certified row start (A5).  No emission window is
-// needed for the write itself; it only replays the TPU kernel's window
-// cadence to decide which pairs the TPU kernel would have dropped, and with
-// them the violation flag (ROADMAP.md trap F2).  It simulates the decoder refill
-// per body (A2, A4) and gives the per-(tile, window) envelopes per lane, in
-// the same form as the plain version (ops/ils_kernels.py).
+// A2's design: each stream is cut into C chunks of whole ILS_WIN-body
+// windows (`certify_chunks` in ops/ils_kernels.py picks C, the launcher
+// checks it), and the grid is (tile, chunk), 1024 threads a block, so the
+// laggard anchor's minimum still spans the whole tile.  It rests on one
+// fact: a body's four codes add at most 64 bits, so at most one pair
+// retires per body, and after every body a stream with `cum` code bits so
+// far has e_ptr == cum >> 6 and used == cum & 63; the decoder refill it
+// replays happens exactly in the bodies where a pair retires, with
+// pptr == 2 + e_ptr (valid == 128 - used between bodies).  So:
+//  - ils_certify_bits_kernel writes, for every chunk but the last, each
+//    stream's code bits, and zeroes the violation flags;
+//  - ils_pack_certify_kernel starts chunk c from the sum of the earlier
+//    chunks' bits: e_ptr and used by the closed form, the accumulator
+//    seeded with the last `used` code bits before the chunk (the stream's
+//    codes walked back from the chunk's start: a few bodies, more over
+//    bytes the table lacks), and the laggard base the tile minimum of
+//    e_ptr at the chunk's start (the stale base after the previous chunk's
+//    last flush; chunk boundaries are flush boundaries, G in {1, 2}
+//    divides ILS_WIN).  A pair is judged
+//    in the chunk where it retires against that chunk's base, with its
+//    earlier bits from the seed, so a dropped pair is dropped whole.  Only
+//    the last chunk writes `bits` and judges the final partial pair; a
+//    flag is set by any chunk.
+// Each body's data word is loaded one body ahead.  A warp stages its
+// finished pairs in shared memory and stores each final pair as two rows
+// of 32 consecutive columns.  The emission window only replays the TPU
+// kernel's cadence to decide which pairs the TPU kernel would have
+// dropped, and with them the violation flag (ROADMAP.md trap F2).
+//
+// A4 and A5 keep one block of 1024 threads per tile, thread s = stream s:
+// four lookups per body in a 256-entry shared table of (len << 20) | code,
+// a 128-bit accumulator (two uint64_t); A4 simulates the decoder refill
+// and gives the per-(tile, window) envelopes per lane, A5 writes every
+// finished pair at the certified row start.  Their template also has a
+// CERTIFY form (the strided pack with the violation flag) that no
+// launcher instantiates; A2 has the kernels above.
 
 #include "ils_common.cuh"
 
-struct EncArgs {
-  const uint32_t* data;    // (n_tiles * k/4, 1024) u32 words
-  const int* tab;          // (256,) (len << 20) | code
-  const int* boffs;        // A5: (n_tiles, n_win) emission anchors
-  const int* row_starts;   // A5: (n_tiles,) compact row offsets
-  uint32_t* pay;           // A2: strided payload; A5: compact payload
-  int* bits;               // A2, A4: (n_tiles, 1024) bits per stream
-  int* dn;                 // A2, A4: (n_tiles, n_win, 1024) refill envelope
-  int* dx;
-  int* en;                 // A4: (n_tiles, n_win, 1024) emission envelope
-  int* ex;
-  int* viol;               // A2: (n_tiles, 1024) emission-out-of-band flag
-  int k, snum, rot;
-  int G;                   // bodies per flush group (1 or 2)
-  int W;                   // emission window width in pairs
-  int cap_pairs;           // pair capacity the window is clamped into
-  int boff_est;            // A2 "mu" anchor offset: -(e_band // 2)
-  int laggard;             // A2 anchor: 0 = "mu", 1 = "laggard"
-  long long stride_rows;   // A2: rows per tile region
-  long long n_rows;        // A5: rows of the compact payload (+ slack)
-};
+#define COUNT_THREADS 256  // pass 1
+#define CERT_RING 8  // pair slots of a warp's staging ring in pass 2
+
+__device__ __forceinline__ uint32_t stream_word(const uint32_t* data_t, int i,
+                                                int s, int rot) {
+  return data_t[(size_t)i * ILS_LANES + (rot ? ils_rot_src(s, i) : s)];
+}
 
 // Minimum over the 1024 threads of the block (all threads must call it).
 // red[32] is read after the second barrier and rewritten only after the
@@ -64,6 +79,260 @@ __device__ __forceinline__ int block_min(int v, int* red) {
   __syncthreads();
   return red[32];
 }
+
+// ----------------------------------------------------------------------
+// A2
+// ----------------------------------------------------------------------
+struct CertArgs {
+  const uint32_t* data;  // (n_tiles * k/4, 1024) u32 words
+  const int* tab;        // (256,) (len << 20) | code
+  uint32_t* pay;         // strided payload, stride_rows rows a tile
+  int* bits;             // (n_tiles, 1024) bits per stream
+  int* dn;               // (n_tiles, n_win, 1024) refill envelope
+  int* dx;
+  int* viol;             // (n_tiles, 1024) emission-out-of-band flag
+  int* cbits;            // (n_tiles, C - 1, 1024) code bits of each chunk
+  int k, snum, rot;
+  int G;                 // bodies per flush group (1 or 2)
+  int W;                 // emission window width in pairs
+  int cap_pairs;         // pair capacity the window is clamped into
+  int boff_est;          // "mu" anchor offset: -(e_band // 2)
+  int laggard;           // anchor: 0 = "mu", 1 = "laggard"
+  int chunks;            // C
+  int chunk_bodies;      // bodies of every chunk but the last
+  long long stride_rows;
+};
+
+// Pass 1: grid (tile, chunk < C - 1, 1024 / COUNT_THREADS), one thread
+// per stream: the code bits of the chunk, four lookups and adds a body.
+__global__ void __launch_bounds__(COUNT_THREADS) ils_certify_bits_kernel(
+    const CertArgs a) {
+  __shared__ int s_len[256];
+  for (int j = threadIdx.x; j < 256; j += COUNT_THREADS)
+    s_len[j] = a.tab[j] >> 20;
+  __syncthreads();
+
+  constexpr int per = ILS_LANES / COUNT_THREADS;
+  const int tc = blockIdx.x / per;  // t * (C - 1) + c
+  const int c = tc % (a.chunks - 1);
+  const int t = tc / (a.chunks - 1);
+  const int s = (blockIdx.x % per) * COUNT_THREADS + threadIdx.x;
+  const int nb = a.k >> 2;
+  const uint32_t* data_t = a.data + (size_t)t * nb * ILS_LANES;
+  // chunks before the last are whole: b1 <= nb
+  const int b0 = c * a.chunk_bodies, b1 = b0 + a.chunk_bodies;
+  int bits = 0;
+#pragma unroll 8
+  for (int i = b0; i < b1; ++i) {
+    const uint32_t w = stream_word(data_t, i, s, a.rot);
+    bits += s_len[w & 255] + s_len[(w >> 8) & 255] + s_len[(w >> 16) & 255] +
+            s_len[w >> 24];
+  }
+  a.cbits[(size_t)tc * ILS_LANES + s] = bits;
+  if (c == 0) a.viol[t * ILS_LANES + s] = 0;
+}
+
+// Pass 2.  A warp's finished pairs go through a ring of CERT_RING pair
+// slots in shared memory, [slot][lane] (dynamic, 64 KB a block): pair e of
+// a lane sits in slot e % CERT_RING while e is within CERT_RING pairs of
+// the warp's
+// `flushed` pair, else it is stored straight away.  Pair e is final once
+// every lane has passed it or it lies below the window base (the base
+// never falls, and a pair below it is dropped): the warp then stores its
+// two rows, 32 consecutive columns each, for the lanes whose slot holds
+// it.  Stored from each thread, every warp store of a pair would touch up
+// to 32 rows.  A body's four codes (at most 64 bits) are first joined
+// into one word and then put into the accumulator once.  Registers: two
+// blocks of 1024 threads an SM leave 32 a thread; ptxas reports whether
+// the kernel holds to it (chip_smoke.py phase 1).
+__global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
+    const CertArgs a) {
+  extern __shared__ uint64_t s_ring[];
+  __shared__ int s_tab[256];
+  __shared__ int s_red[33];
+  const int s = threadIdx.x;
+  const int lane = s & 31;
+  const int c = blockIdx.x % a.chunks;
+  const int t = blockIdx.x / a.chunks;
+  if (s < 256) s_tab[s] = a.tab[s];
+  __syncthreads();
+
+  const int nb = a.k >> 2;
+  const int n_win = (nb + ILS_WIN - 1) / ILS_WIN;
+  const int base_hi = a.cap_pairs - a.W;
+  const int b0 = c * a.chunk_bodies;
+  const int b1 = min(nb, b0 + a.chunk_bodies);
+
+  // the stream's state at body b0, from the earlier chunks' bits
+  const size_t cb = (size_t)t * (a.chunks - 1) * ILS_LANES + s;
+  int cum = 0;
+  for (int j = 0; j < c; ++j) cum += a.cbits[cb + (size_t)j * ILS_LANES];
+  int used = cum & 63, e_ptr = cum >> 6;
+  const uint32_t* data_t = a.data + (size_t)t * nb * ILS_LANES;
+  uint64_t hi = 0;  // MSB-first accumulator, `used` < 64 bits valid
+  {
+    // the last `used` code bits before b0, the stream's codes walked back
+    // from body b0 - 1 (a few bodies; further over bytes the table lacks)
+    uint64_t seed = 0;
+    int n = 0;
+    for (int i = b0 - 1; i >= 0 && n < used; --i) {
+      const uint32_t w = stream_word(data_t, i, s, a.rot);
+      for (int j = 3; j >= 0 && n < used; --j) {
+        const int e = s_tab[(w >> (8 * j)) & 255];
+        // n < used <= 63 here
+        seed |= (uint64_t)(e & 0xFFFF) << n;
+        n += e >> 20;
+      }
+    }
+    if (used) hi = seed << (64 - used);
+  }
+
+  uint32_t* pay_s = a.pay + (size_t)t * a.stride_rows * ILS_LANES + s;
+  uint64_t* ring = s_ring + (s >> 5) * CERT_RING * 32 + lane;
+  int flushed = __reduce_min_sync(0xffffffffu, e_ptr);
+  unsigned held = 0;  // the ring slots that hold a pair of this lane
+  auto retire = [&](uint64_t v) {
+    if (e_ptr - flushed < CERT_RING) {
+      ring[(e_ptr & (CERT_RING - 1)) * 32] = v;
+      held |= 1u << (e_ptr & (CERT_RING - 1));
+    } else {
+      uint32_t* p = pay_s + (size_t)(2 * e_ptr) * ILS_LANES;
+      p[0] = (uint32_t)(v >> 32);
+      p[ILS_LANES] = (uint32_t)v;
+    }
+  };
+  // store the final pairs [flushed, upto) (warp-uniform)
+  auto flush = [&](int upto) {
+    for (int e = flushed; e < min(upto, flushed + CERT_RING); ++e) {
+      const int sl = e & (CERT_RING - 1);
+      if (held >> sl & 1) {
+        const uint64_t v = ring[sl * 32];
+        uint32_t* p = pay_s + (size_t)(2 * e) * ILS_LANES;
+        p[0] = (uint32_t)(v >> 32);
+        p[ILS_LANES] = (uint32_t)v;
+        held &= ~(1u << sl);
+      }
+    }
+    flushed = max(flushed, upto);
+  };
+
+  const size_t env0 = (size_t)t * n_win * ILS_LANES + s;
+  int viol = 0;
+  int dmin = ILS_BIG, dmax = -ILS_BIG;
+  // The emission window base (ROADMAP.md trap F2).  "mu" recomputes it at
+  // each group's first body; "laggard" uses the tile minimum of e_ptr
+  // after the PREVIOUS flush (stale by one flush, as in the TPU kernel):
+  // at b0 that is the minimum at b0 (0 in chunk 0).
+  int base = 0;
+  if (a.laggard) base = ils_clip(block_min(e_ptr, s_red), 0, base_hi);
+
+  uint32_t w_next = stream_word(data_t, b0, s, a.rot);
+  for (int i = b0; i < b1; ++i) {
+    const uint32_t w = w_next;
+    if (i + 1 < b1) w_next = stream_word(data_t, i + 1, s, a.rot);
+    const int mu = ils_mu(i, a.snum);
+    if (!a.laggard && (i & (a.G - 1)) == 0)
+      base = ils_clip(mu + a.boff_est, 0, base_hi);
+    // the body's codes joined, right-aligned: l4 <= 64 bits (absent
+    // symbols have ln == 0 and add nothing)
+    uint64_t v = 0;
+    int l4 = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = s_tab[(w >> (8 * j)) & 255];
+      const int ln = e >> 20;
+      v = (v << ln) | (uint64_t)(ln ? e & 0xFFFF : 0);
+      l4 += ln;
+    }
+    // left-justified at bit `used` of the 128-bit (hi, lo); lo is empty
+    // between bodies, and used < 64 keeps both shifts in range
+    const uint64_t vl = l4 ? v << (64 - l4) : 0;
+    hi |= vl >> used;
+    const uint64_t lo = used ? vl << (64 - used) : 0;
+    used += l4;
+    if (used >= 64) {  // at most one pair per body: used <= 63 + 64
+      // the decoder refills in this body, at pptr == 2 + e_ptr
+      const int dev = 2 + e_ptr - mu;
+      dmin = min(dmin, dev);
+      dmax = max(dmax, dev);
+      // the TPU kernel retires this pair at its group's flush into the
+      // window [base, base + W); a pair outside it is dropped there and
+      // flags a violation, so it is dropped here too
+      const int rel = e_ptr - base;
+      if (rel >= 0 && rel < a.W) {
+        retire(hi);
+      } else {
+        viol = 1;
+      }
+      hi = lo;
+      ++e_ptr;
+      used -= 64;
+    }
+    // a flush ends every G bodies (G = 2 when the TPU unroll is even)
+    if (a.laggard && ((i + 1) & (a.G - 1)) == 0)
+      base = ils_clip(block_min(e_ptr, s_red), 0, base_hi);
+    flush(max(base, __reduce_min_sync(0xffffffffu, e_ptr)));
+    if ((i + 1) % ILS_WIN == 0 && i + 1 < nb) {
+      const size_t o = env0 + (size_t)(i / ILS_WIN) * ILS_LANES;
+      a.dn[o] = dmin;
+      a.dx[o] = dmax;
+      dmin = ILS_BIG;
+      dmax = -ILS_BIG;
+    }
+  }
+
+  if (c == a.chunks - 1) {
+    a.bits[t * ILS_LANES + s] = 64 * e_ptr + used;
+    // the final flush of the zero-padded partial pair is judged too, at
+    // the last body's mu (or the stale laggard base)
+    if (used > 0) {
+      const int fbase =
+          a.laggard ? base
+                    : ils_clip(ils_mu(nb - 1, a.snum) + a.boff_est, 0, base_hi);
+      const int rel = e_ptr - fbase;
+      if (rel >= 0 && rel < a.W) {
+        retire(hi);
+      } else {
+        viol = 1;
+      }
+    }
+    const size_t o = env0 + (size_t)(n_win - 1) * ILS_LANES;
+    a.dn[o] = dmin;
+    a.dx[o] = dmax;
+  }
+  flush(flushed + CERT_RING);
+  // one chunk writes its flag; several OR theirs into the zeroed flags
+  if (a.chunks == 1) {
+    a.viol[t * ILS_LANES + s] = viol;
+  } else if (viol) {
+    a.viol[t * ILS_LANES + s] = 1;
+  }
+}
+
+// ----------------------------------------------------------------------
+// A4 and A5
+// ----------------------------------------------------------------------
+struct EncArgs {
+  const uint32_t* data;    // (n_tiles * k/4, 1024) u32 words
+  const int* tab;          // (256,) (len << 20) | code
+  const int* boffs;        // A5: (n_tiles, n_win) emission anchors
+  const int* row_starts;   // A5: (n_tiles,) compact row offsets
+  uint32_t* pay;           // CERTIFY: strided payload; A5: compact payload
+  int* bits;               // A4: (n_tiles, 1024) bits per stream
+  int* dn;                 // A4: (n_tiles, n_win, 1024) refill envelope
+  int* dx;
+  int* en;                 // A4: (n_tiles, n_win, 1024) emission envelope
+  int* ex;
+  int* viol;               // CERTIFY: (n_tiles, 1024) out-of-band flag
+  int k, snum, rot;
+  int G;                   // bodies per flush group (1 or 2)
+  int W;                   // emission window width in pairs
+  int cap_pairs;           // pair capacity the window is clamped into
+  int boff_est;            // CERTIFY "mu" anchor offset: -(e_band // 2)
+  int laggard;             // CERTIFY anchor: 0 = "mu", 1 = "laggard"
+  long long stride_rows;   // CERTIFY: rows per tile region
+  long long n_rows;        // A5: rows of the compact payload (+ slack)
+};
 
 // Registers: a 1024-thread block may use at most 64 registers per thread;
 // the launch bound makes the compiler hold to it, and a launch that still
@@ -243,10 +512,16 @@ extern "C" int ils_lengths_launch(const void* data, const void* tab,
 
 extern "C" int ils_pack_certify_launch(
     const void* data, const void* tab, void* pay, void* bits, void* dn,
-    void* dx, void* viol, int n_tiles, int k, int snum, int rot, int G, int W,
-    int cap_pairs, int boff_est, int laggard, long long stride_rows,
-    void* stream) {
-  EncArgs a = {};
+    void* dx, void* viol, void* cbits, int n_tiles, int k,
+    int snum, int rot, int G, int W, int cap_pairs, int boff_est, int laggard,
+    long long stride_rows, int chunks, int chunk_win, void* stream) {
+  // the wrapper's `certify_chunks` computes the same geometry: C chunks of
+  // chunk_win windows, the last one possibly shorter
+  const int n_win = ((k >> 2) + ILS_WIN - 1) / ILS_WIN;
+  if (chunk_win < 1 || chunks != (n_win + chunk_win - 1) / chunk_win ||
+      (G != 1 && G != 2))
+    return (int)cudaErrorInvalidValue;
+  CertArgs a = {};
   a.data = (const uint32_t*)data;
   a.tab = (const int*)tab;
   a.pay = (uint32_t*)pay;
@@ -254,6 +529,7 @@ extern "C" int ils_pack_certify_launch(
   a.dn = (int*)dn;
   a.dx = (int*)dx;
   a.viol = (int*)viol;
+  a.cbits = (int*)cbits;
   a.k = k;
   a.snum = snum;
   a.rot = rot;
@@ -262,9 +538,28 @@ extern "C" int ils_pack_certify_launch(
   a.cap_pairs = cap_pairs;
   a.boff_est = boff_est;
   a.laggard = laggard;
+  a.chunks = chunks;
+  a.chunk_bodies = chunk_win * ILS_WIN;
   a.stride_rows = stride_rows;
-  ils_encode_kernel<true, true, false>
-      <<<n_tiles, ILS_LANES, 0, (cudaStream_t)stream>>>(a);
+  if (chunks > 1) {
+    ils_certify_bits_kernel<<<n_tiles * (chunks - 1) *
+                                  (ILS_LANES / COUNT_THREADS),
+                              COUNT_THREADS, 0, (cudaStream_t)stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  // a refusal of the shared-memory size is returned, and cleared so that
+  // it does not surface at a later launch's check
+  const int smem = CERT_RING * ILS_LANES * (int)sizeof(uint64_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      ils_pack_certify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  ils_pack_certify_kernel<<<n_tiles * chunks, ILS_LANES, smem,
+                            (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

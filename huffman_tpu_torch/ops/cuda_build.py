@@ -50,8 +50,8 @@ _SIGNATURES = {
     "ils_encode": {
         "ils_lengths_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "ils_pack_certify_launch": [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-            _L, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+            _I, _L, _I, _I, _P,
         ],
         "ils_pack_launch": [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P,
@@ -65,7 +65,9 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _I, _I,
             _P,
         ],
-        "gap_place_bytes_launch": [_P, _P, _P, _P, _P, _L, _I, _L, _P],
+        "gap_place_bytes_launch": [
+            _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P,
+        ],
         "gap_count_segments_launch": [
             _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P,
         ],

@@ -14,7 +14,9 @@ that of `ops/ils_kernels.py`: a CUDA tensor launches the kernel of
   stores its R rows through a shared-memory tile, C columns at a time
   (`ranks_tile`).
 - `gap_place_bytes` (B2): ``out[off[s] + i] = symtab[rank[s, i]]`` for
-  ``i < count[s]``, ``off`` the exclusive prefix sum of the counts.
+  ``i < count[s]``, ``off`` the exclusive prefix sum of the counts; a CUDA
+  block places a run of `place_tile`'s R segments through a shared-memory
+  buffer with 16-byte loads and stores.
 - `decode_blocks`: both, for G equal-size blocks in one launch each.
 - `count_segments` (C1): the symbols of each segment of a gap-only
   (Yamamoto) stream, the codewords that start before the next segment's
@@ -45,6 +47,7 @@ from .tables import DecSpec, DeviceDecTable
 __all__ = [
     "kernel_tabs",
     "ranks_tile",
+    "place_tile",
     "gap_decode_ranks",
     "gap_decode_ranks_plain",
     "gap_place_bytes",
@@ -69,6 +72,25 @@ def ranks_tile(max_count: int) -> tuple[int, int, int]:
     whatever max_count; ``csrc/gap_decode.cu`` checks the same product."""
     chunk = min(RANK_CHUNK, -(-max(max_count, 1) // 8) * 8)
     return RANK_ROWS, chunk, RANK_ROWS * (chunk + 4)
+
+
+PLACE_ROWS = 1024  # most segments of a B2 block (4 a thread for the scan)
+PLACE_TILE = 32768  # bytes of rank rows a B2 block loads at once
+
+
+def place_tile(max_count: int) -> tuple[int, int, int]:
+    """(rows per block R, column chunk, dynamic shared-memory bytes) of B2:
+    R = PLACE_TILE // max_count whole rows (at most PLACE_ROWS), or one row
+    in chunks of PLACE_TILE columns where a row is wider than the tile.
+    Shared memory holds a run's compacted bytes at the output's phase mod
+    16 (R * chunk bytes, rounded up to 16, and 16 more) and two ints a row
+    and two more.  ``csrc/gap_decode.cu`` checks the same arithmetic."""
+    mc = max(max_count, 1)
+    if mc <= PLACE_TILE:
+        rows, chunk = min(PLACE_ROWS, PLACE_TILE // mc), mc
+    else:
+        rows, chunk = 1, PLACE_TILE
+    return rows, chunk, 16 * (-(-rows * chunk // 16) + 1) + 8 * (rows + 1)
 
 
 def kernel_tabs(dec: DeviceDecTable):
@@ -232,12 +254,14 @@ def gap_place_bytes(ranks, counts, offsets, symtab, *, n_out):
     if not _use_kernel(ranks):
         return gap_place_bytes_plain(ranks, counts, offsets, symtab, n_out=n_out)
     out = torch.zeros(n_out, dtype=torch.uint8, device=ranks.device)
-    if n_segs == 0 or n_out == 0:
+    max_count = ranks.shape[1]
+    if n_segs == 0 or n_out == 0 or max_count == 0:
         return out
+    rows, chunk, smem = place_tile(max_count)
     rc = _lib("gap_decode").gap_place_bytes_launch(
         ranks.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-        symtab.data_ptr(), out.data_ptr(), n_segs, ranks.shape[1], n_out,
-        _stream(ranks),
+        symtab.data_ptr(), out.data_ptr(), n_segs, max_count, n_out, rows,
+        chunk, smem, _stream(ranks),
     )
     _launched(gap_place_bytes, rc)
     return out

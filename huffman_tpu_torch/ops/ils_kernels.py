@@ -46,6 +46,7 @@ __all__ = [
     "ils_lengths_pass_plain",
     "ils_pack_certify_plain",
     "ils_pack_certify_stream_plain",
+    "certify_chunks",
     "ils_pack_plain",
     "ils_compact_plain",
     "ils_decode_plain",
@@ -66,6 +67,9 @@ FUSED_E_BAND = 32
 
 _BIG = 1 << 30  # int32 envelope sentinels (+-2^30), as the JAX kernels
 _M32 = 0xFFFFFFFF
+
+# Windows (of ILS_WIN bodies) in each chunk of A2's streams (`certify_chunks`)
+CERTIFY_CHUNK_WIN = 4
 
 # Window bits of A1's length-and-symbol table (2 ** ILS_LUT_BITS u16
 # entries in shared memory, built by each block; `ils_decode_lut`); 10 and
@@ -363,6 +367,19 @@ def _certify_geometry(k, stride_rows, e_band, anchor, G=None):
     return G, W, cap_pairs, -(e_band // 2)
 
 
+def certify_chunks(k: int) -> tuple[int, int]:
+    """(chunks C per stream, windows per chunk) of A2's CUDA kernels: each
+    stream's bodies cut into chunks of CERTIFY_CHUNK_WIN whole windows (the
+    last one possibly shorter), so that a chunk writes its own envelope
+    windows and starts at a flush boundary.  The grid is (tile, chunk):
+    C = 4 at k=4096 gives the 256 MiB main section 256 blocks of 1024
+    threads, one wave at two blocks on each of an H100's 132 SMs (8
+    chunks, two waves, measured slower there); C = 1 where a stream
+    has at most CERTIFY_CHUNK_WIN windows (k <= 1024, the k=8 tail).
+    ``csrc/ils_encode.cu`` checks the same arithmetic."""
+    return -(-ils_n_win(k) // CERTIFY_CHUNK_WIN), CERTIFY_CHUNK_WIN
+
+
 def ils_pack_certify_plain(data_i32, snum, enc, *, k, stride_rows, rot=False,
                            e_band=FUSED_E_BAND, anchor="mu", G=None):
     n_tiles = data_i32.shape[0] // (k // 4)
@@ -418,11 +435,18 @@ def _pack_certify_launch(wrapper, data_i32, snum, enc, *, k, stride_rows, rot,
     dn = torch.empty((n_tiles, n_win, ILS_LANES), dtype=torch.int32, device=dev)
     dx = torch.empty_like(dn)
     viol = torch.empty_like(bits)
+    # the code bits of every chunk but the last
+    chunks, chunk_win = certify_chunks(k)
+    cbits = torch.empty((n_tiles, chunks - 1, ILS_LANES), dtype=torch.int32,
+                        device=dev)
     rc = _lib("ils_encode").ils_pack_certify_launch(
         data_i32.data_ptr(), enc.data_ptr(), pay.data_ptr(), bits.data_ptr(),
-        dn.data_ptr(), dx.data_ptr(), viol.data_ptr(), n_tiles, k, int(snum), int(bool(rot)), G, W, cap_pairs,
-        boff_est, int(anchor == "laggard"), int(stride_rows), _stream(data_i32),
+        dn.data_ptr(), dx.data_ptr(), viol.data_ptr(), cbits.data_ptr(),
+        n_tiles, k, int(snum), int(bool(rot)), G, W, cap_pairs, boff_est,
+        int(anchor == "laggard"), int(stride_rows), chunks, chunk_win,
+        _stream(data_i32),
     )
+    # one count per call, though a call of C > 1 chunks launches two kernels
     _launched(wrapper, rc)
     return pay, bits, dn, dx, viol
 

@@ -605,3 +605,136 @@ def test_ils_decode_redesign_matches_plain(cuda, kind, k):
             assert _equal(got, tk.ils_decode_plain(pay, starts, codec.dec, **kw))
             assert torch.equal(got, words)
     assert tk.launch_counts()["ils_decode"] == 4
+
+
+# ----------------------------------------------------------------------
+# A2 over chunked streams, B2 a block per run of segments
+# ----------------------------------------------------------------------
+def _a2_case(kind, k, dev):
+    """(codec, snum, words) of 2 tiles at k: "mixed" is `_mixed`; "lacks"
+    fits the table without bytes >= 200 and fills body rows 128-255 of
+    tile 0 with such bytes (no code bits: at k=4096 the seed of every
+    stream's second chunk walks back over them)."""
+    data = _mixed(k, 2)
+    if kind == "mixed":
+        return _inputs(data, k, dev)
+    data = np.where(data >= 200, 65, data).astype(np.uint8)
+    codec = IlsCodec.fit(data, k=k, device=dev)
+    snum = ils_schedule_numer(
+        float(codec.table.lengths.astype(np.int64)[data].mean()))
+    rows = data.view(np.int32).reshape(-1, ILS_LANES).copy()
+    rows[128:256] = np.int32(-0x36363637)  # 0xC9C9C9C9: byte 201
+    return codec, snum, torch.from_numpy(rows).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "lacks"])
+@pytest.mark.parametrize("rot", [False, True])
+def test_pack_certify_chunked_matches_plain(cuda, kind, rot):
+    # k=4096: C = certify_chunks(k) > 1 chunks a stream; every output of
+    # the tuple (strided payload, bits, envelopes, flags) bit for bit
+    k = 4096
+    assert tk.certify_chunks(k)[0] >= 2
+    codec, snum, words = _a2_case(kind, k, cuda)
+    stride_rows = tils.stride_rows_for(k, codec.table.max_len_present)
+    flags = {}
+    for anchor in ("mu", "laggard"):
+        for e_band in (2, 8, 32):
+            kw = dict(k=k, stride_rows=stride_rows, rot=rot, anchor=anchor,
+                      e_band=e_band)
+            got = tk.ils_pack_certify(words, snum, codec.enc, **kw)
+            ref = tk.ils_pack_certify_plain(words, snum, codec.enc, **kw)
+            assert _equal(got, ref), (anchor, e_band)
+            flags[anchor, e_band] = int(got[4].max())
+    # the band of 2 pairs is left somewhere: the dropped pairs and the
+    # flags of a violating call are held too
+    assert flags["mu", 2] == 1
+    assert tk.launch_counts()["ils_pack_certify"] == 6
+
+
+def test_stream_pack_chunked_matches_plain_and_a2(cuda):
+    # D1 through A2's chunked kernels: k=4096, chunk_cap=64
+    k = 4096
+    codec, snum, words = _inputs(generate_redundant(2 * k * ILS_LANES, 0.5,
+                                                    seed=22), k, cuda)
+    stride = tils.stride_rows_for(k, codec.table.max_len_present)
+    for anchor in ("mu", "laggard"):
+        kw = dict(k=k, stride_rows=stride, chunk_cap=64, anchor=anchor)
+        got = tk.ils_pack_certify_stream(words, snum, codec.enc, **kw)
+        assert _equal(got, tk.ils_pack_certify_stream_plain(
+            words, snum, codec.enc, **kw))
+        a2 = tk.ils_pack_certify(words, snum, codec.enc, k=k,
+                                 stride_rows=stride, anchor=anchor)
+        assert _equal(got[1:], a2[1:])
+        for t in range(2):
+            w_t = 2 * (-(-int(got[1][t].max()) // 64))
+            rows = slice(t * stride, t * stride + w_t)
+            assert torch.equal(got[0][rows], a2[0][rows])
+    assert tk.launch_counts()["ils_pack_certify_stream"] == 2
+
+
+@pytest.mark.parametrize("kind,seg_bits", [("0.5", 128), ("0.9", 1024),
+                                           ("single", 8192)])
+def test_place_bytes_runs_match_plain(cuda, kind, seg_bits):
+    # offsets from a real decode_blocks; then n_out cut short, zero counts,
+    # a count above max_count (clamped: the offsets, the prefix sum of the
+    # counts, leave a gap there) and offsets shifted to start before the
+    # output
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+
+    g, b = 3, 65536
+    data = _gap_data(kind, g * b)
+    codec = GapArrayCodec.fit(data, seg_bits=seg_bits, block_bytes=b,
+                              device=cuda)
+    blocks = torch.from_numpy(data.reshape(g, b).copy()).to(cuda)
+    dcomp = codec.encode_device(blocks)
+    counts = dcomp.counts
+    mc = -(-int(counts.max()) // 8) * 8
+    lim, bias = gd.kernel_tabs(codec.dec)
+    ranks = gd.gap_decode_ranks(dcomp.words, dcomp.gaps, counts, lim, bias,
+                                seg_bits=seg_bits, max_count=mc,
+                                min_len=codec.spec.min_len,
+                                max_len=codec.spec.max_len)
+    sym = codec.dec.symtab
+    flat = counts.reshape(-1).contiguous()
+    offs = torch.cumsum(flat, 0, dtype=torch.int64) - flat
+    gd.reset_launch_counts()
+    out = gd.gap_place_bytes(ranks, flat, offs, sym, n_out=g * b)
+    assert torch.equal(out, blocks.reshape(-1))
+    rng = np.random.default_rng(seg_bits)
+    zeroed = flat.clone()
+    zeroed[torch.from_numpy(rng.random(flat.numel()) < 0.2).to(cuda)] = 0
+    over = flat.clone()
+    over[flat.numel() // 2] = mc + 7
+    z_offs = torch.cumsum(zeroed, 0, dtype=torch.int64) - zeroed
+    o_offs = torch.cumsum(over, 0, dtype=torch.int64) - over
+    cases = [(flat, offs, g * b - 12345), (flat, offs, 1),
+             (zeroed, z_offs, int(zeroed.sum())),
+             (over, o_offs, int(over.sum())), (flat, offs - 777, g * b)]
+    for c, o, n_out in cases:
+        assert _equal(gd.gap_place_bytes(ranks, c, o, sym, n_out=n_out),
+                      gd.gap_place_bytes_plain(ranks, c, o, sym, n_out=n_out))
+    assert gd.launch_counts()["gap_place_bytes"] == 1 + len(cases)
+
+
+def test_place_bytes_column_chunks_match_plain(cuda):
+    # rows wider than B2's tile go one at a time in column chunks: counts
+    # in the first chunk, across it, filling the row, zero and above
+    # max_count; offsets the prefix sum, then shifted before the output
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+
+    mc = gd.PLACE_TILE + 7232
+    assert gd.place_tile(mc)[:2] == (1, gd.PLACE_TILE)
+    rng = np.random.default_rng(29)
+    counts = np.array([100, gd.PLACE_TILE + 5, mc, 0, mc + 9, 7],
+                      dtype=np.int32)
+    ranks = torch.from_numpy(rng.integers(0, 256, (counts.size, mc),
+                                          dtype=np.uint8)).to(cuda)
+    sym = torch.from_numpy(rng.permutation(256).astype(np.int32)).to(cuda)
+    c = torch.from_numpy(counts).to(cuda)
+    offs = torch.cumsum(c, 0, dtype=torch.int64) - c
+    gd.reset_launch_counts()
+    for o, n_out in ((offs, int(counts.sum())), (offs - 333, 70000)):
+        assert _equal(gd.gap_place_bytes(ranks, c, o, sym, n_out=n_out),
+                      gd.gap_place_bytes_plain(ranks, c, o, sym, n_out=n_out))
+    assert gd.launch_counts()["gap_place_bytes"] == 2

@@ -206,6 +206,91 @@ def test_place_bytes_matches_numpy_concat(n_segs, max_count, seed):
     assert np.array_equal(short.numpy(), expect[: expect.size // 2])
 
 
+def _b2_runs(ranks, counts, offsets, symtab, n_out):
+    """A NumPy model of csrc/gap_decode.cu's B2: blocks of `place_tile`'s
+    R rows (one row in column chunks where a row is wider than the tile);
+    a run whose rows' offsets follow the prefix sum of their clamped
+    counts is one output range, cut to [0, n_out); another run is placed
+    row by row."""
+    n_segs, mc = ranks.shape
+    rows, chunk, _ = gd.place_tile(mc)
+    sym = symtab.astype(np.uint8)
+    out = np.zeros(n_out, np.uint8)
+
+    def put(d, vals):
+        ok = (d >= 0) & (d < n_out)
+        out[d[ok]] = vals[ok]
+
+    for s0 in range(0, n_segs, rows):
+        nv = min(rows, n_segs - s0)
+        n = np.clip(counts[s0 : s0 + nv].astype(np.int64), 0, mc)
+        off = offsets[s0 : s0 + nv]
+        for lo in range(0, mc, chunk):
+            m = np.clip(n - lo, 0, chunk)
+            pre = np.cumsum(m) - m
+            d0 = off[0] + lo
+            if not np.all((m == 0) | (off + lo == d0 + pre)):
+                for r in range(nv):
+                    put(off[r] + lo + np.arange(m[r]),
+                        sym[ranks[s0 + r, lo : lo + m[r]]])
+                continue
+            # rows at stride mc (chunk == mc unless nv == 1), cut after the
+            # last row's bytes
+            q = np.arange((nv - 1) * mc + m[-1])
+            flat = ranks[s0 : s0 + nv].reshape(-1)[lo : lo + q.size]
+            keep = q % mc < m[q // mc]
+            put(d0 + np.arange(m.sum()), sym[flat[keep]])
+    return out
+
+
+@pytest.mark.parametrize("max_count,n_segs", [(1, 2100), (48, 1500),
+                                              (256, 300), (1100, 70),
+                                              (8193, 7), (65505, 3)])
+def test_place_bytes_run_model_matches_plain(max_count, n_segs):
+    # the kernel's runs on real prefix offsets, n_out cut short, zero
+    # counts, a count above max_count (clamped: a gap in the offsets) and
+    # offsets that start before the output
+    rng = np.random.default_rng(max_count)
+    counts = rng.integers(max_count // 3, max_count + 1, n_segs)
+    counts[rng.random(n_segs) < 0.2] = 0
+    ranks = rng.integers(0, 256, (n_segs, max_count)).astype(np.uint8)
+    symtab = rng.permutation(256).astype(np.int32)
+    over = counts.copy()
+    over[n_segs // 2] = max_count + 7
+    offs = {name: np.cumsum(c, dtype=np.int64) - c
+            for name, c in (("real", counts), ("over", over))}
+    n = int(counts.sum())
+    for c, o, n_out in ((counts, offs["real"], n),
+                        (counts, offs["real"], n // 2 + 3),
+                        (over, offs["over"], int(over.sum())),
+                        (counts, offs["real"] - 777, n)):
+        ref = gd.gap_place_bytes_plain(torch.from_numpy(ranks), _t(c),
+                                       _t(o, np.int64), _t(symtab),
+                                       n_out=n_out).numpy()
+        assert np.array_equal(_b2_runs(ranks, c, o, symtab, n_out), ref)
+
+
+@pytest.mark.parametrize("max_count,rows,chunk", [
+    (1, 1024, 1), (48, 682, 48), (256, 128, 256), (1100, 29, 1100),
+    (8193, 3, 8193),
+    # seg_bits=65504 with 1-bit codes: one row in column chunks
+    (65505, 1, 32768),
+])
+def test_place_tile_geometry(max_count, rows, chunk):
+    # R whole rows of at most PLACE_TILE bytes (at most 4 a thread for the
+    # scan), or one row in column chunks; the buffer holds a run's bytes
+    # at the output's phase mod 16, then two ints a row and two more
+    r, c, smem = gd.place_tile(max_count)
+    assert (r, c) == (rows, chunk)
+    assert r * c <= gd.PLACE_TILE and r <= 4 * 256
+    assert r == 1 or c == max_count
+    # whole 16-byte units from a phase of up to 15 bytes
+    buf = smem - 8 * (r + 1)
+    assert buf % 16 == 0 and buf >= 16 * -(-(r * c + 15) // 16)
+    # beside the kernel's static shared memory (under 1 KB)
+    assert smem + 1024 <= SMEM_PER_BLOCK
+
+
 # ----------------------------------------------------------------------
 # B4b-B4d and encode_blocks
 # ----------------------------------------------------------------------

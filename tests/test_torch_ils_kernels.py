@@ -8,6 +8,8 @@ themselves are held against the plain versions on a card by
 `tests/test_torch_cuda.py`, which imports no JAX.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from huffman_tpu.core.ils_ref import ILS_LANES, ils_schedule_numer
 from huffman_tpu.ops.pallas import ils_kernels as jk
 from huffman_tpu.utils import generate_redundant
 from huffman_tpu_torch.core.canonical import chain_spec as port_chain_spec
+from huffman_tpu_torch.core.ils_ref import _rot_src_index
 from huffman_tpu_torch.io.convert import code_table_from_numpy, section_from_numpy
 from huffman_tpu_torch.ops import ils_kernels as tk
 
@@ -189,6 +192,233 @@ def test_anchor_flags_match_heterogeneous(anchor, want):
     assert int(got[4].max()) == want
     for name, a, b in zip(("pay", "bits", "dn", "dx", "viol"), ref, got):
         assert _eq(a, b), name
+
+
+# ----------------------------------------------------------------------
+# A2 over chunked streams: a NumPy model of csrc/ils_encode.cu
+# ----------------------------------------------------------------------
+_U64 = np.uint64
+_Z64 = np.uint64(0)
+
+
+def _shl(x, n):
+    """x << n on uint64, 0 where n >= 64 (n >= 0)."""
+    n = np.asarray(n)
+    return np.where(n >= 64, _Z64, x << np.minimum(n, 63).astype(_U64))
+
+
+def _shr(x, n):
+    """x >> n on uint64, 0 where n >= 64 (n >= 0)."""
+    n = np.asarray(n)
+    return np.where(n >= 64, _Z64, x >> np.minimum(n, 63).astype(_U64))
+
+
+def _chunk_bounds(nb, G, C):
+    """Start bodies of up to C chunks of whole flush groups, and nb."""
+    step = G * -(-nb // (G * C))
+    return list(range(0, nb, step)) + [nb]
+
+
+def _a2_chunked(words, enc, *, k, snum, stride_rows, rot, e_band, anchor, G,
+                bounds):
+    """The two kernels of A2 on chunks [bounds[c], bounds[c + 1]) of every
+    stream: the bits pass (each chunk's code bits), then each chunk from
+    the closed-form state at its start (e_ptr = cum >> 6, used = cum & 63),
+    its accumulator seeded with the last `used` code bits before it (the
+    codes walked back from its start), its laggard base the tile minimum of
+    e_ptr there.  Returns the outputs of `ils_pack_certify` as NumPy
+    arrays."""
+    nb = k // 4
+    n_tiles = words.shape[0] // nb
+    x = words.view(np.uint32).reshape(n_tiles, nb, ILS_LANES)
+    src = _rot_src_index(k) if rot else None
+    tab = enc.astype(np.int64)
+    lens, codes = tab >> 20, (tab & 0xFFFF).astype(_U64)
+    laggard = anchor == "laggard"
+    cap_pairs = stride_rows // 2
+    W = min(e_band + G + (2 if laggard else 0), cap_pairs)
+    base_hi, boff = cap_pairs - W, -(e_band // 2)
+    n_win = -(-nb // 64)
+    shape = (n_tiles, ILS_LANES)
+
+    def codes_of(i):
+        w = (x[:, i, :] if src is None else x[:, i, src[i]]).astype(np.int64)
+        for j in range(4):
+            sym = (w >> (8 * j)) & 255
+            yield lens[sym], codes[sym]
+
+    def mu(i):
+        return (i * snum) >> 16
+
+    cbits = []
+    for b0, b1 in zip(bounds[:-2], bounds[1:-1]):
+        bits = np.zeros(shape, np.int64)
+        for i in range(b0, b1):
+            for ln, _ in codes_of(i):
+                bits += ln
+        cbits.append(bits)
+
+    pay = np.zeros(((n_tiles + 1) * stride_rows, ILS_LANES), np.uint32)
+    dn = np.full((n_tiles, n_win, ILS_LANES), 1 << 30, np.int64)
+    dx = -dn
+    viol = np.zeros(shape, bool)
+    row0 = np.arange(n_tiles)[:, None] * stride_rows
+    for c, (b0, b1) in enumerate(zip(bounds[:-1], bounds[1:])):
+        cum = sum(cbits[:c], np.zeros(shape, np.int64))
+        used, e_ptr = cum & 63, cum >> 6
+        seed, n = np.zeros(shape, _U64), np.zeros(shape, np.int64)
+        for i in range(b0 - 1, -1, -1):
+            if not (n < used).any():
+                break
+            for ln, code in reversed(list(codes_of(i))):
+                more = n < used
+                seed = np.where(more, seed | _shl(code, n), seed)
+                n = np.where(more, n + ln, n)
+        hi = np.where(used > 0, _shl(seed, 64 - used), _Z64)
+        lo = np.zeros(shape, _U64)
+        tile_min = lambda: np.clip(e_ptr.min(axis=1, keepdims=True), 0, base_hi)
+        base = tile_min() if laggard else 0
+
+        def retire(mask, base):
+            nonlocal viol
+            rel = e_ptr - base
+            ok = mask & (rel >= 0) & (rel < W)
+            viol = viol | (mask & ~ok)
+            t, s = np.nonzero(ok)
+            r = row0[t, 0] + 2 * e_ptr[t, s]
+            pay[r, s] = (hi[t, s] >> _U64(32)).astype(np.uint32)
+            pay[r + 1, s] = (hi[t, s] & _U64(0xFFFFFFFF)).astype(np.uint32)
+
+        for i in range(b0, b1):
+            if not laggard and i % G == 0:
+                base = min(max(mu(i) + boff, 0), base_hi)
+            for ln, code in codes_of(i):
+                has = ln > 0
+                left = np.where(has, _shl(code, 64 - ln), _Z64)
+                low = used < 64
+                hi = hi | np.where(low, _shr(left, used), _Z64)
+                lo = lo | np.where(low, _shl(left, 64 - used),
+                                   _shr(left, np.maximum(used - 64, 0)))
+                used = used + ln
+            emit = used >= 64
+            # the decoder refills exactly where a pair retires, at pptr =
+            # 2 + e_ptr
+            dev, wi = 2 + e_ptr - mu(i), i // 64
+            dn[:, wi] = np.where(emit, np.minimum(dn[:, wi], dev), dn[:, wi])
+            dx[:, wi] = np.where(emit, np.maximum(dx[:, wi], dev), dx[:, wi])
+            retire(emit, base)
+            hi, lo = np.where(emit, lo, hi), np.where(emit, _Z64, lo)
+            e_ptr, used = e_ptr + emit, used - 64 * emit
+            if laggard and (i + 1) % G == 0:
+                base = tile_min()
+        if c == len(bounds) - 2:
+            bits_out = 64 * e_ptr + used
+            retire(used > 0, base if laggard
+                   else min(max(mu(nb - 1) + boff, 0), base_hi))
+    return (pay.view(np.int32), bits_out.astype(np.int32),
+            dn.astype(np.int32), dx.astype(np.int32), viol.astype(np.int32))
+
+
+def _skewed(k):
+    """Stream 5 of all-rare bytes leaves a 2-pair band (the JAX suite's
+    violation case)."""
+    n = k * ILS_LANES
+    data = np.zeros(n, np.uint8)
+    rare = np.arange(1, 256, dtype=np.uint8)
+    data[::129] = rare[np.arange((n + 128) // 129) % 255]
+    u32_idx = np.arange(5, n // 4, ILS_LANES)
+    byte_idx = (u32_idx[:, None] * 4 + np.arange(4)[None]).reshape(-1)
+    data[byte_idx] = rare[np.arange(byte_idx.size) % 255]
+    return data
+
+
+# (k, data, rot, e_band) at the JAX suite's shapes (tests/test_ils.py)
+_A2_CASES = {
+    "r=0.5 k=64 rot": lambda: (64, generate_redundant(2 * 64 * ILS_LANES, 0.5,
+                                                      seed=31), True, 32),
+    "r=0.9 k=12 rot": lambda: (12, generate_redundant(2 * 12 * ILS_LANES, 0.9,
+                                                      seed=4), True, 32),
+    "zeros|uniform k=256": lambda: (256, _heterogeneous(256), False, 8),
+    "skewed k=48": lambda: (48, _skewed(48), False, 2),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _a2_reference(case, anchor):
+    """(port data, enc, snum, kw, JAX outputs, plain outputs) of a case."""
+    k, data, rot, e_band = _A2_CASES[case]()
+    jt, pt, snum, jd, td, ml = _case(data, k)
+    kw = dict(k=k, stride_rows=max(2 * (-(-k * ml // 64)), 4), rot=rot,
+              e_band=e_band, anchor=anchor)
+    ref = jk.ils_pack_certify(jd, _jparams(snum), jk.ils_enc_tabs(jt),
+                              interpret=True, **kw)
+    enc = tk.ils_enc_tabs(pt)
+    plain = tk.ils_pack_certify(td, snum, enc, **kw)
+    return td, enc, snum, kw, ref, plain
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("anchor", ["mu", "laggard"])
+@pytest.mark.parametrize("case", list(_A2_CASES))
+def test_a2_chunk_model_matches_plain_and_jax(case, anchor, C):
+    td, enc, snum, kw, ref, plain = _a2_reference(case, anchor)
+    G = tk.flush_group(kw["k"], kw["e_band"])
+    got = _a2_chunked(td.numpy(), enc.numpy(), snum=snum, G=G,
+                      bounds=_chunk_bounds(kw["k"] // 4, G, C), **kw)
+    for name, a, b, p in zip(("pay", "bits", "dn", "dx", "viol"), ref, got,
+                             plain):
+        assert np.array_equal(b, p.numpy()), name
+        assert np.array_equal(np.asarray(a).reshape(b.shape), b), name
+    if case == "skewed k=48" and anchor == "mu":
+        assert got[4].max() == 1
+
+
+@pytest.mark.parametrize("anchor", ["mu", "laggard"])
+def test_a2_chunk_model_whole_windows(anchor):
+    # the kernel's geometry at k=2048 (certify_chunks: 2 chunks of 4
+    # windows) and one chunk a window, on 2 tiles; bodies 128-255 of tile 0
+    # hold only bytes the table lacks (no code bits: the next chunk's seed
+    # walks back over them into the bodies before)
+    k = 2048
+    data = generate_redundant(2 * k * ILS_LANES, 0.5, seed=33)
+    data[data >= 200] = 65
+    jt = _fit(data)
+    data[128 * 4 * ILS_LANES : 256 * 4 * ILS_LANES] = 201
+    pt = code_table_from_numpy(jt.lengths, jt.max_len)
+    snum = ils_schedule_numer(float(jt.lengths.astype(np.int64)[data].mean()))
+    td = torch.from_numpy(data.view(np.int32).reshape(-1, ILS_LANES).copy())
+    enc = tk.ils_enc_tabs(pt)
+    for rot, e_band in ((False, 32), (True, 8)):
+        kw = dict(k=k, stride_rows=max(2 * (-(-k * jt.max_len_present // 64)),
+                                       4), rot=rot, e_band=e_band,
+                  anchor=anchor)
+        plain = tk.ils_pack_certify(td, snum, enc, **kw)
+        G = tk.flush_group(k, e_band)
+        chunks, chunk_win = tk.certify_chunks(k)
+        assert (chunks, chunk_win) == (2, 4)
+        for win in (chunk_win, 1):
+            bounds = list(range(0, k // 4, 64 * win)) + [k // 4]
+            got = _a2_chunked(td.numpy(), enc.numpy(), snum=snum, G=G,
+                              bounds=bounds, **kw)
+            for name, b, p in zip(("pay", "bits", "dn", "dx", "viol"), got,
+                                  plain):
+                assert np.array_equal(b, p.numpy()), (name, rot, win)
+
+
+@pytest.mark.parametrize("k,chunks", [(8, 1), (12, 1), (256, 1), (1024, 1),
+                                      (2048, 2), (4096, 4), (8192, 8),
+                                      (16384, 16)])
+def test_certify_chunks_geometry(k, chunks):
+    # every k of pick_k (2048-16384), the k=8 tail, the tests' 12, 256 and
+    # 1024: C chunks of whole windows, the last possibly shorter, each a
+    # flush boundary (G in {1, 2} divides a window's 64 bodies); the 256
+    # MiB main section (64 tiles at k=4096) gives every SM of an H100 (132)
+    # one block and fills at most its two-block slots in one wave
+    C, win = tk.certify_chunks(k)
+    n_win = -(-(k // 4) // 64)
+    assert C == chunks and (C - 1) * win < n_win <= C * win
+    if k == 4096:
+        assert 132 < 64 * C <= 2 * 132
 
 
 def test_compact_matches():
