@@ -11,10 +11,10 @@ failure raises and exits non-zero with the traceback):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, build time,
    and what ptxas reported for every kernel (registers, static shared
-   memory, stack and spill bytes), with the geometry of B4b, B1, C2, B2
-   and A2 (`row_pack_tile`, `ranks_tile`, `sync_tile`, `place_tile`,
-   `certify_chunks`) and A1's length-and-symbol table, a line each for
-   those six.
+   memory, stack and spill bytes), with the geometry of B4b, B4c, B1,
+   C2, B2 and A2 (`row_pack_tile`, `meta_tile`, `ranks_tile`,
+   `sync_tile`, `place_tile`, `certify_chunks`), B4d's rows a warp and
+   A1's length-and-symbol table, a line each for those eight.
 2. Kernels A1-A5 against their plain PyTorch versions on the card, bit for
    bit, on: 4 tiles at k=4096 of generate_redundant(r=0.5) with rotation
    off and on (A2 in its chunks, `certify_chunks`); the zeros-then-uniform
@@ -113,7 +113,7 @@ failure raises and exits non-zero with the traceback):
    before it under "htc1"."kernels", phase 11-12's results under
    "portable", and B1/B2/C1/C2 at the foreign paths' shapes under
    "yamamoto"."kernels" and "selfsync"."kernels".  The rows of A1, A2,
-   B1, B2, B4b and C2 also carry their "ptxas" report.  Then the card
+   B1, B2, B4b-B4d and C2 also carry their "ptxas" report.  Then the card
    line, then the device line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
@@ -522,19 +522,20 @@ def gap_encode_cases(stats, ge, codec, blocks, label, timing=None):
     g, b = blocks.shape
     n = g * b
     rows = blocks.view(torch.int32).view(-1, 32)
-    pk = dict(cap_words=ge.row_cap_words(codec.table.max_len_present))
+    max_len = max(codec.table.max_len_present, 1)
+    pk = dict(cap_words=ge.row_cap_words(max_len))
     got = ge.gap_row_pack(rows, codec.enc, **pk)
     stats.check("gap_row_pack", got,
                 ge.gap_row_pack_plain(rows, codec.enc, **pk), label)
-    pay, bits, starts = got
+    pay, bits = got
     bits_blk = bits.view(g, -1).to(torch.int64)
     s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
     dcomp = codec.encode_device(blocks)
     mk = dict(rows_per_block=b // 128, n_segs=dcomp.counts.shape[1],
               seg_bits=codec.seg_bits)
-    got = ge.gap_row_meta(starts, s_local, **mk)
+    got = ge.gap_row_meta(rows, codec.enc, s_local, max_len=max_len, **mk)
     stats.check("gap_row_meta", got,
-                ge.gap_row_meta_plain(starts, s_local, **mk), label)
+                ge.gap_row_meta_plain(rows, codec.enc, s_local, **mk), label)
     if not torch.equal(got[0], dcomp.counts):
         raise AssertionError(f"gap_row_meta counts of {label} differ from "
                              f"encode_device's")
@@ -552,14 +553,16 @@ def gap_encode_cases(stats, ge, codec, blocks, label, timing=None):
         timing["gap_row_pack"] = timed(
             "gap_row_pack", lambda: ge.gap_row_pack(rows, codec.enc, **pk),
             lambda: ge.gap_row_pack_plain(rows, codec.enc, **pk), 10,
-            bytes=n + pay.numel() * 4 + bits.numel() * 4 + starts.numel() * 2,
+            bytes=n + pay.numel() * 4 + bits.numel() * 4,
             ops=8 * n, shape=list(pay.shape))
+        # B4c reads the input bytes (its starts are derived, not stored)
         timing["gap_row_meta"] = timed(
-            "gap_row_meta", lambda: ge.gap_row_meta(starts, s_local, **mk),
-            lambda: ge.gap_row_meta_plain(starts, s_local, **mk), 10,
-            bytes=starts.numel() * 2 + s_local.numel() * 8
-            + dcomp.counts.numel() * 8, ops=3 * n,
-            shape=list(dcomp.counts.shape))
+            "gap_row_meta",
+            lambda: ge.gap_row_meta(rows, codec.enc, s_local,
+                                    max_len=max_len, **mk),
+            lambda: ge.gap_row_meta_plain(rows, codec.enc, s_local, **mk), 10,
+            bytes=n + s_local.numel() * 8 + dcomp.counts.numel() * 8,
+            ops=3 * n, shape=list(dcomp.counts.shape))
         timing["gap_place_bits"] = timed(
             "gap_place_bits", lambda: ge.gap_place_bits(pay, bits, s_local, **bk),
             lambda: ge.gap_place_bits_plain(pay, bits, s_local, **bk), 10,
@@ -1030,6 +1033,14 @@ def main(argv=None) -> int:
          + ", ".join(f"{c} words {ge.row_pack_tile(c)[1]} B"
                      for c in (16, 32, 48, 64))
          + f", {ge.row_pack_tile(64)[0]} rows a block"),
+        ("gap_row_meta", "window meta_tile(seg_bits, max_len) (rows, "
+         "segments, bytes): " + ", ".join(
+             f"{b}/{m} {ge.meta_tile(b, m)}"
+             for b, m in ((8, 16), (128, 12), (1024, 12), (1024, 16),
+                          (8192, 16)))
+         + "; the 1 KB length table static"),
+        ("gap_place_bits", "8 lanes a row (16-byte quads), 4 rows a warp "
+         "step, 128 rows a block"),
         ("gap_decode_ranks", "dynamic tile ranks_tile(max_count): "
          f"{gd.ranks_tile(1 << 20)[2]} B at most, "
          f"{gd.ranks_tile(1)[0]} rows a block, column chunk "

@@ -9,12 +9,14 @@ tensor runs the plain version.  A block is cut into rows of
 
 - `gap_row_pack` (B4b; the input relayout B4a and B3's encode use are its
   addressing): each row packed MSB-first into ``cap_words`` u32 words,
-  with its bit count and each symbol's start bit within the row; a CUDA
-  block packs `row_pack_tile`'s R rows through shared-memory tiles;
+  with its bit count; a CUDA block packs `row_pack_tile`'s R rows through
+  shared-memory tiles;
 - `gap_row_meta` (B4c): per segment, the number of codewords starting in
-  it and its first start;
+  it and its first start, from the input rows and the code lengths (the
+  starts are not stored); a CUDA block takes `meta_tile`'s R rows and
+  their window of segments;
 - `gap_place_bits` (B4d): each row's bits written at its block-local start
-  bit of the output;
+  bit of the output, 8 CUDA lanes a row, 16-byte quads;
 - `encode_blocks`: the three, with the per-block cumsum of row bits and the
   gap formula between them as plain tensor code (the JAX package's XLA
   glue).  The TPU's VMEM geometry (`_geometry`, `_flush_window`, chunk
@@ -41,6 +43,8 @@ __all__ = [
     "ROW_BYTES",
     "row_cap_words",
     "row_pack_tile",
+    "meta_tile",
+    "row_starts",
     "gap_row_pack",
     "gap_row_pack_plain",
     "gap_row_meta",
@@ -56,7 +60,10 @@ ROW_BYTES = 128  # input bytes per row
 ROW_WORDS = ROW_BYTES // 4
 _INT32_MAX = (1 << 31) - 1
 PACK_ROWS = 128  # rows of a B4b block
-_ST_CHUNK = 32  # starts staged per pass of B4b, symbols
+META_MAX_ROWS = 512  # rows of a B4c block, at most
+# B4c's window bytes, at most: with its static 1 KB length table, under the
+# 48 KB a CUDA block gets without opting in
+_META_SMEM = 47104
 
 
 def row_cap_words(max_len: int) -> int:
@@ -67,11 +74,25 @@ def row_cap_words(max_len: int) -> int:
 
 def row_pack_tile(cap_words: int) -> tuple[int, int]:
     """(rows per block, dynamic shared-memory bytes) of B4b: tiles of the
-    block's input (pitch 33 words), packed words (cap_words + 1) and one
-    chunk of starts (34 int16), each pitch odd in words.  At most 58,880
-    bytes (cap_words 64); ``csrc/gap_encode.cu`` checks the same sum."""
-    pitch_words = ROW_WORDS + 1 + cap_words + 1 + (_ST_CHUNK + 2) // 2
-    return PACK_ROWS, 4 * PACK_ROWS * pitch_words
+    block's input (pitch 33 words) and packed words (cap_words + 1), each
+    pitch odd in words.  At most 50,176 bytes (cap_words 64);
+    ``csrc/gap_encode.cu`` checks the same sum."""
+    return PACK_ROWS, 4 * PACK_ROWS * (ROW_WORDS + 1 + cap_words + 1)
+
+
+def meta_tile(seg_bits: int, max_len: int) -> tuple[int, int, int]:
+    """(rows, window segments, dynamic shared-memory bytes) of a B4c block:
+    the most rows, a power of two up to 512, whose window (the segments R
+    rows of max_len-bit codes can span, ceil(R * 128 * max_len / seg_bits)
+    + 1) holds in 47,104 bytes at two ints a segment.  R is 512 at seg_bits
+    >= 256 for every max_len and 16 at seg_bits 8, max_len 16;
+    ``csrc/gap_encode.cu`` checks the same window."""
+    rows = META_MAX_ROWS
+    while True:
+        window = -(-rows * ROW_BYTES * max_len // seg_bits) + 1
+        if 8 * window <= _META_SMEM or rows == 1:
+            return rows, window, 8 * window
+        rows //= 2
 
 
 def _low_bits(x, n):
@@ -79,12 +100,25 @@ def _low_bits(x, n):
     return x & ((1 << n) - 1)
 
 
+def _row_codes(rows, enc):
+    """Each symbol's (len << 20) | code entry, (n_rows, 128) int64."""
+    return enc.to(torch.int64)[rows.view(torch.uint8).to(torch.int64)]
+
+
+def row_starts(rows, enc):
+    """Each symbol's start bit within its row, (n_rows, 128) int64: the
+    exclusive cumsum of the rows' code lengths (a byte the table lacks
+    has length 0 and starts where the next symbol does)."""
+    ln = _row_codes(rows, enc) >> 20
+    return torch.cumsum(ln, 1) - ln
+
+
 # ----------------------------------------------------------------------
 # B4b: row pack
 # ----------------------------------------------------------------------
 def gap_row_pack_plain(rows, enc, *, cap_words):
     n_rows = rows.shape[0]
-    e = enc.to(torch.int64)[rows.view(torch.uint8).to(torch.int64)]
+    e = _row_codes(rows, enc)
     ln = e >> 20
     left = ((e & 0xFFFF) << (32 - ln)) & _M32  # ln == 0 gives 0
     ends = torch.cumsum(ln, 1)
@@ -97,8 +131,7 @@ def gap_row_pack_plain(rows, enc, *, cap_words):
     pay.scatter_add_(1, w0.clamp(max=cap_words), left >> sh)
     pay.scatter_add_(1, (w0 + 1).clamp(max=cap_words),
                      _low_bits(left, sh) << (32 - sh))
-    return (_to_i32(pay[:, :cap_words]), ends[:, -1].to(torch.int32),
-            starts.to(torch.int16))
+    return _to_i32(pay[:, :cap_words]), ends[:, -1].to(torch.int32)
 
 
 def gap_row_pack(rows, enc, *, cap_words):
@@ -107,8 +140,7 @@ def gap_row_pack(rows, enc, *, cap_words):
     ``(len << 20) | code`` (`ils_kernels.ils_enc_tabs`).
 
     Returns (pay (n_rows, cap_words) int32 — MSB-first u32 words, zero past
-    the row's bits —, bits (n_rows,) int32, starts (n_rows, 128) int16
-    start bit of each symbol within its row)."""
+    the row's bits —, bits (n_rows,) int32)."""
     _check("rows", rows, torch.int32)
     if rows.dim() != 2 or rows.shape[1] != ROW_WORDS:
         raise ValueError(f"rows must be (n_rows, {ROW_WORDS}), got "
@@ -124,26 +156,26 @@ def gap_row_pack(rows, enc, *, cap_words):
     dev = rows.device
     pay = torch.empty((n_rows, cap_words), dtype=torch.int32, device=dev)
     bits = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    starts = torch.empty((n_rows, ROW_BYTES), dtype=torch.int16, device=dev)
     if n_rows == 0:
-        return pay, bits, starts
+        return pay, bits
     tile_rows, smem = row_pack_tile(cap_words)
     rc = _lib("gap_encode").gap_row_pack_launch(
         rows.data_ptr(), enc.data_ptr(), pay.data_ptr(), bits.data_ptr(),
-        starts.data_ptr(), n_rows, cap_words, tile_rows, smem, _stream(rows),
+        n_rows, cap_words, tile_rows, smem, _stream(rows),
     )
     _launched(gap_row_pack, rc)
-    return pay, bits, starts
+    return pay, bits
 
 
 # ----------------------------------------------------------------------
 # B4c: segment metadata
 # ----------------------------------------------------------------------
-def gap_row_meta_plain(starts, s_local, *, rows_per_block, n_segs, seg_bits):
-    dev = starts.device
-    n_rows = starts.shape[0]
+def gap_row_meta_plain(rows, enc, s_local, *, rows_per_block, n_segs,
+                       seg_bits):
+    dev = rows.device
+    n_rows = rows.shape[0]
     g_n = n_rows // rows_per_block
-    a = s_local[:, None] + starts.to(torch.int64)
+    a = s_local[:, None] + row_starts(rows, enc)
     seg = a >> (seg_bits.bit_length() - 1)
     g = torch.arange(n_rows, device=dev)[:, None] // rows_per_block
     ok = (seg >= 0) & (seg < n_segs)
@@ -157,36 +189,53 @@ def gap_row_meta_plain(starts, s_local, *, rows_per_block, n_segs, seg_bits):
             firsts[:-1].to(torch.int32).view(g_n, n_segs))
 
 
-def gap_row_meta(starts, s_local, *, rows_per_block, n_segs, seg_bits):
+def gap_row_meta(rows, enc, s_local, *, rows_per_block, n_segs, seg_bits,
+                 max_len=16):
     """Per-segment metadata of G blocks of rows_per_block rows each.
 
-    starts: (n_rows, 128) int16 from `gap_row_pack`; s_local: (n_rows,)
-    int64 block-local start bit of each row.  Returns (counts, firsts),
-    each (G, n_segs) int32: the codewords starting in each segment and
-    the first start bit (block-local), INT32_MAX where none starts."""
-    _check("starts", starts, torch.int16)
-    n_rows = starts.shape[0]
-    if starts.dim() != 2 or starts.shape[1] != ROW_BYTES or rows_per_block <= 0 \
+    rows: (n_rows, 32) int32 input words, as `gap_row_pack` takes them;
+    enc: its (256,) int32 ``(len << 20) | code`` table; s_local: (n_rows,)
+    int64 block-local start bit of each row, the per-block exclusive cumsum
+    of the rows' bits.  Every one of a row's 128 symbols is a codeword
+    start, at its row-local start (`row_starts`) plus s_local; starts
+    outside [0, n_segs) segments are dropped.  Returns (counts, firsts),
+    each (G, n_segs) int32: the codewords starting in each segment and the
+    first start bit (block-local), INT32_MAX where none starts; the kernel
+    gives the plain version's result for such an s_local, and stays inside
+    its buffers for any other.  max_len (at least the table's longest
+    code, at most 16) sizes the kernel's window of segments (`meta_tile`)
+    only."""
+    _check("rows", rows, torch.int32)
+    n_rows = rows.shape[0]
+    if rows.dim() != 2 or rows.shape[1] != ROW_WORDS or rows_per_block <= 0 \
             or n_rows % rows_per_block:
-        raise ValueError(f"starts must be (G * {rows_per_block}, {ROW_BYTES}), "
-                         f"got {tuple(starts.shape)}")
+        raise ValueError(f"rows must be (G * {rows_per_block}, {ROW_WORDS}), "
+                         f"got {tuple(rows.shape)}")
     if seg_bits <= 0 or seg_bits & (seg_bits - 1):
         raise ValueError("seg_bits must be a power of two")
+    if not 1 <= max_len <= 16:
+        raise ValueError(f"max_len must be in [1, 16], got {max_len}")
+    _check("enc", enc, torch.int32, (256,))
     _check("s_local", s_local, torch.int64, (n_rows,))
-    _same_device(starts, s_local)
+    _same_device(rows, enc, s_local)
     kw = dict(rows_per_block=rows_per_block, n_segs=n_segs, seg_bits=seg_bits)
-    if not _use_kernel(starts):
-        return gap_row_meta_plain(starts, s_local, **kw)
+    if not _use_kernel(rows):
+        return gap_row_meta_plain(rows, enc, s_local, **kw)
+    if rows.data_ptr() % 16:
+        # the kernel reads each row with 16-byte loads
+        raise ValueError("rows must be 16-byte aligned")
     g_n = n_rows // rows_per_block
-    counts = torch.zeros((g_n, n_segs), dtype=torch.int32, device=starts.device)
+    counts = torch.zeros((g_n, n_segs), dtype=torch.int32, device=rows.device)
     firsts = torch.full((g_n, n_segs), _INT32_MAX, dtype=torch.int32,
-                        device=starts.device)
+                        device=rows.device)
     if n_rows == 0:
         return counts, firsts
+    tile_rows, window, smem = meta_tile(seg_bits, max_len)
     rc = _lib("gap_encode").gap_row_meta_launch(
-        starts.data_ptr(), s_local.data_ptr(), counts.data_ptr(),
+        rows.data_ptr(), enc.data_ptr(), s_local.data_ptr(), counts.data_ptr(),
         firsts.data_ptr(), n_rows, rows_per_block, n_segs,
-        seg_bits.bit_length() - 1, _stream(starts),
+        seg_bits.bit_length() - 1, max_len, tile_rows, window, smem,
+        _stream(rows),
     )
     _launched(gap_row_meta, rc)
     return counts, firsts
@@ -239,6 +288,9 @@ def gap_place_bits(pay, bits, s_local, *, rows_per_block, out_words):
     out = torch.zeros((g_n, out_words), dtype=torch.int32, device=pay.device)
     if n_rows == 0:
         return out
+    if pay.shape[1] % 4 == 0 and pay.data_ptr() % 16:
+        # the kernel reads rows of whole 16-byte quads with 16-byte loads
+        raise ValueError("pay must be 16-byte aligned")
     rc = _lib("gap_encode").gap_place_bits_launch(
         pay.data_ptr(), bits.data_ptr(), s_local.data_ptr(), out.data_ptr(),
         n_rows, rows_per_block, pay.shape[1], out_words, _stream(pay),
@@ -269,7 +321,7 @@ def encode_blocks(blocks, enc, *, seg_bits, max_words, n_segs, max_len):
         # aligned for the int32 view and the kernel's 16-byte row loads
         blocks = blocks.clone(memory_format=torch.contiguous_format)
     rows = blocks.view(torch.int32).view(g_n * rows_b, ROW_WORDS)
-    pay, bits, starts = gap_row_pack(rows, enc, cap_words=row_cap_words(max_len))
+    pay, bits = gap_row_pack(rows, enc, cap_words=row_cap_words(max_len))
 
     # XLA glue of the JAX package: per-block cumsum of the row bits
     bits_blk = bits.view(g_n, rows_b).to(torch.int64)
@@ -277,8 +329,9 @@ def encode_blocks(blocks, enc, *, seg_bits, max_words, n_segs, max_len):
     total_bits = ends[:, -1:]
     s_local = (ends - bits_blk).reshape(-1)
 
-    counts, firsts = gap_row_meta(starts, s_local, rows_per_block=rows_b,
-                                  n_segs=n_segs, seg_bits=seg_bits)
+    counts, firsts = gap_row_meta(rows, enc, s_local, rows_per_block=rows_b,
+                                  n_segs=n_segs, seg_bits=seg_bits,
+                                  max_len=max_len)
     bounds = torch.arange(n_segs, dtype=torch.int64,
                           device=blocks.device)[None] * seg_bits
     # a start-less segment below total_bits (the last codeword straddles

@@ -168,13 +168,15 @@ def test_gap_kernels_match_plain(cuda, kind, g, b, seg_bits):
     cap = ge.row_cap_words(codec.table.max_len_present)
     got = ge.gap_row_pack(rows, codec.enc, cap_words=cap)
     assert _equal(got, ge.gap_row_pack_plain(rows, codec.enc, cap_words=cap))
-    pay, bits, starts = got
+    pay, bits = got
     bits_blk = bits.view(g, -1).to(torch.int64)
     s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
     n_segs = -(-int(bits_blk.sum(1).max()) // seg_bits) + 2
     kw = dict(rows_per_block=b // 128, n_segs=n_segs, seg_bits=seg_bits)
-    assert _equal(ge.gap_row_meta(starts, s_local, **kw),
-                  ge.gap_row_meta_plain(starts, s_local, **kw))
+    assert _equal(ge.gap_row_meta(rows, codec.enc, s_local,
+                                  max_len=max(codec.table.max_len_present, 1),
+                                  **kw),
+                  ge.gap_row_meta_plain(rows, codec.enc, s_local, **kw))
     kw = dict(rows_per_block=b // 128, out_words=n_segs * seg_bits // 32 + 1)
     assert _equal(ge.gap_place_bits(pay, bits, s_local, **kw),
                   ge.gap_place_bits_plain(pay, bits, s_local, **kw))
@@ -261,11 +263,69 @@ def test_gap_row_pack_tile_edges(cuda, n_rows):
         rows = torch.from_numpy(data.view(np.int32).reshape(n_rows, 32)
                                 .copy()).to(cuda)
         for cap in (ge.row_cap_words(table.max_len_present), 6):
-            assert _equal(ge.gap_row_pack(rows, enc, cap_words=cap),
-                          ge.gap_row_pack_plain(rows, enc, cap_words=cap)), \
+            got = ge.gap_row_pack(rows, enc, cap_words=cap)
+            assert len(got) == 2  # (pay, bits): no starts since B4c reads rows
+            assert _equal(got, ge.gap_row_pack_plain(rows, enc, cap_words=cap)), \
                 (kind, cap)
     assert ge.row_cap_words(_map_case("max_len=16")[1].max_len_present) == 64
     assert ge.launch_counts()["gap_row_pack"] == 4
+
+
+@pytest.mark.parametrize("n_rows", [1, 3, 129, 4097])
+def test_gap_row_meta_place_bits_edges(cuda, n_rows):
+    # B4c and B4d at row counts around their tiles, with HTC1 blocks of 1,
+    # 32, 512 and n_rows rows (the rows rounded up to whole blocks: tiles
+    # cut at a block's end); a 16-bit-deep table and one lacking bytes
+    # (length 0, a row of them all: 128 starts at one bit, 0 bits placed);
+    # seg_bits 8 (tiles of 16 rows, runs cut mid-segment), 128, 1024 and
+    # 8192; n_segs and out_words cut short; a row of 0 bits whose words
+    # are not zero; B4d also at cap_words 6
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
+
+    rng = np.random.default_rng(n_rows + 7)
+    ge.reset_launch_counts()
+    calls = 0
+    for kind, deep in (("max_len=16", 55), ("lacks", 200)):
+        sample, table = _map_case(kind)
+        enc = tk.ils_enc_tabs(table, cuda)
+        max_len = max(table.max_len_present, 1)
+        cap = ge.row_cap_words(max_len)
+        for rpb in (1, 32, 512, n_rows):
+            n = -(-n_rows // rpb) * rpb
+            data = rng.choice(sample, n * 128)
+            data[-128:] = deep
+            if n > 2:
+                data[128:256] = deep
+            rows = torch.from_numpy(data.view(np.int32).reshape(n, 32)
+                                    .copy()).to(cuda)
+            pay, bits = ge.gap_row_pack(rows, enc, cap_words=cap)
+            bits_blk = bits.view(-1, rpb).to(torch.int64)
+            s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+            top = int(bits_blk.sum(1).max())
+            for seg_bits in (8, 128, 1024, 8192):
+                full = -(-top // seg_bits) + 1
+                for n_segs in (full, max(full // 2, 1)):
+                    kw = dict(rows_per_block=rpb, n_segs=n_segs,
+                              seg_bits=seg_bits)
+                    assert _equal(
+                        ge.gap_row_meta(rows, enc, s_local, max_len=max_len,
+                                        **kw),
+                        ge.gap_row_meta_plain(rows, enc, s_local, **kw)), \
+                        (kind, rpb, seg_bits, n_segs)
+                    calls += 1
+            zeroed = bits.clone()
+            zeroed[n // 2] = 0
+            # cap_words 6: rows cut short, no 16-byte quads (word loads)
+            pay6, bits6 = ge.gap_row_pack(rows, enc, cap_words=6)
+            for out_words in (top // 32 + 2, max(top // 64, 1)):
+                for p, b in ((pay, bits), (pay, zeroed), (pay6, bits6)):
+                    kw = dict(rows_per_block=rpb, out_words=out_words)
+                    assert _equal(
+                        ge.gap_place_bits(p, b, s_local, **kw),
+                        ge.gap_place_bits_plain(p, b, s_local, **kw)), \
+                        (kind, rpb, out_words, p.shape[1])
+    assert ge.launch_counts()["gap_row_meta"] == calls
+    assert ge.launch_counts()["gap_place_bits"] == 2 * 4 * 2 * 3
 
 
 def test_gap_decode_kernels_stay_inside_buffers(cuda):

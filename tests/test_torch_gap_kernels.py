@@ -375,7 +375,10 @@ def test_row_pack_meta_place_match_oracle(kind):
     _, pt = _tables(data)
     rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
     cap = ge.row_cap_words(pt.max_len_present)
-    pay, bits, starts = ge.gap_row_pack(rows, ils_enc_tabs(pt), cap_words=cap)
+    enc = ils_enc_tabs(pt)
+    pay, bits = ge.gap_row_pack(rows, enc, cap_words=cap)
+    # the starts B4c derives (not stored since B4b stopped writing them)
+    starts = ge.row_starts(rows, enc)
     lens = pt.lengths.astype(np.int64)
     for r in range(8):
         row = data[128 * r : 128 * (r + 1)]
@@ -389,7 +392,7 @@ def test_row_pack_meta_place_match_oracle(kind):
     # two blocks of four rows each
     bits_blk = bits.view(2, 4).to(torch.int64)
     s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
-    counts, firsts = ge.gap_row_meta(starts, s_local, rows_per_block=4,
+    counts, firsts = ge.gap_row_meta(rows, enc, s_local, rows_per_block=4,
                                      n_segs=40, seg_bits=128)
     words = ge.gap_place_bits(pay, bits, s_local, rows_per_block=4,
                               out_words=300)
@@ -410,6 +413,234 @@ def test_row_pack_meta_place_match_oracle(kind):
         assert (firsts[g, ns:].numpy() == 2**31 - 1).all()
 
 
+_I32_MAX = 2**31 - 1
+
+
+def _b4c_tiles(data_rows, lens, s_local, rows_per_block, n_segs, seg_bits,
+               max_len, tile_rows=None, seed=0):
+    """A NumPy model of csrc/gap_encode.cu's B4c: tiles of `meta_tile`'s R
+    rows (or `tile_rows`) of one HTC1 block each, taken in a random order;
+    8 lanes a row, 16 symbols a lane, a lane's head past one segment
+    boundary counted in closed form; a run of starts in one segment is
+    added once, by the lane that holds its head, with the distance to the
+    next head (a suffix minimum over the lanes above); runs go to the
+    tile's window of segments, or straight to the block's metadata outside
+    it, or are dropped outside [0, n_segs).  Then segments strictly inside
+    (base, hi) are assigned (a plain store: a neighbour's count there would
+    be lost) and the rest of the window is added (the atomics)."""
+    n_rows = data_rows.shape[0]
+    g_n = n_rows // rows_per_block
+    shift = seg_bits.bit_length() - 1
+    rows, window, _ = ge.meta_tile(seg_bits, max_len)
+    if tile_rows is not None:
+        rows = tile_rows
+        window = -(-rows * 128 * max_len // seg_bits) + 1
+    counts = np.zeros((g_n, n_segs), np.int64)
+    firsts = np.full((g_n, n_segs), _I32_MAX, np.int64)
+    tiles = [(g, t0) for g in range(g_n) for t0 in range(0, rows_per_block, rows)]
+    np.random.default_rng(seed).shuffle(tiles)
+    for g, t0 in tiles:
+        nv = min(rows, rows_per_block - t0)
+        r0 = g * rows_per_block + t0
+        base = int(s_local[r0]) >> shift
+        cnt_s = np.zeros(window, np.int64)
+        fst_s = np.full(window, _I32_MAX, np.int64)
+
+        def put(seg, n, first):
+            w = seg - base
+            if 0 <= w < window:
+                cnt_s[w] += n
+                fst_s[w] = min(fst_s[w], first)
+            elif 0 <= seg < n_segs:
+                counts[g, seg] += n
+                firsts[g, seg] = min(firsts[g, seg], first)
+
+        for r in range(r0, r0 + nv):
+            ln = lens[data_rows[r]]
+            a = int(s_local[r]) + np.cumsum(ln) - ln
+            seg = a >> shift
+            heads = []  # per lane: its head positions
+            for lane in range(8):
+                q = np.arange(16 * lane, 16 * lane + 16)
+                seg0, seg_last = int(seg[q[0]]), int(seg[q[-1]])
+                head0 = lane == 0 or seg0 != seg[q[0] - 1]
+                if seg_last - seg0 <= 1:
+                    # one boundary at most: its head counted in closed form
+                    h = [q[0]] if head0 else []
+                    if seg_last != seg0:
+                        to_bound = ((seg0 + 1) << shift) - int(a[q[0]])
+                        x = a[q] - a[q[0]]
+                        h.append(q[0] + int((x < to_bound).sum()))
+                else:
+                    h = [p for p in q if (p == q[0] and head0)
+                         or (p != q[0] and seg[p] != seg[p - 1])]
+                heads.append(h)
+            first_head = [h[0] if h else 128 for h in heads]
+            for lane in range(8):
+                nxt = min(first_head[lane + 1:], default=128)
+                ends = heads[lane][1:] + [nxt]
+                for p, e in zip(heads[lane], ends):
+                    put(int(seg[p]), e - p, int(a[p]))
+            if r == r0 + nv - 1:
+                hi = int(seg[-1])
+        for j in range(window):
+            sg = base + j
+            if not 0 <= sg < n_segs:
+                continue
+            if j > 0 and sg < hi:
+                counts[g, sg] = cnt_s[j]
+                firsts[g, sg] = fst_s[j]
+            elif cnt_s[j]:
+                counts[g, sg] += cnt_s[j]
+                firsts[g, sg] = min(firsts[g, sg], fst_s[j])
+    return counts, firsts
+
+
+def _lacking_table(data):
+    """The table of `data` with bytes >= 200 replaced: those bytes have
+    length 0 in it."""
+    return _tables(np.where(data >= 200, 65, data).astype(np.uint8))
+
+
+@pytest.mark.parametrize("case", [
+    # (kind, blocks, bytes a block, seg_bits, n_segs cut, tile rows)
+    ("0.5", 2, 4096, 1024, None, None),
+    ("0.5", 2, 4096, 8, None, None),      # R = 16: tiles cut each block
+    ("0.3", 3, 2560, 8, None, None),      # 20 rows: tiles of 16 and 4
+    ("0.5", 1, 8192, 8192, None, None),
+    ("0.9", 2, 4096, 128, 9, None),       # n_segs cut short
+    ("lacks", 2, 4096, 128, None, 3),     # length-0 bytes, tiles of 3 rows
+    ("single", 2, 2048, 8, None, 1),      # 1-bit codes, a tile a row
+    ("0.5", 1, 4096, 64, None, 5),        # 5 rows: tiles cut mid-segment
+])
+def test_b4c_tile_model_matches_plain_and_jax(case):
+    kind, g, b, seg_bits, cut, tile_rows = case
+    data = _input("0.5" if kind == "lacks" else kind, g * b, 9)
+    if kind == "lacks":
+        data[::37] = 200 + np.arange(data[::37].size) % 56
+        data[128:256] = 201  # a row of 0 bits: 128 starts at one bit
+        jt, pt = _lacking_table(data)
+    else:
+        jt, pt = _tables(data)
+    lens = pt.lengths.astype(np.int64)
+    enc = ils_enc_tabs(pt)
+    rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
+    max_len = max(pt.max_len_present, 1)
+    pay, bits = ge.gap_row_pack(rows, enc, cap_words=ge.row_cap_words(max_len))
+    bits_blk = bits.view(g, -1).to(torch.int64)
+    s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+    total = bits_blk.sum(1).numpy()
+    max_words = -(-(-(-int(total.max()) // 32)) // 512) * 512
+    n_segs = cut or -(-max_words * 32 // seg_bits)
+    kw = dict(rows_per_block=b // 128, n_segs=n_segs, seg_bits=seg_bits)
+    ref = ge.gap_row_meta_plain(rows, enc, s_local, **kw)
+    model = _b4c_tiles(data.reshape(-1, 128), lens, s_local.numpy(),
+                       max_len=max_len, tile_rows=tile_rows, **kw)
+    for a, r in zip(model, ref):
+        assert np.array_equal(a, r.numpy())
+    # a window sized for 1-bit codes: most runs go straight to the block's
+    # metadata, with the same result
+    small = _b4c_tiles(data.reshape(-1, 128), lens, s_local.numpy(),
+                       max_len=1, tile_rows=tile_rows, seed=1, **kw)
+    for a, r in zip(small, ref):
+        assert np.array_equal(a, r.numpy())
+    if kind == "lacks" or cut or seg_bits < 64:
+        return  # the JAX kernel's slots; its oracle holds the rest
+    # the JAX pipeline's counts, and its gaps from the model's firsts as
+    # encode_blocks derives them
+    jref, pallas = _jax_encode(data.reshape(g, b), jt, seg_bits, max_words,
+                               n_segs)
+    counts, firsts = model
+    bounds = np.arange(n_segs, dtype=np.int64)[None] * seg_bits
+    gaps = np.where(bounds < total[:, None],
+                    np.minimum(firsts, total[:, None]) - bounds, 0)
+    for p in (jref, pallas):
+        assert np.array_equal(counts, p[3])
+        assert np.array_equal(gaps, p[2])
+
+
+def _b4d_rows(pay, bits, s_local, rows_per_block, out_words, seed=0):
+    """A NumPy model of csrc/gap_encode.cu's B4d: 8 lanes a row, rows in a
+    random order; lane j of a step makes output quad j, 4 words aligned to
+    16 bytes of the (G, out_words) output (so a block's row of words starts
+    at phase g * out_words mod 4), from the row's input words masked to its
+    bits, the word below coming from the lane below; a quad wholly inside
+    the row is assigned at once, a partial one word by word: the row's
+    first and last output words OR'ed in, the others assigned (a plain
+    store: a neighbour's bits there would be lost); words outside [0,
+    out_words) are dropped."""
+    pay = pay.view(np.uint32).astype(np.uint64)
+    n_rows, cap = pay.shape
+    flat = np.zeros(n_rows // rows_per_block * out_words, np.uint64)
+    m32 = np.uint64(0xFFFFFFFF)
+    for r in np.random.default_rng(seed).permutation(n_rows):
+        nb = min(max(int(bits[r]), 0), 32 * cap)
+        if nb == 0:
+            continue
+        g = r // rows_per_block
+        o = g * out_words  # the block's first word in the flat output
+        s = int(s_local[r])
+        w0, sh = s >> 5, s & 31
+        nw, last = -(-nb // 32), (sh + nb - 1) >> 5
+        a = (w0 + o) % 4  # w0's place in its aligned quad
+        n_quads = (a + last) // 4 + 1
+        k = np.arange(4 * n_quads + 1) - a - 1  # input words, one below
+        keep = np.clip(nb - 32 * k, 0, 32).astype(np.uint64)
+        inp = np.where((k >= 0) & (k < nw), pay[r, np.clip(k, 0, cap - 1)], 0)
+        inp &= ((np.uint64(1) << keep) - np.uint64(1)) << (np.uint64(32) - keep)
+        v = inp[1:] >> np.uint64(sh)
+        if sh:
+            v |= (inp[:-1] << np.uint64(32 - sh)) & m32
+        for j in range(n_quads):
+            kq = 4 * j - a + np.arange(4)  # the row's output words
+            e = w0 + kq
+            q = v[4 * j : 4 * j + 4]
+            if kq[0] >= 1 and kq[3] <= last - 1 and e[0] >= 0 \
+                    and e[3] < out_words:
+                flat[o + e] = q
+                continue
+            for t in range(4):
+                if not (0 <= kq[t] <= last and 0 <= e[t] < out_words):
+                    continue
+                if kq[t] in (0, last):
+                    flat[o + e[t]] |= q[t]
+                else:
+                    flat[o + e[t]] = q[t]
+    return flat.reshape(-1, out_words).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("kind,max_len,out_cut", [
+    ("0.5", 16, 0), ("0.9", 16, 0), ("single", 16, 0), ("uniform", 8, 0),
+    ("0.5", 16, 100),   # out_words cut short
+    ("lacks", 16, 0),   # a row of 0 bits
+])
+def test_b4d_quad_model_matches_plain(kind, max_len, out_cut):
+    # 3 blocks: their rows of words start at phases 0, 1, 2 of a quad
+    g, b = 3, 2048
+    data = _input("0.5" if kind == "lacks" else kind, g * b, 10)
+    if kind == "lacks":
+        data[256:384] = 250
+        _, pt = _lacking_table(data)
+    else:
+        _, pt = _tables(data, max_len)
+    enc = ils_enc_tabs(pt)
+    rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
+    # cap_words 64 (rows of up to 17 quads, three steps) and 6 (rows cut
+    # short, bits clamped to 192)
+    for cap in (ge.row_cap_words(max_len), 6):
+        pay, bits = ge.gap_row_pack(rows, enc, cap_words=cap)
+        bits_blk = bits.view(g, -1).to(torch.int64)
+        s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+        bits = bits.clone()
+        bits[5] = 0  # a row skipped though its words are not zero
+        # odd: the blocks' rows of words start at quad phases 0, 1, 2
+        out_words = (int(bits_blk.sum(1).max()) // 32 + 2 - out_cut) | 1
+        kw = dict(rows_per_block=b // 128, out_words=out_words)
+        ref = ge.gap_place_bits_plain(pay, bits, s_local, **kw).numpy()
+        got = _b4d_rows(pay.numpy(), bits.numpy(), s_local.numpy(), **kw)
+        assert np.array_equal(got, ref), cap
+
+
 # ----------------------------------------------------------------------
 # Tile geometry of the CUDA kernels B4b and B1
 # ----------------------------------------------------------------------
@@ -421,13 +652,32 @@ def test_row_pack_tile_fits_shared_memory(max_len):
     cap = ge.row_cap_words(max_len)
     rows, smem = ge.row_pack_tile(cap)
     assert rows % 32 == 0 and 32 <= rows <= 256
-    # input, packed words and one chunk of starts, each pitch odd in words;
-    # the (256,) int32 code table is static shared memory besides
-    assert smem == 4 * rows * (33 + cap + 1 + 17)
+    # input and packed words, each pitch odd in words; the (256,) int32
+    # code table is static shared memory besides
+    assert smem == 4 * rows * (33 + cap + 1)
     assert cap % 2 == 0 and (cap + 1) % 2 == 1
     assert smem + 1024 <= SMEM_PER_BLOCK
     # a block's pay range starts 16-byte aligned
     assert rows * cap * 4 % 16 == 0
+
+
+@pytest.mark.parametrize("seg_bits", [2 ** k for k in range(3, 14)])
+def test_meta_tile_window_covers_span(seg_bits):
+    for max_len in range(1, 17):
+        rows, window, smem = ge.meta_tile(seg_bits, max_len)
+        assert rows & (rows - 1) == 0 and 1 <= rows <= ge.META_MAX_ROWS
+        # R rows of max_len-bit codes span under R * 128 * max_len bits
+        # from the tile's first start, which lies anywhere in its segment
+        span = rows * 128 * max_len
+        assert window >= (seg_bits - 1 + span - 1) // seg_bits + 1
+        # two ints a segment, beside the static 1 KB length table, under
+        # the 48 KB a block gets without opting in
+        assert smem == 8 * window and smem + 1032 <= 49152 <= SMEM_PER_BLOCK
+        # the most rows that fit, and all 512 at the main path's seg_bits
+        if rows < ge.META_MAX_ROWS:
+            assert 8 * (-(-2 * span // seg_bits) + 1) > 47104
+        if seg_bits >= 256:
+            assert rows == ge.META_MAX_ROWS == 512
 
 
 @pytest.mark.parametrize("seg_bits", [2 ** k for k in range(3, 14)])
@@ -451,9 +701,20 @@ def test_wrappers_reject_bad_input():
         ge.gap_row_pack(torch.zeros((2, 31), dtype=torch.int32),
                         torch.zeros(256, dtype=torch.int32), cap_words=4)
     with pytest.raises(ValueError, match="power of two"):
-        ge.gap_row_meta(torch.zeros((2, 128), dtype=torch.int16),
+        ge.gap_row_meta(torch.zeros((2, 32), dtype=torch.int32),
+                        torch.zeros(256, dtype=torch.int32),
                         torch.zeros(2, dtype=torch.int64), rows_per_block=2,
                         n_segs=4, seg_bits=100)
+    with pytest.raises(ValueError, match="rows must be"):
+        ge.gap_row_meta(torch.zeros((3, 32), dtype=torch.int32),
+                        torch.zeros(256, dtype=torch.int32),
+                        torch.zeros(3, dtype=torch.int64), rows_per_block=2,
+                        n_segs=4, seg_bits=128)
+    with pytest.raises(ValueError, match="max_len"):
+        ge.gap_row_meta(torch.zeros((2, 32), dtype=torch.int32),
+                        torch.zeros(256, dtype=torch.int32),
+                        torch.zeros(2, dtype=torch.int64), rows_per_block=2,
+                        n_segs=4, seg_bits=128, max_len=17)
     with pytest.raises(ValueError, match="multiple of 128"):
         ge.encode_blocks(torch.zeros((1, 100), dtype=torch.uint8),
                          torch.zeros(256, dtype=torch.int32), seg_bits=128,
