@@ -13,8 +13,9 @@ failure raises and exits non-zero with the traceback):
    and what ptxas reported for every kernel (registers, static shared
    memory, stack and spill bytes), with the geometry of B4b, B4c, B1,
    C2, B2 and A2 (`row_pack_tile`, `meta_tile`, `ranks_tile`,
-   `sync_tile`, `place_tile`, `certify_chunks`), B4d's rows a warp and
-   A1's length-and-symbol table, a line each for those eight.
+   `sync_tile`, `place_tile`, `certify_chunks`), B4d's rows a warp,
+   A1's length-and-symbol table, A5's grid, A4's block and C1's count
+   table, a line each for those eleven.
 2. Kernels A1-A5 against their plain PyTorch versions on the card, bit for
    bit, on: 4 tiles at k=4096 of generate_redundant(r=0.5) with rotation
    off and on (A2 in its chunks, `certify_chunks`); the zeros-then-uniform
@@ -38,6 +39,14 @@ failure raises and exits non-zero with the traceback):
    library_ms are CUDA-event times of whole calls.  Encode and decode are timed as the median of
    several runs after the warm-up run, and one run of each is profiled
    (device-busy share, top kernels).
+4c. The same input through IlsCodec.fit(optimize="ratio") (its k, 8192
+   on the default input, puts the main section's stride over the fused
+   tier's budget): fit, encode, write, read, decode, bit-exact, with the
+   launch counters of that run, which must show the two-pass tier (A4
+   and A5 launched, A2 not); k, stride_rows, the container bytes and
+   ratio; A4 and A5 held against their plain versions at its main
+   section's shape and timed; encode and decode timed (medians of 3 and
+   5) and profiled once.
 5. HTC1 kernels B1, B2, B4b-B4d against their plain versions, bit for
    bit, on multi-block groups of generate_redundant(r=0.1, 0.5, 0.9), a
    one-symbol input and the uniform 256-symbol input at seg_bits 128, 1024
@@ -105,15 +114,17 @@ failure raises and exits non-zero with the traceback):
    each kernel's launches in its codec's end-to-end run (phase 4 or 6)
    beside its times at that run's shapes; A4 and A5, which phase 4 gives
    only the small tail, also under "full_section" at the main section's
-   shape (the two-pass tier's shape when a full section takes it), A1, B1
+   shape (the two-pass tier's shape when a full section takes it) and
+   under "ratio_section" at phase 4c's main section, A1, B1
    and B2 also under "tail" at the tail's; C1's launches are phase 9's,
    C2's phase 10's, B5's phase 12's.  The TPU kernels whose function a
    kernel here computes are under its "also_replaces" (B3, B4a, D1, D3).
    The bench shape's rows, with phase 7's launches, go in the summary line
    before it under "htc1"."kernels", phase 11-12's results under
-   "portable", and B1/B2/C1/C2 at the foreign paths' shapes under
+   "portable", phase 4c's under "ratio", and B1/B2/C1/C2 at the foreign
+   paths' shapes under
    "yamamoto"."kernels" and "selfsync"."kernels".  The rows of A1, A2,
-   B1, B2, B4b-B4d and C2 also carry their "ptxas" report.  Then the card
+   A4, A5, B1, B2, B4b-B4d, C1 and C2 also carry their "ptxas" report.  Then the card
    line, then the device line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
@@ -179,20 +190,23 @@ FOLDED = {
 }
 # wrapper name -> the names of its kernels as the profiler reports them;
 # the last one is launched once per wrapper call, an earlier one at most
-# once (A2's bits kernel, where a stream has more than one chunk)
+# once (A2's and A5's bits kernel, where a stream has more than one chunk;
+# C1's table kernel, where the code has more than one length)
 A2_KERNELS = ("ils_certify_bits_kernel", "ils_pack_certify_kernel")
+A5_KERNELS = ("ils_certify_bits_kernel", "ils_pack_kernel")
+C1_KERNELS = ("gap_count_table_kernel", "gap_count_segments_kernel")
 SYMBOLS = {
     "ils_decode": ("ils_decode_kernel",),
     "ils_pack_certify": A2_KERNELS,
     "ils_compact": ("ils_compact_kernel",),
-    "ils_lengths_pass": ("ils_encode_kernel<false, false, false>",),
-    "ils_pack": ("ils_encode_kernel<true, false, true>",),
+    "ils_lengths_pass": ("ils_lengths_kernel",),
+    "ils_pack": A5_KERNELS,
     "gap_decode_ranks": ("gap_decode_ranks_kernel",),
     "gap_place_bytes": ("gap_place_bytes_kernel",),
     "gap_row_pack": ("gap_row_pack_kernel",),
     "gap_row_meta": ("gap_row_meta_kernel",),
     "gap_place_bits": ("gap_place_bits_kernel",),
-    "count_segments": ("gap_count_segments_kernel",),
+    "count_segments": C1_KERNELS,
     "sync_transitions": ("sync_transitions_kernel",),
     "encode_map": ("encode_map_kernel",),
     # D1 launches A2's kernels
@@ -371,10 +385,50 @@ def timed(name, call, plain, reps, plain_reps=1, symbols=None, **extra):
                 **extra)
 
 
-def a2_kernels(tk, k):
-    """A2's kernels of one call at k: the bits kernel too where a stream
-    has more than one chunk."""
-    return A2_KERNELS if tk.certify_chunks(k)[0] > 1 else A2_KERNELS[1:]
+def chunk_kernels(tk, k, kernels=A2_KERNELS):
+    """A2's (or A5's) kernels of one call at k: the bits kernel too where
+    a stream has more than one chunk."""
+    return kernels if tk.certify_chunks(k)[0] > 1 else kernels[1:]
+
+
+def two_pass_cases(stats, tk, tils, words, codec, snum, k, rot, label,
+                   timing=None):
+    """The two-pass tier's kernels A4 and A5 and their plain versions on
+    one input (CUDA tensors), at the shapes `ils_encode_to_device` gives
+    them; returns (A5's payload, its row starts, the params).  With
+    `timing`, also times both and records the bytes and operations."""
+    enc = codec.enc
+    n_sym = words.numel() * 4
+    got = tk.ils_lengths_pass(words, snum, enc, k=k, rot=rot)
+    stats.check("ils_lengths_pass", got,
+                tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot), label)
+    bits, dn, dx, en, ex = got
+    w_band_enc, boffs = tils.emission_band(en, ex)
+    p2 = tils.envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
+                              extra_band_pairs=w_band_enc)
+    boffs = torch.from_numpy(boffs).to(words.device)
+    starts2 = tils.row_starts_of(p2, words.device)
+    kw5 = dict(k=k, w_cap=p2.w_cap, w_band=w_band_enc, total_rows=p2.total_rows,
+               rot=rot)
+    rows = tk.ils_pack(words, snum, boffs, starts2, enc, **kw5)
+    stats.check("ils_pack", rows,
+                tk.ils_pack_plain(words, snum, boffs, starts2, enc, **kw5), label)
+    if timing is not None:
+        # per symbol a lookup and add (A4: the refill and emission
+        # envelopes per body; A5: the code's insert and the pair's store)
+        timing["ils_lengths_pass"] = timed(
+            "ils_lengths_pass",
+            lambda: tk.ils_lengths_pass(words, snum, enc, k=k, rot=rot),
+            lambda: tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot), 5,
+            bytes=n_sym + sum(x.numel() * 4 for x in (bits, dn, dx, en, ex)),
+            ops=3 * n_sym + 4 * n_sym, shape=list(bits.shape))
+        timing["ils_pack"] = timed(
+            "ils_pack", lambda: tk.ils_pack(words, snum, boffs, starts2, enc, **kw5),
+            lambda: tk.ils_pack_plain(words, snum, boffs, starts2, enc, **kw5), 5,
+            symbols=chunk_kernels(tk, k, A5_KERNELS),
+            bytes=n_sym + p2.total_rows * 4096, ops=8 * n_sym + 3 * n_sym,
+            shape=list(rows.shape))
+    return rows, starts2, p2
 
 
 def kernel_cases(stats, tk, tils, words, codec, snum, k, rot, e_band, label,
@@ -411,7 +465,7 @@ def kernel_cases(stats, tk, tils, words, codec, snum, k, rot, e_band, label,
             "ils_pack_certify",
             lambda: tk.ils_pack_certify(words, snum, enc, **kw),
             lambda: tk.ils_pack_certify_plain(words, snum, enc, **kw), 5,
-            symbols=a2_kernels(tk, k), bytes=data_bytes + p.total_rows * 4096
+            symbols=chunk_kernels(tk, k), bytes=data_bytes + p.total_rows * 4096
             + sum(x.numel() * 4 for x in got[1:]),
             ops=8 * n_sym + 24 * n_body, shape=list(got[0].shape))
     compact = None
@@ -439,20 +493,8 @@ def kernel_cases(stats, tk, tils, words, codec, snum, k, rot, e_band, label,
                 library_ms=cuda_ms(lambda: torch.index_select(pay_s, 0, src), 20),
                 bytes=(2 * p.total_rows + p.w_cap) * 4096, ops=0,
                 shape=list(got.shape))
-    got = tk.ils_lengths_pass(words, snum, enc, k=k, rot=rot)
-    stats.check("ils_lengths_pass", got,
-                tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot), label)
-    bits, dn, dx, en, ex = got
-    w_band_enc, boffs = tils.emission_band(en, ex)
-    p2 = tils.envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
-                              extra_band_pairs=w_band_enc)
-    boffs = torch.from_numpy(boffs).to(words.device)
-    starts2 = tils.row_starts_of(p2, words.device)
-    kw5 = dict(k=k, w_cap=p2.w_cap, w_band=w_band_enc, total_rows=p2.total_rows,
-               rot=rot)
-    rows = tk.ils_pack(words, snum, boffs, starts2, enc, **kw5)
-    stats.check("ils_pack", rows,
-                tk.ils_pack_plain(words, snum, boffs, starts2, enc, **kw5), label)
+    rows, starts2, p2 = two_pass_cases(stats, tk, tils, words, codec, snum, k,
+                                       rot, label, timing)
     # decode what the fused tier wrote when it certified, as the main path
     # does, else the two-pass payload
     pay, dstarts, pd = compact if compact is not None else (rows, starts2, p2)
@@ -464,17 +506,6 @@ def kernel_cases(stats, tk, tils, words, codec, snum, k, rot, e_band, label,
     if not torch.equal(got, words):
         raise AssertionError(f"decode of {label} is not the input")
     if timing is not None:
-        timing["ils_lengths_pass"] = timed(
-            "ils_lengths_pass",
-            lambda: tk.ils_lengths_pass(words, snum, enc, k=k, rot=rot),
-            lambda: tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot), 5,
-            bytes=data_bytes + sum(x.numel() * 4 for x in (bits, dn, dx, en, ex)),
-            ops=3 * n_sym + 16 * n_body, shape=list(bits.shape))
-        timing["ils_pack"] = timed(
-            "ils_pack", lambda: tk.ils_pack(words, snum, boffs, starts2, enc, **kw5),
-            lambda: tk.ils_pack_plain(words, snum, boffs, starts2, enc, **kw5), 5,
-            bytes=data_bytes + p2.total_rows * 4096, ops=8 * n_sym + 12 * n_body,
-            shape=list(rows.shape))
         levels = max(ml, 1) - max(table.min_len, 1)
         timing["ils_decode"] = timed(
             "ils_decode", lambda: tk.ils_decode(pay, dstarts, dec, **kw1),
@@ -672,6 +703,7 @@ def count_cases(stats, gd, dec, spec, words, gaps, label, timing=None):
         timing["count_segments"] = timed(
             "count_segments", lambda: gd.count_segments(words, gaps, lim, **kw),
             lambda: gd.count_segments_plain(words, gaps, lim, **kw), 10,
+            symbols=C1_KERNELS[spec.min_len == spec.max_len:],
             bytes=words.numel() * 4 + gaps.numel() * 8,
             ops=(2 * levels + 6) * int(got.sum()), shape=list(got.shape))
     return got
@@ -808,7 +840,7 @@ def portable_small(stats, ns, dev):
         "ils_pack_certify_stream",
         lambda: tk.ils_pack_certify_stream(words, snum, codec.enc, **kw),
         lambda: tk.ils_pack_certify_stream_plain(words, snum, codec.enc, **kw),
-        10, symbols=a2_kernels(tk, k),
+        10, symbols=chunk_kernels(tk, k),
         bytes=n_sym + sum(w_t) * 4096 + sum(x.numel() * 4 for x in got[1:]),
         ops=8 * n_sym + 24 * n_sym // 4, shape=list(got[0].shape))
     log(f"  ils_pack_certify_stream == plain == ils_pack_certify on its "
@@ -1059,6 +1091,12 @@ def main(argv=None) -> int:
          + ", ".join(f"k={k} {tk.certify_chunks(k)}"
                      for k in (8, 2048, 4096, 8192, 16384))
          + f"; grid (tile, chunk) of {ILS_LANES} threads"),
+        ("ils_pack", "A2's bits kernel and ring, compact form: the same "
+         "certify_chunks(k) grid"),
+        ("ils_lengths_pass", f"one block of {ILS_LANES} threads a tile"),
+        ("count_segments", f"count table on {gd.COUNT_TAB_BITS} bits: "
+         f"{2 << gd.COUNT_TAB_BITS} B built per call, copied to each block's "
+         "static shared memory"),
     ):
         ptxas[name] = {}
         for symbol in SYMBOLS[name]:
@@ -1178,6 +1216,58 @@ def main(argv=None) -> int:
         f"= {n / enc_med / 1e6:.3f} GB/s")
     log(f"  decode ms {[round(x, 3) for x in dec_ms]} median {dec_med:.3f} "
         f"= {n / dec_med / 1e6:.3f} GB/s")
+
+    # ---- 4c. IlsCodec(optimize="ratio"): the two-pass tier on whole sections
+    log(f"phase 4c: IlsCodec.fit(optimize='ratio') on the same {n} bytes")
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    rcodec = IlsCodec.fit(host, optimize="ratio", device="cuda")
+    rcomp = rcodec.encode(data)
+    rblob = write_ils_container(rcomp)
+    rok = torch.equal(rcodec.decode(read_ils_container(rblob)), data)
+    torch.cuda.synchronize()
+    r_launches = tk.launch_counts()
+    rsec = rcomp.sections[0].params
+    rk = rsec.k
+    r_stride = tils.stride_rows_for(rk, rcodec.table.max_len_present)
+    log(f"  round trip {time.perf_counter() - t0:.2f} s bit-exact={rok} "
+        f"k={rk} stride_rows={r_stride} (budget {tils.FUSED_STRIDE_BUDGET}) "
+        f"sections={[(q.params.k, q.params.n_tiles, q.params.rot, q.params.w_band, q.params.w_cap) for q in rcomp.sections]}")
+    log(f"  container {len(rblob)} bytes, ratio {len(rblob) / n:.6f}")
+    log(f"  launches in that run: {r_launches}")
+    if not rok:
+        raise AssertionError("optimize='ratio' round trip is not bit-exact")
+    if (r_stride <= tils.FUSED_STRIDE_BUDGET or r_launches["ils_pack_certify"]
+            or not r_launches["ils_lengths_pass"] or not r_launches["ils_pack"]):
+        raise AssertionError(f"the optimize='ratio' main section did not take "
+                             f"the two-pass tier: {r_launches}")
+    ratio_timing: dict = {}
+    r_bytes = rsec.n_tiles * rk * ILS_LANES
+    rchunk = data[:r_bytes]
+    two_pass_cases(stats, tk, tils, rchunk.view(torch.int32).view(-1, ILS_LANES),
+                   rcodec, ils_schedule_numer(rcodec._avg_bits(rchunk)), rk,
+                   rsec.rot, f"ratio {rsec.n_tiles}x k={rk}", ratio_timing)
+    renc_ms = [cuda_ms(lambda: rcodec.encode(data), 1) for _ in range(3)]
+    rdec_ms = [cuda_ms(lambda: rcodec.decode(rcomp), 1) for _ in range(5)]
+    renc_med, rdec_med = statistics.median(renc_ms), statistics.median(rdec_ms)
+    rprof = {"encode": device_profile(lambda: rcodec.encode(data),
+                                      "ratio encode", tk.launch_counts),
+             "decode": device_profile(lambda: rcodec.decode(rcomp),
+                                      "ratio decode", tk.launch_counts)}
+    log(f"  encode ms {[round(x, 3) for x in renc_ms]} median {renc_med:.3f} "
+        f"= {n / renc_med / 1e6:.3f} GB/s")
+    log(f"  decode ms {[round(x, 3) for x in rdec_ms]} median {rdec_med:.3f} "
+        f"= {n / rdec_med / 1e6:.3f} GB/s")
+    ratio = {"bytes": n, "k": rk, "stride_rows": r_stride,
+             "stride_budget": tils.FUSED_STRIDE_BUDGET,
+             "launches": r_launches, "container_bytes": len(rblob),
+             "ratio": len(rblob) / n, "encode_ms_median": renc_med,
+             "encode_ms": renc_ms, "decode_ms_median": rdec_med,
+             "decode_ms": rdec_ms, "encode_gbps": n / renc_med / 1e6,
+             "decode_gbps": n / rdec_med / 1e6, "card": card,
+             "profile": rprof}
+    del rcomp, rblob, rchunk
 
     # ---- 5. HTC1 kernels vs plain, container bytes kernel path vs plain
     log("phase 5: HTC1 small inputs")
@@ -1511,10 +1601,12 @@ def main(argv=None) -> int:
     # beside its times at the shapes of that run; A4/A5 also at the full
     # section, B1/B2 also at the tail group
     main_timing.update(htc1_timing)
-    extra = {name: ("full_section", t) for name, t in section_timing.items()}
-    extra.update({name: ("tail", t) for name, t in tail_timing.items()})
+    extra = {name: [("full_section", t), ("ratio_section", ratio_timing[name])]
+             for name, t in section_timing.items()}
+    for name, t in tail_timing.items():
+        extra.setdefault(name, []).append(("tail", t))
     if n % tile_bytes:
-        extra["ils_decode"] = ("tail", a1_tail)
+        extra["ils_decode"] = [("tail", a1_tail)]
     log(f"per kernel at the main path's shapes ({card}):")
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -1526,8 +1618,7 @@ def main(argv=None) -> int:
                **times(main_timing.get(name, {})),
                **({"ptxas": ptxas[name]} if name in ptxas else {})}
         show(name, "", row, launches[name])
-        if name in extra:
-            key, t = extra[name]
+        for key, t in extra.get(name, ()):
             row[key] = times(t)
             show(name, " " + key.replace("_", " "), row[key], launches[name])
         rows.append(row)
@@ -1568,6 +1659,7 @@ def main(argv=None) -> int:
                 "decode_gbps": n / dec_med / 1e6,
                 "container_bytes": len(blob), "card": card,
                 "profile": prof},
+        "ratio": ratio,
         "htc1": {"bytes": n, "container_bytes": len(gblob),
                  "block_bytes": gb, "encode_device_ms_median": genc_med,
                  "decode_device_ms_median": gdec_med,

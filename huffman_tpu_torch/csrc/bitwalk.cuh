@@ -1,6 +1,7 @@
-// Canonical bit walks over an MSB-first u32 stream, used by the gap-array
-// kernels (gap_decode.cu: B1, C1); the self-sync kernel (selfsync.cu: C2)
-// and the ILS decoder (ils_decode.cu: A1) take the compare chain with its
+// Canonical bit walks over an MSB-first u32 stream: B1 (gap_decode.cu)
+// reads through BitWindow and takes canon_len from shared memory, as C1
+// does where its count table decides nothing; C2 (selfsync.cu), A1
+// (ils_decode.cu) and C1's table kernel take the compare chain with its
 // limits in registers (CanonRegs).  Words outside [0, n_words) read as
 // zeros.
 #pragma once
@@ -77,22 +78,3 @@ struct CanonRegs {
     return ln;
   }
 };
-
-// Counts the codewords that start below `end`, walking from `pos`, at most
-// max_count of them; leaves `pos` just past the last one counted.
-__device__ __forceinline__ int walk_count(const uint32_t* words,
-                                          long long n_words, long long& pos,
-                                          long long end, int max_count,
-                                          const uint32_t* lim, int min_len,
-                                          int max_len) {
-  int count = 0;
-  if (pos >= end) return 0;
-  BitWindow bw(words, n_words, pos);
-  while (pos < end && count < max_count) {
-    const int ln = canon_len(bw.peek(), lim, min_len, max_len);
-    ++count;
-    pos += ln;
-    bw.skip(ln);
-  }
-  return count;
-}

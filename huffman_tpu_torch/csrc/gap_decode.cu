@@ -51,17 +51,35 @@
 //
 // gap_count_segments_kernel replaces decode_kernel.py:_count_kernel
 // (wrapper count_segments_pallas), the counting pass of gap-only
-// (Yamamoto) streams: one thread per segment walks the canonical compare
-// chain, lengths only, from bit s*seg_bits + gap[s] and counts the
-// codewords that start before the next segment's entry (the last segment:
-// before total_bits), at most max_count of them.  Bit positions are 64-bit
-// (the JAX kernel's int32 arithmetic is a TPU limit; the format's u32
-// word count allows more).  The TPU kernel's lane relayout, its one-hot
-// pair refill and its 2x counting granularity with the fold all serve the
-// vector layout; a thread here loads its own words.
+// (Yamamoto) streams: one thread per segment counts the codewords that
+// start in [s*seg_bits + gap[s], the next segment's entry) (the last
+// segment: below total_bits), at most max_count of them.  Bit positions
+// are 64-bit (the JAX kernel's int32 arithmetic is a TPU limit; the
+// format's u32 word count allows more).  The TPU kernel's lane relayout,
+// its one-hot pair refill and its 2x counting granularity with the fold
+// all serve the vector layout; a thread here loads its own words.
 //
-// B1 and C1 read the stream through the window and walk of bitwalk.cuh,
-// which the self-sync kernel C2 shares.
+// C1 only counts, so it advances several codewords a lookup.  A count
+// table on the top COUNT_TAB_BITS bits of the window (built once per call
+// by gap_count_table_kernel into a 16 KB buffer, copied into each block's
+// shared memory) holds, for each prefix, the codewords it decides, their
+// total bits and the first one's length.  A prefix decides a codeword
+// when its lowest and highest completions give the same compare-chain
+// length (the chain never falls as the window grows); the walk goes on
+// inside the prefix and takes one codeword past its end too, so a step
+// can reach T - 1 + 16 bits.  The multi-codeword step is taken only where
+// pos + bits <= end and count + n <= max_count, which keeps "starts below
+// end" and the cap exact; otherwise one codeword, its length the entry's
+// first or, where the prefix decides nothing, the compare chain against
+// the limits in shared memory (canon_len).  One code length counts in
+// closed form, no walk.  The window is two words and a bit offset, read by
+// a funnel shift, with the next word loaded one refill ahead, and the
+// step's arithmetic is 32-bit.  Measured on an H100 at the Yamamoto path's
+// 128 MiB: 12 table bits and a 64-bit window 0.200 ms, with the funnel
+// window and the limits in shared memory 0.149, 13 bits 0.142, 11 bits
+// 0.152; a persistent grid (one table copy a block) 0.164.  B1 reads
+// through BitWindow and canon_len (bitwalk.cuh); it could take the same
+// table.
 //
 // Bounds on this card.  B1 reads the payload once and writes the rank
 // matrix (~1 byte per symbol); with its stores tiled, its time is the
@@ -69,10 +87,8 @@
 // window), ~200 symbols at seg_bits=1024, with one thread per segment.
 // B2 is bytes-bound: rank matrix in, output out (it reads the matrix's
 // rows whole, padding past the counts included, except the last row of a
-// run).  C1 reads the payload
-// once and writes one int
-// per segment; at 128-bit segments a thread's chain is ~20 codewords, so
-// it has many more threads than B1 at 1024 bits for the same payload.
+// run).  C1 reads the payload once and writes one int per segment; at
+// 128-bit segments a thread's chain is ~20 codewords, ~8 table steps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,6 +98,8 @@
 #define RANK_MAX_ROWS 256
 #define RANK_PAD 4  // tile pitch chunk + 4 bytes: odd words for chunk % 8 == 0
 #define COUNT_THREADS 256
+#define COUNT_TAB_BITS 13  // window bits of C1's count table
+#define COUNT_TAB_SIZE (1 << COUNT_TAB_BITS)
 #define PLACE_THREADS 256  // threads of a B2 block
 #define PLACE_WARPS (PLACE_THREADS / 32)
 #define PLACE_MAX_ROWS 1024  // most rows of a B2 block: 4 a thread
@@ -343,36 +361,125 @@ __global__ void __launch_bounds__(PLACE_THREADS) gap_place_bytes_kernel(
   }
 }
 
+// A count-table entry: bits [0, 5) the bits of the codewords a prefix
+// decides, [5, 9) their number, [9, 13) the first one's length - 1; 0
+// where the prefix decides none.
+__device__ __forceinline__ int count_entry(int bits, int n, int first) {
+  return n ? ((first - 1) << 9) | (n << 5) | bits : 0;
+}
+
+__global__ void __launch_bounds__(COUNT_THREADS) gap_count_table_kernel(
+    const uint32_t* __restrict__ lim, uint16_t* __restrict__ tab, int min_len,
+    int max_len) {
+  const int x = blockIdx.x * COUNT_THREADS + threadIdx.x;
+  if (x >= COUNT_TAB_SIZE) return;
+  const CanonRegs cr(lim, min_len, max_len);
+  const uint32_t prefix = (uint32_t)x << (32 - COUNT_TAB_BITS);
+  int p = 0, n = 0, first = 0;
+  while (p < COUNT_TAB_BITS) {
+    // the window at bit p of the prefix: its T - p known bits, then all
+    // zeros or all ones
+    const uint32_t lo = prefix << p;
+    const int ln = cr.len(lo);
+    if (cr.len(lo | (0xFFFFFFFFu >> (COUNT_TAB_BITS - p))) != ln) break;
+    if (n++ == 0) first = ln;
+    p += ln;
+  }
+  tab[x] = (uint16_t)count_entry(p, n, first);
+}
+
 __global__ void __launch_bounds__(COUNT_THREADS) gap_count_segments_kernel(
     const uint32_t* __restrict__ words, const int* __restrict__ gaps,
-    const uint32_t* __restrict__ lim, int* __restrict__ counts,
-    long long n_segs, long long n_words, long long total_bits, int seg_bits,
-    int max_count, int min_len, int max_len) {
+    const uint32_t* __restrict__ lim, const uint16_t* __restrict__ tab,
+    int* __restrict__ counts, long long n_segs, long long n_words,
+    long long total_bits, int seg_bits, int max_count, int min_len,
+    int max_len) {
+  __shared__ uint4 s_tab4[COUNT_TAB_SIZE / 8];
   __shared__ uint32_t s_lim[32];
+  const long long s = (long long)blockIdx.x * COUNT_THREADS + threadIdx.x;
+  long long pos = 0, end = 0;
+  if (s < n_segs) {
+    pos = s * seg_bits + gaps[s];
+    end = total_bits;
+    if (s + 1 < n_segs) end = min(end, (s + 1) * seg_bits + gaps[s + 1]);
+  }
+  if (min_len == max_len) {
+    // every codeword is max_len bits long
+    if (s < n_segs)
+      counts[s] = pos < end ? (int)min((end - pos + max_len - 1) / max_len,
+                                       (long long)max_count)
+                            : 0;
+    return;
+  }
+  for (int j = threadIdx.x; j < COUNT_TAB_SIZE / 8; j += COUNT_THREADS)
+    s_tab4[j] = reinterpret_cast<const uint4*>(tab)[j];
   if (threadIdx.x < 32) s_lim[threadIdx.x] = lim[threadIdx.x];
   __syncthreads();
-
-  const long long s = (long long)blockIdx.x * COUNT_THREADS + threadIdx.x;
   if (s >= n_segs) return;
-  long long pos = s * seg_bits + gaps[s];
-  long long end = total_bits;
-  if (s + 1 < n_segs) end = min(end, (s + 1) * seg_bits + gaps[s + 1]);
-  counts[s] = walk_count(words, n_words, pos, end, max_count, s_lim, min_len,
-                         max_len);
+  const uint16_t* s_tab = reinterpret_cast<const uint16_t*>(s_tab4);
+  int count = 0;
+  if (pos < end) {
+    // the bits left below `end`, capped at 16 * max_count (the launcher
+    // keeps that in an int): no more than max_count codewords are walked,
+    // so the cap decides no step (a multi-codeword step needs count + n <=
+    // max_count, and takes under 32 bits)
+    int left = (int)min(end - pos, 16LL * max_count);
+    // the window: bits q.. of (w0, w1), MSB first; w2 loaded one refill
+    // ahead; words outside [0, n_words) read as zeros
+    auto word = [&](long long i) -> uint32_t {
+      return (unsigned long long)i < (unsigned long long)n_words
+                 ? __ldg(words + i)
+                 : 0u;
+    };
+    long long next = pos >> 5;
+    int q = (int)(pos & 31);
+    uint32_t w0 = word(next), w1 = word(next + 1), w2 = word(next + 2);
+    next += 3;
+    do {
+      const uint32_t win = __funnelshift_l(w1, w0, q);
+      const int e = s_tab[win >> (32 - COUNT_TAB_BITS)];
+      int n = (e >> 5) & 15, bits = e & 31;
+      if (n == 0 || bits > left || count + n > max_count) {
+        bits = n ? (e >> 9) + 1 : canon_len(win, s_lim, min_len, max_len);
+        n = 1;
+      }
+      count += n;
+      left -= bits;
+      q += bits;  // q < 32 and bits < 32 before: one word at most
+      if (q >= 32) {
+        q -= 32;
+        w0 = w1;
+        w1 = w2;
+        w2 = word(next++);
+      }
+    } while (left > 0 && count < max_count);
+  }
+  counts[s] = count;
 }
 
 extern "C" int gap_count_segments_launch(const void* words, const void* gaps,
-                                         const void* lim, void* counts,
-                                         long long n_segs, long long n_words,
+                                         const void* lim, void* tab,
+                                         void* counts, long long n_segs,
+                                         long long n_words,
                                          long long total_bits, int seg_bits,
                                          int max_count, int min_len,
                                          int max_len, void* stream) {
+  if (max_count < 1 || 16LL * max_count > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  // the table of a code of one length is never read
+  if (min_len != max_len) {
+    gap_count_table_kernel<<<COUNT_TAB_SIZE / COUNT_THREADS, COUNT_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const uint32_t*)lim, (uint16_t*)tab, min_len, max_len);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const long long blocks = (n_segs + COUNT_THREADS - 1) / COUNT_THREADS;
   gap_count_segments_kernel<<<(unsigned)blocks, COUNT_THREADS, 0,
                               (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const int*)gaps, (const uint32_t*)lim,
-      (int*)counts, n_segs, n_words, total_bits, seg_bits, max_count, min_len,
-      max_len);
+      (const uint16_t*)tab, (int*)counts, n_segs, n_words, total_bits,
+      seg_bits, max_count, min_len, max_len);
   return (int)cudaGetLastError();
 }
 

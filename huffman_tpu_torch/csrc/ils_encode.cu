@@ -1,58 +1,60 @@
-// ILS encode kernels for Hopper: the fused pack + certify (A2, two kernels
-// over chunked streams) and the per-stream encoder step of A4 and A5 (one
-// template under three flags).
+// ILS encode kernels for Hopper: the pack over chunked streams of the
+// fused tier (A2, with its certificate) and of the two-pass tier (A5), and
+// the two-pass tier's schedule pass (A4).
 //
 // Replaces huffman_tpu/ops/pallas/ils_kernels.py:
 //   ils_certify_bits_kernel + ils_pack_certify_kernel:
 //       _pack_certify_kernel (ils_pack_certify, A2; also
 //       ils_pack_certify_stream, D1)
-//   ils_encode_kernel<false, false, false>: _lengths_kernel
-//       (ils_lengths_pass, A4)
-//   ils_encode_kernel<true, false, true>: _pack_kernel (ils_pack, A5)
+//   ils_certify_bits_kernel + ils_pack_kernel: _pack_kernel (ils_pack, A5)
+//   ils_lengths_kernel: _lengths_kernel (ils_lengths_pass, A4)
 //
 // Bound on this card: bytes.  Each kernel reads the data once (k*1024 bytes
 // per tile) and writes the payload once (~ratio x data) plus small per-lane
 // outputs; at 3.35 TB/s a 256 MiB section needs ~0.13 ms.  Every stream is
 // one serial bit accumulator, so one thread per stream is bound by the
 // instructions of that chain and by the blocks in flight: a block per tile
-// gives 256 MiB at k=4096 64 blocks of 1024 threads, half the card.
+// gives 256 MiB at k=4096 64 blocks of 1024 threads, half the card, and at
+// k=8192 32 blocks.
 //
-// A2's design: each stream is cut into C chunks of whole ILS_WIN-body
-// windows (`certify_chunks` in ops/ils_kernels.py picks C, the launcher
-// checks it), and the grid is (tile, chunk), 1024 threads a block, so the
-// laggard anchor's minimum still spans the whole tile.  It rests on one
-// fact: a body's four codes add at most 64 bits, so at most one pair
-// retires per body, and after every body a stream with `cum` code bits so
-// far has e_ptr == cum >> 6 and used == cum & 63; the decoder refill it
-// replays happens exactly in the bodies where a pair retires, with
-// pptr == 2 + e_ptr (valid == 128 - used between bodies).  So:
+// A2's and A5's design: each stream is cut into C chunks of whole
+// ILS_WIN-body windows (`certify_chunks` in ops/ils_kernels.py picks C,
+// the launcher checks it), and the grid is (tile, chunk), 1024 threads a
+// block, so A2's laggard anchor's minimum still spans the whole tile.  It
+// rests on one fact: a body's four codes add at most 64 bits, so at most
+// one pair retires per body, and after every body a stream with `cum` code
+// bits so far has e_ptr == cum >> 6 and used == cum & 63; the decoder
+// refill A2 replays happens exactly in the bodies where a pair retires,
+// with pptr == 2 + e_ptr (valid == 128 - used between bodies).  So:
 //  - ils_certify_bits_kernel writes, for every chunk but the last, each
-//    stream's code bits, and zeroes the violation flags;
-//  - ils_pack_certify_kernel starts chunk c from the sum of the earlier
-//    chunks' bits: e_ptr and used by the closed form, the accumulator
-//    seeded with the last `used` code bits before the chunk (the stream's
-//    codes walked back from the chunk's start: a few bodies, more over
-//    bytes the table lacks), and the laggard base the tile minimum of
-//    e_ptr at the chunk's start (the stale base after the previous chunk's
-//    last flush; chunk boundaries are flush boundaries, G in {1, 2}
-//    divides ILS_WIN).  A pair is judged
-//    in the chunk where it retires against that chunk's base, with its
-//    earlier bits from the seed, so a dropped pair is dropped whole.  Only
-//    the last chunk writes `bits` and judges the final partial pair; a
+//    stream's code bits, and for A2 zeroes the violation flags;
+//  - the pack kernel starts chunk c from the sum of the earlier chunks'
+//    bits: e_ptr and used by the closed form, the accumulator seeded with
+//    the last `used` code bits before the chunk (the stream's codes walked
+//    back from the chunk's start: a few bodies, more over bytes the table
+//    lacks).  Chunk boundaries are window and flush boundaries (G in
+//    {1, 2} divides ILS_WIN).  A pair is judged in the chunk where it
+//    retires against that chunk's window base, with its earlier bits from
+//    the seed, so a dropped pair is dropped whole.  Only the last chunk
+//    judges the final partial pair (and, in A2, writes `bits`); an A2
 //    flag is set by any chunk.
+//  - The window base (ROADMAP.md trap F2): A2's "mu" anchor mu + boff_est
+//    at each group's first body, its "laggard" anchor the tile minimum of
+//    e_ptr after the previous flush (at a chunk's start the minimum
+//    there); A5's mu + boffs[t, window] at each group's first body, its
+//    anchors per window from A4's exact envelope.
+// The emission window only replays the TPU kernels' cadence to decide
+// which pairs they would have dropped (and A2's violation flag).  A5
+// writes pair e at rows row_starts[t] + 2e of the compact payload and
+// skips a pair outside [0, n_rows): the row starts are taken on trust.
 // Each body's data word is loaded one body ahead.  A warp stages its
 // finished pairs in shared memory and stores each final pair as two rows
-// of 32 consecutive columns.  The emission window only replays the TPU
-// kernel's cadence to decide which pairs the TPU kernel would have
-// dropped, and with them the violation flag (ROADMAP.md trap F2).
+// of 32 consecutive columns.
 //
-// A4 and A5 keep one block of 1024 threads per tile, thread s = stream s:
-// four lookups per body in a 256-entry shared table of (len << 20) | code,
-// a 128-bit accumulator (two uint64_t); A4 simulates the decoder refill
-// and gives the per-(tile, window) envelopes per lane, A5 writes every
-// finished pair at the certified row start.  Their template also has a
-// CERTIFY form (the strided pack with the violation flag) that no
-// launcher instantiates; A2 has the kernels above.
+// A4 keeps one block of 1024 threads per tile, thread s = stream s: four
+// lookups per body in a 256-entry shared table of (len << 20) | code; it
+// simulates the decoder refill and gives the per-(tile, window) envelopes
+// per lane.
 
 #include "ils_common.cuh"
 
@@ -81,26 +83,29 @@ __device__ __forceinline__ int block_min(int v, int* red) {
 }
 
 // ----------------------------------------------------------------------
-// A2
+// A2 and A5
 // ----------------------------------------------------------------------
 struct CertArgs {
-  const uint32_t* data;  // (n_tiles * k/4, 1024) u32 words
-  const int* tab;        // (256,) (len << 20) | code
-  uint32_t* pay;         // strided payload, stride_rows rows a tile
-  int* bits;             // (n_tiles, 1024) bits per stream
-  int* dn;               // (n_tiles, n_win, 1024) refill envelope
+  const uint32_t* data;    // (n_tiles * k/4, 1024) u32 words
+  const int* tab;          // (256,) (len << 20) | code
+  uint32_t* pay;           // A2: strided payload; A5: compact payload
+  int* bits;               // A2: (n_tiles, 1024) bits per stream
+  int* dn;                 // A2: (n_tiles, n_win, 1024) refill envelope
   int* dx;
-  int* viol;             // (n_tiles, 1024) emission-out-of-band flag
-  int* cbits;            // (n_tiles, C - 1, 1024) code bits of each chunk
+  int* viol;               // A2: (n_tiles, 1024) emission-out-of-band flag
+  int* cbits;              // (n_tiles, C - 1, 1024) code bits of each chunk
+  const int* boffs;        // A5: (n_tiles, n_win) emission anchors
+  const int* row_starts;   // A5: (n_tiles,) compact row offsets
   int k, snum, rot;
-  int G;                 // bodies per flush group (1 or 2)
-  int W;                 // emission window width in pairs
-  int cap_pairs;         // pair capacity the window is clamped into
-  int boff_est;          // "mu" anchor offset: -(e_band // 2)
-  int laggard;           // anchor: 0 = "mu", 1 = "laggard"
-  int chunks;            // C
-  int chunk_bodies;      // bodies of every chunk but the last
-  long long stride_rows;
+  int G;                   // bodies per flush group (1 or 2)
+  int W;                   // emission window width in pairs
+  int cap_pairs;           // pair capacity the window is clamped into
+  int boff_est;            // A2 "mu" anchor offset: -(e_band // 2)
+  int laggard;             // A2 anchor: 0 = "mu", 1 = "laggard"
+  int chunks;              // C
+  int chunk_bodies;        // bodies of every chunk but the last
+  long long stride_rows;   // A2: rows per tile region
+  long long n_rows;        // A5: rows of the compact payload (+ slack)
 };
 
 // Pass 1: grid (tile, chunk < C - 1, 1024 / COUNT_THREADS), one thread
@@ -129,24 +134,28 @@ __global__ void __launch_bounds__(COUNT_THREADS) ils_certify_bits_kernel(
             s_len[w >> 24];
   }
   a.cbits[(size_t)tc * ILS_LANES + s] = bits;
-  if (c == 0) a.viol[t * ILS_LANES + s] = 0;
+  if (c == 0 && a.viol) a.viol[t * ILS_LANES + s] = 0;
 }
 
-// Pass 2.  A warp's finished pairs go through a ring of CERT_RING pair
-// slots in shared memory, [slot][lane] (dynamic, 64 KB a block): pair e of
-// a lane sits in slot e % CERT_RING while e is within CERT_RING pairs of
-// the warp's
-// `flushed` pair, else it is stored straight away.  Pair e is final once
-// every lane has passed it or it lies below the window base (the base
-// never falls, and a pair below it is dropped): the warp then stores its
-// two rows, 32 consecutive columns each, for the lanes whose slot holds
-// it.  Stored from each thread, every warp store of a pair would touch up
-// to 32 rows.  A body's four codes (at most 64 bits) are first joined
-// into one word and then put into the accumulator once.  Registers: two
-// blocks of 1024 threads an SM leave 32 a thread; ptxas reports whether
-// the kernel holds to it (chip_smoke.py phase 1).
-__global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
-    const CertArgs a) {
+// Pass 2, one chunk of every stream of a tile; COMPACT is A5.  A warp's
+// finished pairs go through a ring of CERT_RING pair slots in shared
+// memory, [slot][lane] (dynamic, 64 KB a block): pair e of a lane sits in
+// slot e % CERT_RING while e is within CERT_RING pairs of the warp's
+// `flushed` pair, else it is stored straight away.  A pair is final, and
+// the warp stores its two rows, 32 consecutive columns each, for the
+// lanes whose slot holds it, once every lane has passed it; in A2 also
+// once it lies below the window base, since A2's base never falls and a
+// pair below it is dropped.  A5's base can fall (A4's anchors are the
+// per-window minimum of e_ptr - mu, which can drop from one window to the
+// next): a pair below an earlier base can still retire, so A5 flushes to
+// the warp's minimum e_ptr alone, and every retiring pair lies at or past
+// `flushed`.  Stored from each thread, every warp store of a pair would
+// touch up to 32 rows.  A body's four codes (at most 64 bits) are first
+// joined into one word and then put into the accumulator once.
+// Registers: two blocks of 1024 threads an SM leave 32 a thread; ptxas
+// reports whether the kernels hold to it (chip_smoke.py phase 1).
+template <bool COMPACT>
+__device__ __forceinline__ void pack_chunk(const CertArgs& a) {
   extern __shared__ uint64_t s_ring[];
   __shared__ int s_tab[256];
   __shared__ int s_red[33];
@@ -157,6 +166,7 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
   if (s < 256) s_tab[s] = a.tab[s];
   __syncthreads();
 
+  const bool laggard = !COMPACT && a.laggard;
   const int nb = a.k >> 2;
   const int n_win = (nb + ILS_WIN - 1) / ILS_WIN;
   const int base_hi = a.cap_pairs - a.W;
@@ -187,7 +197,17 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
     if (used) hi = seed << (64 - used);
   }
 
-  uint32_t* pay_s = a.pay + (size_t)t * a.stride_rows * ILS_LANES + s;
+  // pair e of stream s goes to rows row0 + 2e: A2's stride region, always
+  // in its buffer; A5's compact rows, a pair outside them skipped
+  const long long row0 =
+      COMPACT ? (long long)a.row_starts[t] : (long long)t * a.stride_rows;
+  auto store = [&](int e, uint64_t v) {
+    const long long r = row0 + 2 * (long long)e;
+    if (COMPACT && (r < 0 || r + 1 >= a.n_rows)) return;
+    uint32_t* p = a.pay + (size_t)r * ILS_LANES + s;
+    p[0] = (uint32_t)(v >> 32);
+    p[ILS_LANES] = (uint32_t)v;
+  };
   uint64_t* ring = s_ring + (s >> 5) * CERT_RING * 32 + lane;
   int flushed = __reduce_min_sync(0xffffffffu, e_ptr);
   unsigned held = 0;  // the ring slots that hold a pair of this lane
@@ -196,9 +216,7 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
       ring[(e_ptr & (CERT_RING - 1)) * 32] = v;
       held |= 1u << (e_ptr & (CERT_RING - 1));
     } else {
-      uint32_t* p = pay_s + (size_t)(2 * e_ptr) * ILS_LANES;
-      p[0] = (uint32_t)(v >> 32);
-      p[ILS_LANES] = (uint32_t)v;
+      store(e_ptr, v);
     }
   };
   // store the final pairs [flushed, upto) (warp-uniform)
@@ -206,10 +224,7 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
     for (int e = flushed; e < min(upto, flushed + CERT_RING); ++e) {
       const int sl = e & (CERT_RING - 1);
       if (held >> sl & 1) {
-        const uint64_t v = ring[sl * 32];
-        uint32_t* p = pay_s + (size_t)(2 * e) * ILS_LANES;
-        p[0] = (uint32_t)(v >> 32);
-        p[ILS_LANES] = (uint32_t)v;
+        store(e, ring[sl * 32]);
         held &= ~(1u << sl);
       }
     }
@@ -219,20 +234,23 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
   const size_t env0 = (size_t)t * n_win * ILS_LANES + s;
   int viol = 0;
   int dmin = ILS_BIG, dmax = -ILS_BIG;
-  // The emission window base (ROADMAP.md trap F2).  "mu" recomputes it at
-  // each group's first body; "laggard" uses the tile minimum of e_ptr
-  // after the PREVIOUS flush (stale by one flush, as in the TPU kernel):
-  // at b0 that is the minimum at b0 (0 in chunk 0).
+  // the emission window base: "mu" and A5 recompute it at each group's
+  // first body; "laggard" uses the tile minimum of e_ptr after the
+  // PREVIOUS flush (stale by one flush, as in the TPU kernel): at b0 that
+  // is the minimum at b0 (0 in chunk 0)
   int base = 0;
-  if (a.laggard) base = ils_clip(block_min(e_ptr, s_red), 0, base_hi);
+  if (laggard) base = ils_clip(block_min(e_ptr, s_red), 0, base_hi);
+  const int* boffs_t = COMPACT ? a.boffs + (size_t)t * n_win : nullptr;
+  int boff = a.boff_est;  // A5: the anchor of the current window
 
   uint32_t w_next = stream_word(data_t, b0, s, a.rot);
   for (int i = b0; i < b1; ++i) {
     const uint32_t w = w_next;
     if (i + 1 < b1) w_next = stream_word(data_t, i + 1, s, a.rot);
     const int mu = ils_mu(i, a.snum);
-    if (!a.laggard && (i & (a.G - 1)) == 0)
-      base = ils_clip(mu + a.boff_est, 0, base_hi);
+    if (COMPACT && i % ILS_WIN == 0) boff = boffs_t[i / ILS_WIN];
+    if (!laggard && (i & (a.G - 1)) == 0)
+      base = ils_clip(mu + boff, 0, base_hi);
     // the body's codes joined, right-aligned: l4 <= 64 bits (absent
     // symbols have ln == 0 and add nothing)
     uint64_t v = 0;
@@ -251,13 +269,15 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
     const uint64_t lo = used ? vl << (64 - used) : 0;
     used += l4;
     if (used >= 64) {  // at most one pair per body: used <= 63 + 64
-      // the decoder refills in this body, at pptr == 2 + e_ptr
-      const int dev = 2 + e_ptr - mu;
-      dmin = min(dmin, dev);
-      dmax = max(dmax, dev);
+      if (!COMPACT) {
+        // the decoder refills in this body, at pptr == 2 + e_ptr
+        const int dev = 2 + e_ptr - mu;
+        dmin = min(dmin, dev);
+        dmax = max(dmax, dev);
+      }
       // the TPU kernel retires this pair at its group's flush into the
-      // window [base, base + W); a pair outside it is dropped there and
-      // flags a violation, so it is dropped here too
+      // window [base, base + W); a pair outside it is dropped there (and
+      // flags a violation in A2), so it is dropped here too
       const int rel = e_ptr - base;
       if (rel >= 0 && rel < a.W) {
         retire(hi);
@@ -269,10 +289,11 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
       used -= 64;
     }
     // a flush ends every G bodies (G = 2 when the TPU unroll is even)
-    if (a.laggard && ((i + 1) & (a.G - 1)) == 0)
+    if (laggard && ((i + 1) & (a.G - 1)) == 0)
       base = ils_clip(block_min(e_ptr, s_red), 0, base_hi);
-    flush(max(base, __reduce_min_sync(0xffffffffu, e_ptr)));
-    if ((i + 1) % ILS_WIN == 0 && i + 1 < nb) {
+    const int warp_min = __reduce_min_sync(0xffffffffu, e_ptr);
+    flush(COMPACT ? warp_min : max(base, warp_min));
+    if (!COMPACT && (i + 1) % ILS_WIN == 0 && i + 1 < nb) {
       const size_t o = env0 + (size_t)(i / ILS_WIN) * ILS_LANES;
       a.dn[o] = dmin;
       a.dx[o] = dmax;
@@ -282,13 +303,15 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
   }
 
   if (c == a.chunks - 1) {
-    a.bits[t * ILS_LANES + s] = 64 * e_ptr + used;
+    if (!COMPACT) a.bits[t * ILS_LANES + s] = 64 * e_ptr + used;
     // the final flush of the zero-padded partial pair is judged too, at
     // the last body's mu (or the stale laggard base)
     if (used > 0) {
       const int fbase =
-          a.laggard ? base
-                    : ils_clip(ils_mu(nb - 1, a.snum) + a.boff_est, 0, base_hi);
+          laggard ? base
+                  : ils_clip(ils_mu(nb - 1, a.snum) +
+                                 (COMPACT ? boffs_t[n_win - 1] : a.boff_est),
+                             0, base_hi);
       const int rel = e_ptr - fbase;
       if (rel >= 0 && rel < a.W) {
         retire(hi);
@@ -296,11 +319,14 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
         viol = 1;
       }
     }
-    const size_t o = env0 + (size_t)(n_win - 1) * ILS_LANES;
-    a.dn[o] = dmin;
-    a.dx[o] = dmax;
+    if (!COMPACT) {
+      const size_t o = env0 + (size_t)(n_win - 1) * ILS_LANES;
+      a.dn[o] = dmin;
+      a.dx[o] = dmax;
+    }
   }
   flush(flushed + CERT_RING);
+  if (COMPACT) return;
   // one chunk writes its flag; several OR theirs into the zeroed flags
   if (a.chunks == 1) {
     a.viol[t * ILS_LANES + s] = viol;
@@ -309,39 +335,69 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
   }
 }
 
+__global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_certify_kernel(
+    const CertArgs a) {
+  pack_chunk<false>(a);
+}
+
+__global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_kernel(
+    const CertArgs a) {
+  pack_chunk<true>(a);
+}
+
+// The chunks' bits kernel where a stream has more than one chunk, then the
+// pack kernel over (tile, chunk).  The wrapper's `certify_chunks` computes
+// the same geometry: C chunks of chunk_win windows, the last one possibly
+// shorter.
+template <bool COMPACT>
+int launch_chunks(CertArgs& a, int n_tiles, int chunk_win,
+                  cudaStream_t stream) {
+  const int n_win = ((a.k >> 2) + ILS_WIN - 1) / ILS_WIN;
+  if (chunk_win < 1 || a.chunks != (n_win + chunk_win - 1) / chunk_win ||
+      (a.G != 1 && a.G != 2))
+    return (int)cudaErrorInvalidValue;
+  a.chunk_bodies = chunk_win * ILS_WIN;
+  if (a.chunks > 1) {
+    ils_certify_bits_kernel<<<n_tiles * (a.chunks - 1) *
+                                  (ILS_LANES / COUNT_THREADS),
+                              COUNT_THREADS, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  // a refusal of the shared-memory size is returned, and cleared so that
+  // it does not surface at a later launch's check
+  const auto kernel = COMPACT ? ils_pack_kernel : ils_pack_certify_kernel;
+  const int smem = CERT_RING * ILS_LANES * (int)sizeof(uint64_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  kernel<<<n_tiles * a.chunks, ILS_LANES, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ----------------------------------------------------------------------
-// A4 and A5
+// A4
 // ----------------------------------------------------------------------
 struct EncArgs {
   const uint32_t* data;    // (n_tiles * k/4, 1024) u32 words
   const int* tab;          // (256,) (len << 20) | code
-  const int* boffs;        // A5: (n_tiles, n_win) emission anchors
-  const int* row_starts;   // A5: (n_tiles,) compact row offsets
-  uint32_t* pay;           // CERTIFY: strided payload; A5: compact payload
-  int* bits;               // A4: (n_tiles, 1024) bits per stream
-  int* dn;                 // A4: (n_tiles, n_win, 1024) refill envelope
+  int* bits;               // (n_tiles, 1024) bits per stream
+  int* dn;                 // (n_tiles, n_win, 1024) refill envelope
   int* dx;
-  int* en;                 // A4: (n_tiles, n_win, 1024) emission envelope
+  int* en;                 // (n_tiles, n_win, 1024) emission envelope
   int* ex;
-  int* viol;               // CERTIFY: (n_tiles, 1024) out-of-band flag
   int k, snum, rot;
-  int G;                   // bodies per flush group (1 or 2)
-  int W;                   // emission window width in pairs
-  int cap_pairs;           // pair capacity the window is clamped into
-  int boff_est;            // CERTIFY "mu" anchor offset: -(e_band // 2)
-  int laggard;             // CERTIFY anchor: 0 = "mu", 1 = "laggard"
-  long long stride_rows;   // CERTIFY: rows per tile region
-  long long n_rows;        // A5: rows of the compact payload (+ slack)
 };
 
 // Registers: a 1024-thread block may use at most 64 registers per thread;
 // the launch bound makes the compiler hold to it, and a launch that still
 // asks for more fails and surfaces through cudaGetLastError().
-template <bool PACK, bool CERTIFY, bool COMPACT_DST>
-__global__ void __launch_bounds__(ILS_LANES) ils_encode_kernel(const EncArgs a) {
-  constexpr bool SIM_DEC = !COMPACT_DST;  // decoder refill simulation
+__global__ void __launch_bounds__(ILS_LANES) ils_lengths_kernel(
+    const EncArgs a) {
   __shared__ int s_tab[256];
-  __shared__ int s_red[33];
   const int s = threadIdx.x;
   const int t = blockIdx.x;
   if (s < 256) s_tab[s] = a.tab[s];
@@ -349,144 +405,64 @@ __global__ void __launch_bounds__(ILS_LANES) ils_encode_kernel(const EncArgs a) 
 
   const int nb = a.k >> 2;
   const int n_win = (nb + ILS_WIN - 1) / ILS_WIN;
-  const int base_hi = a.cap_pairs - a.W;
   // 64-bit offsets: a 1 GiB section holds ~2.7e8 words
   const uint32_t* data_t = a.data + (size_t)t * nb * ILS_LANES;
-  // A2 writes pair e_ptr < cap_pairs of its own stride region, always in
-  // the buffer.  A5 takes the row starts on trust (no host check), so a
-  // pair the compact payload cannot hold is skipped, never written.
-  long long row0 = 0;
-  if (PACK) row0 = COMPACT_DST ? (long long)a.row_starts[t]
-                               : (long long)t * a.stride_rows;
-  auto store_pair = [&](int pair_idx, uint64_t v) {
-    const long long r = row0 + 2 * (long long)pair_idx;
-    if (COMPACT_DST && (r < 0 || r + 1 >= a.n_rows)) return;
-    uint32_t* p = a.pay + (size_t)r * ILS_LANES + s;
-    p[0] = (uint32_t)(v >> 32);
-    p[ILS_LANES] = (uint32_t)v;
-  };
   const size_t env0 = (size_t)t * n_win * ILS_LANES + s;
 
-  uint64_t hi = 0, lo = 0;  // MSB-first accumulator, `used` bits valid
-  int used = 0, e_ptr = 0, valid = 128, pptr = 2, viol = 0;
-  // The emission window base (ROADMAP.md trap F2).  "mu" and A5 recompute
-  // it at each group's first body; "laggard" uses the tile minimum of e_ptr
-  // after the PREVIOUS flush (stale by one flush, as in the TPU kernel),
-  // starting at 0 and carried across the whole tile.
-  int base = 0;
+  int used = 0, e_ptr = 0, valid = 128, pptr = 2;
   int dmin = ILS_BIG, dmax = -ILS_BIG, emin = ILS_BIG, emax = -ILS_BIG;
-
   for (int i = 0; i < nb; ++i) {
     const int mu = ils_mu(i, a.snum);
-    if (PACK && !a.laggard && i % a.G == 0) {
-      const int boff =
-          COMPACT_DST ? a.boffs[t * n_win + i / ILS_WIN] : a.boff_est;
-      base = ils_clip(mu + boff, 0, base_hi);
-    }
     const uint32_t w =
         data_t[(size_t)i * ILS_LANES + (a.rot ? ils_rot_src(s, i) : s)];
     int l4 = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int e = s_tab[(w >> (8 * j)) & 255];
-      const int ln = e >> 20;
-      // absent symbols have ln == 0 and insert nothing; ln in [1, 16] and
-      // used <= 111 here keep every shift below in range
-      if (PACK && ln) {
-        const uint64_t c = (uint64_t)(e & 0xFFFF) << (64 - ln);
-        if (used < 64) {
-          hi |= c >> used;
-          if (used) lo |= c << (64 - used);
-        } else {
-          lo |= c >> (used - 64);
-        }
-      }
+      const int ln = s_tab[(w >> (8 * j)) & 255] >> 20;
       used += ln;
       l4 += ln;
     }
-    if (SIM_DEC) {
-      valid -= l4;
-      if (valid <= 64) {
-        const int dev = pptr - mu;
-        dmin = min(dmin, dev);
-        dmax = max(dmax, dev);
-        ++pptr;
-        valid += 64;
-      }
+    // the decoder refill
+    valid -= l4;
+    if (valid <= 64) {
+      const int dev = pptr - mu;
+      dmin = min(dmin, dev);
+      dmax = max(dmax, dev);
+      ++pptr;
+      valid += 64;
     }
     if (used >= 64) {  // at most one pair per body: used <= 63 + 64
-      if (!PACK) {
-        const int dev = e_ptr - mu;
-        emin = min(emin, dev);
-        emax = max(emax, dev);
-      } else {
-        // the TPU kernel retires this pair at its group's flush into the
-        // window [base, base + W); a pair outside it is dropped there (and
-        // flags a violation in A2), so it is dropped here too
-        const int rel = e_ptr - base;
-        if (rel >= 0 && rel < a.W) {
-          store_pair(e_ptr, hi);
-        } else if (CERTIFY) {
-          viol = 1;
-        }
-        hi = lo;
-        lo = 0;
-      }
+      const int dev = e_ptr - mu;
+      emin = min(emin, dev);
+      emax = max(emax, dev);
       ++e_ptr;
       used -= 64;
     }
-    // a flush ends every G bodies (G = 2 when the TPU unroll is even)
-    if (CERTIFY && a.laggard && (i + 1) % a.G == 0) {
-      base = ils_clip(block_min(e_ptr, s_red), 0, base_hi);
-    }
-    if (SIM_DEC && (i + 1) % ILS_WIN == 0 && i + 1 < nb) {
+    if ((i + 1) % ILS_WIN == 0 && i + 1 < nb) {
       const size_t o = env0 + (size_t)(i / ILS_WIN) * ILS_LANES;
       a.dn[o] = dmin;
       a.dx[o] = dmax;
       dmin = ILS_BIG;
       dmax = -ILS_BIG;
-      if (!PACK) {
-        a.en[o] = emin;
-        a.ex[o] = emax;
-        emin = ILS_BIG;
-        emax = -ILS_BIG;
-      }
+      a.en[o] = emin;
+      a.ex[o] = emax;
+      emin = ILS_BIG;
+      emax = -ILS_BIG;
     }
   }
 
-  if (SIM_DEC) a.bits[t * ILS_LANES + s] = 64 * e_ptr + used;
-  // the final flush of the zero-padded partial pair is judged too, at the
-  // last body's mu (or the stale laggard base)
+  a.bits[t * ILS_LANES + s] = 64 * e_ptr + used;
+  // the final flush of the zero-padded partial pair, at the last body's mu
   if (used > 0) {
-    if (!PACK) {
-      const int dev = e_ptr - ils_mu(nb - 1, a.snum);
-      emin = min(emin, dev);
-      emax = max(emax, dev);
-    } else {
-      int fbase = base;
-      if (!a.laggard) {
-        const int boff =
-            COMPACT_DST ? a.boffs[t * n_win + n_win - 1] : a.boff_est;
-        fbase = ils_clip(ils_mu(nb - 1, a.snum) + boff, 0, base_hi);
-      }
-      const int rel = e_ptr - fbase;
-      if (rel >= 0 && rel < a.W) {
-        store_pair(e_ptr, hi);
-      } else if (CERTIFY) {
-        viol = 1;
-      }
-    }
+    const int dev = e_ptr - ils_mu(nb - 1, a.snum);
+    emin = min(emin, dev);
+    emax = max(emax, dev);
   }
-  if (SIM_DEC) {
-    const size_t o = env0 + (size_t)(n_win - 1) * ILS_LANES;
-    a.dn[o] = dmin;
-    a.dx[o] = dmax;
-    if (!PACK) {
-      a.en[o] = emin;
-      a.ex[o] = emax;
-    }
-  }
-  if (CERTIFY) a.viol[t * ILS_LANES + s] = viol;
+  const size_t o = env0 + (size_t)(n_win - 1) * ILS_LANES;
+  a.dn[o] = dmin;
+  a.dx[o] = dmax;
+  a.en[o] = emin;
+  a.ex[o] = emax;
 }
 
 extern "C" int ils_lengths_launch(const void* data, const void* tab,
@@ -504,9 +480,7 @@ extern "C" int ils_lengths_launch(const void* data, const void* tab,
   a.k = k;
   a.snum = snum;
   a.rot = rot;
-  a.G = 1;
-  ils_encode_kernel<false, false, false>
-      <<<n_tiles, ILS_LANES, 0, (cudaStream_t)stream>>>(a);
+  ils_lengths_kernel<<<n_tiles, ILS_LANES, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -515,12 +489,6 @@ extern "C" int ils_pack_certify_launch(
     void* dx, void* viol, void* cbits, int n_tiles, int k,
     int snum, int rot, int G, int W, int cap_pairs, int boff_est, int laggard,
     long long stride_rows, int chunks, int chunk_win, void* stream) {
-  // the wrapper's `certify_chunks` computes the same geometry: C chunks of
-  // chunk_win windows, the last one possibly shorter
-  const int n_win = ((k >> 2) + ILS_WIN - 1) / ILS_WIN;
-  if (chunk_win < 1 || chunks != (n_win + chunk_win - 1) / chunk_win ||
-      (G != 1 && G != 2))
-    return (int)cudaErrorInvalidValue;
   CertArgs a = {};
   a.data = (const uint32_t*)data;
   a.tab = (const int*)tab;
@@ -539,49 +507,30 @@ extern "C" int ils_pack_certify_launch(
   a.boff_est = boff_est;
   a.laggard = laggard;
   a.chunks = chunks;
-  a.chunk_bodies = chunk_win * ILS_WIN;
   a.stride_rows = stride_rows;
-  if (chunks > 1) {
-    ils_certify_bits_kernel<<<n_tiles * (chunks - 1) *
-                                  (ILS_LANES / COUNT_THREADS),
-                              COUNT_THREADS, 0, (cudaStream_t)stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  // a refusal of the shared-memory size is returned, and cleared so that
-  // it does not surface at a later launch's check
-  const int smem = CERT_RING * ILS_LANES * (int)sizeof(uint64_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      ils_pack_certify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
-  ils_pack_certify_kernel<<<n_tiles * chunks, ILS_LANES, smem,
-                            (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_chunks<false>(a, n_tiles, chunk_win, (cudaStream_t)stream);
 }
 
 extern "C" int ils_pack_launch(const void* data, const void* tab,
                                const void* boffs, const void* row_starts,
-                               void* pay, int n_tiles, int k, int snum,
-                               int rot, int G, int W, int cap_pairs,
-                               long long n_rows, void* stream) {
-  EncArgs a = {};
+                               void* pay, void* cbits, int n_tiles, int k,
+                               int snum, int rot, int G, int W, int cap_pairs,
+                               long long n_rows, int chunks, int chunk_win,
+                               void* stream) {
+  CertArgs a = {};
   a.data = (const uint32_t*)data;
   a.tab = (const int*)tab;
   a.boffs = (const int*)boffs;
   a.row_starts = (const int*)row_starts;
   a.pay = (uint32_t*)pay;
+  a.cbits = (int*)cbits;
   a.k = k;
   a.snum = snum;
   a.rot = rot;
   a.G = G;
   a.W = W;
   a.cap_pairs = cap_pairs;
+  a.chunks = chunks;
   a.n_rows = n_rows;
-  ils_encode_kernel<true, false, true>
-      <<<n_tiles, ILS_LANES, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_chunks<true>(a, n_tiles, chunk_win, (cudaStream_t)stream);
 }

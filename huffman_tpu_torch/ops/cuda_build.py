@@ -54,7 +54,8 @@ _SIGNATURES = {
             _I, _L, _I, _I, _P,
         ],
         "ils_pack_launch": [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P,
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
+            _P,
         ],
     },
     "ils_compact": {
@@ -69,7 +70,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P,
         ],
         "gap_count_segments_launch": [
-            _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P,
         ],
     },
     "gap_encode": {

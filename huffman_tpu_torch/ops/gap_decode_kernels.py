@@ -20,7 +20,9 @@ that of `ops/ils_kernels.py`: a CUDA tensor launches the kernel of
 - `decode_blocks`: both, for G equal-size blocks in one launch each.
 - `count_segments` (C1): the symbols of each segment of a gap-only
   (Yamamoto) stream, the codewords that start before the next segment's
-  entry.
+  entry; a CUDA thread advances several codewords a lookup in a count
+  table on `COUNT_TAB_BITS` window bits, which a first kernel of the call
+  builds.
 
 The TPU's placement plans (`plan_compact`, `plan_tiles`, `_geometry`),
 its 2-wide segment merge and its row budget (`MAX_ROW_BYTES`) size VMEM
@@ -270,6 +272,11 @@ def gap_place_bytes(ranks, counts, offsets, symtab, *, n_out):
 # ----------------------------------------------------------------------
 # C1: symbol counts of a gap-only stream
 # ----------------------------------------------------------------------
+# Window bits of C1's count table (``csrc/gap_decode.cu`` COUNT_TAB_BITS):
+# 2 ** COUNT_TAB_BITS u16 entries, built into a buffer of the call
+COUNT_TAB_BITS = 13
+
+
 def count_max(seg_bits: int, min_len: int) -> int:
     """Most codewords C1 counts in a segment.  A valid stream's entry
     offsets are below 16 bits (max_len <= 16), so its segments never reach
@@ -316,9 +323,13 @@ def count_segments(words, gaps, lim, *, seg_bits, total_bits, min_len,
     counts = torch.empty(n_segs, dtype=torch.int32, device=words.device)
     if n_segs == 0:
         return counts
+    tab = torch.empty(1 << COUNT_TAB_BITS, dtype=torch.int16,
+                      device=words.device)
+    # one count a call, though a call launches two kernels (the table's,
+    # where the code has more than one length)
     rc = _lib("gap_decode").gap_count_segments_launch(
-        words.data_ptr(), gaps.data_ptr(), lim.data_ptr(), counts.data_ptr(),
-        n_segs, words.shape[0], total_bits, seg_bits,
+        words.data_ptr(), gaps.data_ptr(), lim.data_ptr(), tab.data_ptr(),
+        counts.data_ptr(), n_segs, words.shape[0], total_bits, seg_bits,
         count_max(seg_bits, min_len), min_len, max_len, _stream(words),
     )
     _launched(count_segments, rc)

@@ -368,7 +368,8 @@ def _certify_geometry(k, stride_rows, e_band, anchor, G=None):
 
 
 def certify_chunks(k: int) -> tuple[int, int]:
-    """(chunks C per stream, windows per chunk) of A2's CUDA kernels: each
+    """(chunks C per stream, windows per chunk) of A2's CUDA kernels, and
+    of A5's, which run in their compact form: each
     stream's bodies cut into chunks of CERTIFY_CHUNK_WIN whole windows (the
     last one possibly shorter), so that a chunk writes its own envelope
     windows and starts at a flush boundary.  The grid is (tile, chunk):
@@ -537,7 +538,9 @@ def ils_pack(data_i32, snum, boffs, row_starts, enc, *, k, w_cap, w_band,
     envelope of `ils_lengths_pass`); row_starts: (n_tiles,) int32 compact
     row offsets, taken on trust (`ops.ils.row_starts_of`): a pair that would
     land outside the output is skipped, not checked on the host.  The
-    trailing w_cap rows are zero slack."""
+    trailing w_cap rows are zero slack.  On a CUDA tensor A2's two kernels
+    in their compact form compute it over `certify_chunks(k)` chunks of
+    each stream."""
     n_tiles = _n_tiles(data_i32, k)
     n_win = ils_n_win(k)
     _check("data_i32", data_i32, torch.int32)
@@ -550,13 +553,21 @@ def ils_pack(data_i32, snum, boffs, row_starts, enc, *, k, w_cap, w_band,
         return ils_pack_plain(data_i32, snum, boffs, row_starts, enc, k=k,
                               w_cap=w_cap, w_band=w_band,
                               total_rows=total_rows, rot=rot)
+    dev = data_i32.device
+    # zero-filled: rows past a stream's end and the slack stay zero
     pay = torch.zeros((total_rows + w_cap, ILS_LANES), dtype=torch.int32,
-                      device=data_i32.device)
+                      device=dev)
+    # A2's chunks and bits kernel: the code bits of every chunk but the last
+    chunks, chunk_win = certify_chunks(k)
+    cbits = torch.empty((n_tiles, chunks - 1, ILS_LANES), dtype=torch.int32,
+                        device=dev)
     rc = _lib("ils_encode").ils_pack_launch(
         data_i32.data_ptr(), enc.data_ptr(), boffs.data_ptr(),
-        row_starts.data_ptr(), pay.data_ptr(), n_tiles, k, int(snum),
-        int(bool(rot)), G, W, cap_pairs, total_rows + w_cap, _stream(data_i32),
+        row_starts.data_ptr(), pay.data_ptr(), cbits.data_ptr(), n_tiles, k,
+        int(snum), int(bool(rot)), G, W, cap_pairs, total_rows + w_cap,
+        chunks, chunk_win, _stream(data_i32),
     )
+    # one count per call, though a call of C > 1 chunks launches two kernels
     _launched(ils_pack, rc)
     return pay
 

@@ -415,6 +415,46 @@ def test_foreign_kernels_match_plain(cuda, kind, n):
     assert sk.launch_counts()["sync_transitions"] == 2
 
 
+@pytest.mark.parametrize("seg_bits", [128, 1024])
+@pytest.mark.parametrize("kind", ["0.5", "skew16", "uniform", "single"])
+def test_count_segments_redesign_matches_plain(cuda, kind, seg_bits):
+    # C1's count table at the Yamamoto path's 128-bit segments (4 MiB of
+    # r=0.5) and at 1024 bits; skew16's limits are not byte-aligned, so
+    # some prefixes decide nothing; uniform and single have one length
+    # (closed form).  A few gaps corrupted, and a bound past the words
+    # (zeros there).
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.core import npref
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.ops.tables import device_dec_table
+
+    n = 4 << 20 if kind == "0.5" else 1 << 20
+    if kind == "skew16":
+        data, table = _skew16(n, 31)
+    else:
+        data = _gap_data(kind, n)
+        table = GapArrayCodec.fit(data, device="cpu").table
+    words, total_bits = npref.encode_bits(data, table)
+    words = words[:-1]
+    gaps, counts, _ = npref.segment_metadata(data, table, seg_bits)
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    lim = gd.kernel_tabs(device_dec_table(table, cuda))[0]
+    lens = dict(min_len=table.min_len, max_len=table.max_len_present)
+    rng = np.random.default_rng(seg_bits)
+    bad = gaps.astype(np.int64) + np.where(
+        rng.random(gaps.size) < 0.01, rng.integers(-3000, 3000, gaps.size), 0)
+    gd.reset_launch_counts()
+    for g in (gaps, bad):
+        gt = torch.from_numpy(g.astype(np.int32)).to(cuda)
+        for bound in (total_bits, words.size * 32 + 100):
+            kw = dict(seg_bits=seg_bits, total_bits=bound, **lens)
+            got = gd.count_segments(w, gt, lim, **kw)
+            assert _equal(got, gd.count_segments_plain(w, gt, lim, **kw)), bound
+            if g is gaps and bound == total_bits:
+                assert np.array_equal(got.cpu().numpy(), counts)
+    assert gd.launch_counts()["count_segments"] == 4
+
+
 @pytest.mark.parametrize("kind,n", [("0.5", 300001), ("single", 20000),
                                     ("uniform", 4096), ("0.9", 1)])
 def test_foreign_decoders_match_cpu(cuda, kind, n):
@@ -709,6 +749,39 @@ def test_pack_certify_chunked_matches_plain(cuda, kind, rot):
     # flags of a violating call are held too
     assert flags["mu", 2] == 1
     assert tk.launch_counts()["ils_pack_certify"] == 6
+
+
+@pytest.mark.parametrize("rot", [False, True])
+@pytest.mark.parametrize("kind", ["mixed", "lacks"])
+@pytest.mark.parametrize("k", [4096, 8192])
+def test_pack_chunked_matches_plain(cuda, k, kind, rot):
+    # A5 over certify_chunks(k) chunks a stream (4 at k=4096, 8 at 8192):
+    # A4's anchors as the two-pass tier gives them; the anchors made to
+    # fall at every odd window, with the row starts moved so that pairs lie
+    # outside the payload (skipped); with rotation also at a band over 192
+    # pairs (G = 1)
+    codec, snum, words = _a2_case(kind, k, cuda)
+    assert tk.certify_chunks(k)[0] > 1
+    bits, dn, dx, en, ex = tk.ils_lengths_pass(words, snum, codec.enc, k=k,
+                                               rot=rot)
+    band, boffs = tils.emission_band(en, ex)
+    p = tils.envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
+                             extra_band_pairs=band)
+    starts = p.row_starts[:-1].astype(np.int32)
+    odd = np.arange(boffs.shape[1]) % 2 == 1
+    fall = (boffs + np.where(odd, -6, 6)).astype(np.int32)
+    cases = [(boffs, starts, band),
+             (fall, starts + np.array([-6, 10], np.int32), band)]
+    if rot:
+        cases.append((fall, starts, 200))
+    for b, st, w_band in cases:
+        kw = dict(k=k, w_cap=max(p.w_cap, 2 * (w_band + 64)), w_band=w_band,
+                  total_rows=p.total_rows, rot=rot)
+        bt, stt = torch.from_numpy(b).to(cuda), torch.from_numpy(st).to(cuda)
+        got = tk.ils_pack(words, snum, bt, stt, codec.enc, **kw)
+        ref = tk.ils_pack_plain(words, snum, bt, stt, codec.enc, **kw)
+        assert _equal(got, ref), w_band
+    assert tk.launch_counts()["ils_pack"] == len(cases)
 
 
 def test_stream_pack_chunked_matches_plain_and_a2(cuda):

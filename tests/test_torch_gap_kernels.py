@@ -1,6 +1,8 @@
 """The HTC1 kernels' plain versions against the JAX package, on the CPU.
 
 B1 (`gap_decode_ranks`) against `decode_ranks_pallas` in interpret mode,
+a NumPy model of C1's count-table walk (`count_segments`) against the
+plain version and `count_segments_pallas` in interpret mode,
 B2 (`gap_place_bytes`) against a NumPy ragged concatenation, B4b-B4d and
 `encode_blocks` against `encode_blocks_pallas` in interpret mode, the
 JAX `encode_block` and the NumPy oracles, and the port's `encode_block`
@@ -22,12 +24,19 @@ from huffman_tpu.ops import dec_spec as jdec_spec
 from huffman_tpu.ops import device_dec_table as jdevice_dec_table
 from huffman_tpu.ops import device_enc_table as jdevice_enc_table
 from huffman_tpu.ops.encode import encode_block as jencode_block
-from huffman_tpu.ops.pallas.decode_kernel import decode_ranks_pallas
+from huffman_tpu.io.yamamoto import (
+    table_from_length_sequence as jtable_from_length_sequence,
+)
+from huffman_tpu.ops.pallas.decode_kernel import (
+    count_segments_pallas,
+    decode_ranks_pallas,
+)
 from huffman_tpu.ops.pallas.gap_encode_kernel import encode_blocks_pallas
 from huffman_tpu.ops.pallas.ils_kernels import ils_enc_tabs as jils_enc_tabs
 from huffman_tpu.utils import generate_redundant
 from huffman_tpu_torch.core import npref
 from huffman_tpu_torch.core.canonical import build_flat_lut, canonical_code_table
+from huffman_tpu_torch.io.yamamoto import table_from_length_sequence
 from huffman_tpu_torch.ops import encode as tenc
 from huffman_tpu_torch.ops import gap_decode_kernels as gd
 from huffman_tpu_torch.ops import gap_encode_kernels as ge
@@ -691,6 +700,216 @@ def test_ranks_tile_fits_shared_memory(seg_bits):
         assert (chunk + 4) // 4 % 2 == 1  # odd pitch in words
         # lim and bias, (32,) each, are static shared memory besides
         assert smem == rows * (chunk + 4) and smem + 256 <= SMEM_PER_BLOCK
+
+
+# ----------------------------------------------------------------------
+# C1: a NumPy model of csrc/gap_decode.cu's count-table walk
+# ----------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+
+
+def _canon(win, lim, min_len, max_len):
+    """The compare chain on u32 windows (int64): min_len + #{l in
+    [min_len, max_len): win >= lim[l]}."""
+    ln = np.full(win.shape, min_len, np.int64)
+    for lv in range(min_len, max_len):
+        ln += win >= lim[lv]
+    return ln
+
+
+def _c1_table(lim, min_len, max_len, bits=gd.COUNT_TAB_BITS):
+    """gap_count_table_kernel: per `bits`-bit prefix, (n, total bits, first
+    length) of the codewords it decides, walking on while the prefix's
+    lowest and highest completions give one length, and taking the
+    codeword that crosses its end too."""
+    prefix = np.arange(1 << bits, dtype=np.int64) << (32 - bits)
+    p = np.zeros(prefix.shape, np.int64)
+    n, first = np.zeros_like(p), np.zeros_like(p)
+    active = np.ones(prefix.shape, bool)
+    while active.any():
+        q = np.minimum(p, bits - 1)  # active entries have p < bits
+        lo = (prefix << q) & _M32
+        ln = _canon(lo, lim, min_len, max_len)
+        ok = active & (_canon(lo | (_M32 >> (bits - q)), lim, min_len,
+                              max_len) == ln)
+        first = np.where(ok & (n == 0), ln, first)
+        n, p = n + ok, np.where(ok, p + ln, p)
+        active = ok & (p < bits)
+    return n, p, first
+
+
+def _c1_model(words, gaps, lim, *, seg_bits, total_bits, min_len, max_len,
+              bits=gd.COUNT_TAB_BITS):
+    """gap_count_segments_kernel on every segment at once: (counts, steps),
+    steps counting the table's multi-codeword steps and the single steps
+    taken for `end`, for the cap and where the prefix decides nothing."""
+    words = np.asarray(words).view(np.uint32).astype(np.int64)
+    n_words = words.size
+    flat = np.r_[words, 0]
+    max_count = gd.count_max(seg_bits, min_len)
+    pos = np.arange(gaps.size, dtype=np.int64) * seg_bits + gaps
+    end = np.minimum(np.r_[pos[1:], total_bits], total_bits)
+    steps = dict.fromkeys(("multi", "end", "cap", "chain"), 0)
+    if min_len == max_len:
+        count = np.where(pos < end, np.minimum(
+            (end - pos + max_len - 1) // max_len, max_count), 0)
+        return count.astype(np.int32), steps
+    n_tab, bits_tab, first_tab = _c1_table(lim, min_len, max_len, bits)
+
+    def word(i):
+        return flat[np.where((i >= 0) & (i < n_words), i, n_words)]
+
+    count = np.zeros_like(pos)
+    while True:
+        act = (pos < end) & (count < max_count)
+        if not act.any():
+            break
+        sh = pos & 31
+        win = ((word(pos >> 5) << sh) & _M32) | (word((pos >> 5) + 1)
+                                                 >> (32 - sh))
+        x = win >> (32 - bits)
+        n, b = n_tab[x], bits_tab[x]
+        chain = n == 0
+        by_end = ~chain & (pos + b > end)
+        by_cap = ~chain & ~by_end & (count + n > max_count)
+        single = by_end | by_cap
+        step_n = np.where(chain | single, 1, n)
+        step_b = np.where(chain, _canon(win, lim, min_len, max_len),
+                          np.where(single, first_tab[x], b))
+        count += np.where(act, step_n, 0)
+        pos += np.where(act, step_b, 0)
+        for key, m in (("multi", ~chain & ~single), ("end", by_end),
+                       ("cap", by_cap), ("chain", chain)):
+            steps[key] += int((act & m).sum())
+    return count.astype(np.int32), steps
+
+
+def _c1_case(kind, n, seed=1):
+    """(data, JAX table, port table) of a count case: "skew16" has every
+    length 1..16 (limits that are not byte-aligned; prefixes that decide
+    nothing), its 17 symbols drawn alike so that codes longer than the
+    table's window are common; "three" lengths 1, 2, 2 (many codewords a
+    step)."""
+    if kind == "skew16":
+        syms = np.r_[np.arange(40, 55), 56, 55].astype(np.uint8)
+        lens = np.r_[np.arange(1, 16), 16, 16]
+        data = syms[np.random.default_rng(seed).integers(0, 17, n)]
+        return (data, jtable_from_length_sequence(syms, lens),
+                table_from_length_sequence(syms, lens))
+    if kind == "three":
+        data = np.random.default_rng(seed).choice(
+            np.array([5, 6, 7], np.uint8), n, p=[0.5, 0.25, 0.25])
+    else:
+        data = _input(kind, n, seed)
+    return (data, *_tables(data))
+
+
+def _c1_lim(pt):
+    lim = gd.kernel_tabs(tt.device_dec_table(pt))[0]
+    return lim, lim.numpy().astype(np.int64) & _M32
+
+
+@pytest.mark.parametrize("kind", ["skew16", "three", "0.5", "0.9", "uniform"])
+def test_c1_count_table_matches_compare_chain(kind):
+    # every prefix: the chain walked on its lowest, its highest and 16
+    # random completions decides the entry's codewords, bits and first
+    # length; an empty entry's first codeword has two lengths there
+    _, _, pt = _c1_case(kind, 4000)
+    _, lim = _c1_lim(pt)
+    min_len, max_len = pt.min_len, pt.max_len_present
+    bits = gd.COUNT_TAB_BITS
+    n, p, first = _c1_table(lim, min_len, max_len)
+    x = np.arange(1 << bits, dtype=np.int64)
+    span = (1 << (64 - bits)) - 1
+    rng = np.random.default_rng(7)
+    for fill in [0, span] + list(rng.integers(0, span + 1, 16)):
+        # a 64-bit stream from the prefix: its first codewords' lengths
+        stream = (x << (64 - bits)) | fill
+        at, k, got_first = np.zeros_like(x), np.zeros_like(x), None
+        while True:
+            live = k < n
+            if not live.any():
+                break
+            win = (stream >> (32 - np.minimum(at, 32))) & _M32
+            ln = _canon(win, lim, min_len, max_len)
+            got_first = ln if got_first is None else got_first
+            at, k = np.where(live, at + ln, at), k + live
+        full = n > 0
+        assert np.array_equal(at[full], p[full])
+        assert np.array_equal(got_first[full], first[full])
+    lo, hi = x << (32 - bits), (x << (32 - bits)) | (_M32 >> bits)
+    assert np.array_equal(n == 0, _canon(lo, lim, min_len, max_len)
+                          != _canon(hi, lim, min_len, max_len))
+    assert p.max() <= bits - 1 + max_len and n.max() <= bits
+    if kind == "skew16":
+        # limits that are not byte-aligned leave prefixes deciding nothing
+        # (a run of ones of this unary-like code decides no length)
+        assert (n == 0).any()
+    else:
+        # a codeword whose length its first bits decide crosses the end
+        assert (p > bits).any()
+    if kind == "three":
+        assert n.max() == bits
+
+
+@pytest.mark.parametrize("kind", ["skew16", "three", "0.5", "single"])
+@pytest.mark.parametrize("seg_bits", [128, 256])
+def test_c1_model_matches_plain_and_jax(kind, seg_bits):
+    # the exact bit count and the format's word-count bound, held to the
+    # plain version and to the JAX kernel in interpret mode; and a bound
+    # past the words (which read as zeros), held to the plain version (the
+    # JAX kernel reads its own padding there)
+    data, jt, pt = _c1_case(kind, 4000)
+    words, total_bits = jnpref.encode_bits(data, jt)
+    words = words[:-1]
+    gaps = jnpref.segment_metadata(data, jt, seg_bits)[0].astype(np.int32)
+    lim_t, lim = _c1_lim(pt)
+    spec = tt.dec_spec(pt)
+    lens = dict(min_len=spec.min_len, max_len=spec.max_len)
+    jdec, jspec = jdevice_dec_table(jt, two_level=False), jdec_spec(jt)
+    words_j = jnp.asarray(np.concatenate([words, np.zeros(2, np.uint32)]))
+    n = gaps.size
+    for bound in (total_bits, words.size * 32, words.size * 32 + 70):
+        kw = dict(seg_bits=seg_bits, total_bits=bound, **lens)
+        got, steps = _c1_model(words, gaps, lim, **kw)
+        plain = gd.count_segments(_t(words.view(np.int32)), _t(gaps), lim_t,
+                                  **kw).numpy()
+        assert np.array_equal(got, plain)
+        if bound > words.size * 32:
+            continue
+        starts = np.arange(n) * seg_bits + gaps.astype(np.int64)
+        budgets = np.minimum(np.r_[starts[1:], bound], bound) - starts
+        ref = count_segments_pallas(
+            words_j, jnp.asarray(gaps), jnp.asarray(budgets.astype(np.int32)),
+            jdec, spec=jspec, seg_bits=seg_bits, n_segs=n, interpret=True)
+        assert np.array_equal(got, np.asarray(ref)[:n])
+        if kind != "single":
+            # most codewords go several to a step; every segment's end
+            # falls inside a step somewhere
+            assert steps["multi"] > steps["end"] > 0
+        if kind == "skew16":
+            assert steps["chain"] > 0
+
+
+@pytest.mark.parametrize("kind", ["skew16", "0.9", "single"])
+def test_c1_model_caps_corrupt_gaps(kind):
+    # gaps far past the segment grid and before the stream: the cap is met
+    # inside a multi-codeword step, and reads outside the words are zeros
+    data, _, pt = _c1_case(kind, 3000)
+    words, total_bits = npref.encode_bits(data, pt)
+    words = words[:-1]
+    rng = np.random.default_rng(5)
+    gaps = rng.integers(-3000, 6000, 60).astype(np.int32)
+    lim_t, lim = _c1_lim(pt)
+    kw = dict(seg_bits=128, min_len=pt.min_len, max_len=pt.max_len_present)
+    for bound in (total_bits, words.size * 32 + 5000):
+        got, steps = _c1_model(words, gaps, lim, total_bits=bound, **kw)
+        plain = gd.count_segments(_t(words.view(np.int32)), _t(gaps), lim_t,
+                                  total_bits=bound, **kw).numpy()
+        assert np.array_equal(got, plain)
+        assert got.max() == gd.count_max(128, pt.min_len)
+        if kind != "single":
+            assert steps["cap"] > 0
 
 
 def test_wrappers_reject_bad_input():

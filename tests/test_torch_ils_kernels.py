@@ -24,6 +24,7 @@ from huffman_tpu.utils import generate_redundant
 from huffman_tpu_torch.core.canonical import chain_spec as port_chain_spec
 from huffman_tpu_torch.core.ils_ref import _rot_src_index
 from huffman_tpu_torch.io.convert import code_table_from_numpy, section_from_numpy
+from huffman_tpu_torch.ops import ils as tils
 from huffman_tpu_torch.ops import ils_kernels as tk
 
 
@@ -219,27 +220,36 @@ def _chunk_bounds(nb, G, C):
     return list(range(0, nb, step)) + [nb]
 
 
-def _a2_chunked(words, enc, *, k, snum, stride_rows, rot, e_band, anchor, G,
-                bounds):
-    """The two kernels of A2 on chunks [bounds[c], bounds[c + 1]) of every
-    stream: the bits pass (each chunk's code bits), then each chunk from
-    the closed-form state at its start (e_ptr = cum >> 6, used = cum & 63),
-    its accumulator seeded with the last `used` code bits before it (the
-    codes walked back from its start), its laggard base the tile minimum of
-    e_ptr there.  Returns the outputs of `ils_pack_certify` as NumPy
-    arrays."""
+_RING = 8  # pair slots of a warp's ring (CERT_RING in csrc/ils_encode.cu)
+
+
+def _pack_chunked(words, enc, *, k, snum, rot, G, bounds, W, cap_pairs,
+                  boff, laggard, row0, n_rows, flush_to_base):
+    """The two kernels of A2 and A5 on chunks [bounds[c], bounds[c + 1]) of
+    every stream: the bits pass (each chunk's code bits), then each chunk
+    from the closed-form state at its start (e_ptr = cum >> 6, used = cum &
+    63), its accumulator seeded with the last `used` code bits before it
+    (the codes walked back from its start), its laggard base the tile
+    minimum of e_ptr there.  Pairs go through each warp's ring of _RING
+    slots: a pair within _RING of the warp's `flushed` pair waits in slot e
+    % _RING, the others are stored at once; after every body the warp
+    stores its final pairs up to its minimum e_ptr, or up to the window
+    base where `flush_to_base` (A2's rule, which needs a base that never
+    falls).  `boff` is A2's "mu" offset (an int) or A5's (n_tiles, n_win)
+    anchors; pair e of tile t goes to rows row0[t] + 2e, skipped outside
+    [0, n_rows).  Returns (payload, bits, dn, dx, viol) as NumPy arrays."""
     nb = k // 4
     n_tiles = words.shape[0] // nb
     x = words.view(np.uint32).reshape(n_tiles, nb, ILS_LANES)
     src = _rot_src_index(k) if rot else None
     tab = enc.astype(np.int64)
     lens, codes = tab >> 20, (tab & 0xFFFF).astype(_U64)
-    laggard = anchor == "laggard"
-    cap_pairs = stride_rows // 2
-    W = min(e_band + G + (2 if laggard else 0), cap_pairs)
-    base_hi, boff = cap_pairs - W, -(e_band // 2)
+    base_hi = cap_pairs - W
     n_win = -(-nb // 64)
     shape = (n_tiles, ILS_LANES)
+    t_idx, s_idx = np.indices(shape)
+    anchors = np.broadcast_to(np.asarray(boff, np.int64).reshape(
+        (n_tiles, n_win) if np.ndim(boff) else (1, 1)), (n_tiles, n_win))
 
     def codes_of(i):
         w = (x[:, i, :] if src is None else x[:, i, src[i]]).astype(np.int64)
@@ -250,6 +260,9 @@ def _a2_chunked(words, enc, *, k, snum, stride_rows, rot, e_band, anchor, G,
     def mu(i):
         return (i * snum) >> 16
 
+    def window_base(i):
+        return np.clip(mu(i) + anchors[:, i // 64 : i // 64 + 1], 0, base_hi)
+
     cbits = []
     for b0, b1 in zip(bounds[:-2], bounds[1:-1]):
         bits = np.zeros(shape, np.int64)
@@ -258,11 +271,21 @@ def _a2_chunked(words, enc, *, k, snum, stride_rows, rot, e_band, anchor, G,
                 bits += ln
         cbits.append(bits)
 
-    pay = np.zeros(((n_tiles + 1) * stride_rows, ILS_LANES), np.uint32)
+    pay = np.zeros((n_rows, ILS_LANES), np.uint32)
     dn = np.full((n_tiles, n_win, ILS_LANES), 1 << 30, np.int64)
     dx = -dn
     viol = np.zeros(shape, bool)
-    row0 = np.arange(n_tiles)[:, None] * stride_rows
+    row0 = np.asarray(row0, np.int64).reshape(n_tiles, 1)
+
+    def store(mask, e, v):
+        r = row0 + 2 * e
+        ok = mask & (r >= 0) & (r + 1 < n_rows)
+        pay[r[ok], s_idx[ok]] = (v[ok] >> _U64(32)).astype(np.uint32)
+        pay[r[ok] + 1, s_idx[ok]] = (v[ok] & _U64(0xFFFFFFFF)).astype(np.uint32)
+
+    def warps(a):  # a warp's value on each of its lanes
+        return np.repeat(a, 32, axis=1)
+
     for c, (b0, b1) in enumerate(zip(bounds[:-1], bounds[1:])):
         cum = sum(cbits[:c], np.zeros(shape, np.int64))
         used, e_ptr = cum & 63, cum >> 6
@@ -278,20 +301,35 @@ def _a2_chunked(words, enc, *, k, snum, stride_rows, rot, e_band, anchor, G,
         lo = np.zeros(shape, _U64)
         tile_min = lambda: np.clip(e_ptr.min(axis=1, keepdims=True), 0, base_hi)
         base = tile_min() if laggard else 0
+        warp_min = lambda: e_ptr.reshape(n_tiles, -1, 32).min(axis=2)
+        flushed = warp_min()
+        ring = np.zeros(shape + (_RING,), _U64)
+        held = np.zeros(shape + (_RING,), bool)
 
         def retire(mask, base):
             nonlocal viol
             rel = e_ptr - base
             ok = mask & (rel >= 0) & (rel < W)
             viol = viol | (mask & ~ok)
-            t, s = np.nonzero(ok)
-            r = row0[t, 0] + 2 * e_ptr[t, s]
-            pay[r, s] = (hi[t, s] >> _U64(32)).astype(np.uint32)
-            pay[r + 1, s] = (hi[t, s] & _U64(0xFFFFFFFF)).astype(np.uint32)
+            in_ring = ok & (e_ptr - warps(flushed) < _RING)
+            slot = e_ptr & (_RING - 1)
+            ring[t_idx[in_ring], s_idx[in_ring], slot[in_ring]] = hi[in_ring]
+            held[t_idx[in_ring], s_idx[in_ring], slot[in_ring]] = True
+            store(ok & ~in_ring, e_ptr, hi)
+
+        def flush(upto):
+            nonlocal flushed
+            for d in range(_RING):
+                e = warps(flushed + d)
+                slot = e & (_RING - 1)
+                h = held[t_idx, s_idx, slot] & (e < warps(upto))
+                store(h, e, ring[t_idx, s_idx, slot])
+                held[t_idx[h], s_idx[h], slot[h]] = False
+            flushed = np.maximum(flushed, upto)
 
         for i in range(b0, b1):
             if not laggard and i % G == 0:
-                base = min(max(mu(i) + boff, 0), base_hi)
+                base = window_base(i)
             for ln, code in codes_of(i):
                 has = ln > 0
                 left = np.where(has, _shl(code, 64 - ln), _Z64)
@@ -311,12 +349,46 @@ def _a2_chunked(words, enc, *, k, snum, stride_rows, rot, e_band, anchor, G,
             e_ptr, used = e_ptr + emit, used - 64 * emit
             if laggard and (i + 1) % G == 0:
                 base = tile_min()
+            upto = warp_min()
+            if flush_to_base:
+                upto = np.maximum(upto, np.broadcast_to(base, shape)
+                                  .reshape(n_tiles, -1, 32).max(axis=2))
+            flush(upto)
         if c == len(bounds) - 2:
             bits_out = 64 * e_ptr + used
-            retire(used > 0, base if laggard
-                   else min(max(mu(nb - 1) + boff, 0), base_hi))
+            retire(used > 0, base if laggard else window_base(nb - 1))
+        flush(flushed + _RING)
     return (pay.view(np.int32), bits_out.astype(np.int32),
             dn.astype(np.int32), dx.astype(np.int32), viol.astype(np.int32))
+
+
+def _a2_chunked(words, enc, *, k, snum, stride_rows, rot, e_band, anchor, G,
+                bounds):
+    """A2 (`ils_pack_certify`) in `_pack_chunked`: the strided payload of
+    (n_tiles + 1) * stride_rows rows, the anchor's window."""
+    n_tiles = words.shape[0] // (k // 4)
+    laggard = anchor == "laggard"
+    cap_pairs = stride_rows // 2
+    W = min(e_band + G + (2 if laggard else 0), cap_pairs)
+    return _pack_chunked(
+        words, enc, k=k, snum=snum, rot=rot, G=G, bounds=bounds, W=W,
+        cap_pairs=cap_pairs, boff=-(e_band // 2), laggard=laggard,
+        row0=np.arange(n_tiles) * stride_rows,
+        n_rows=(n_tiles + 1) * stride_rows, flush_to_base=True)
+
+
+def _a5_chunked(words, enc, boffs, row_starts, *, k, snum, w_cap, w_band,
+                total_rows, rot, bounds, flush_to_base=False):
+    """A5 (`ils_pack`) in `_pack_chunked`: the compact payload of
+    total_rows + w_cap rows at the row starts, A4's window anchors;
+    `flush_to_base` takes A2's flush rule instead of A5's."""
+    G = tk.flush_group(k, w_band)
+    cap_pairs = w_cap // 2
+    return _pack_chunked(
+        words, enc, k=k, snum=snum, rot=rot, G=G, bounds=bounds,
+        W=min(w_band + G, cap_pairs), cap_pairs=cap_pairs, boff=boffs,
+        laggard=False, row0=row_starts, n_rows=total_rows + w_cap,
+        flush_to_base=flush_to_base)[0]
 
 
 def _skewed(k):
@@ -403,6 +475,117 @@ def test_a2_chunk_model_whole_windows(anchor):
             for name, b, p in zip(("pay", "bits", "dn", "dx", "viol"), got,
                                   plain):
                 assert np.array_equal(b, p.numpy()), (name, rot, win)
+
+
+def _falling(boffs, d=6):
+    """Window anchors raised by d in even windows and lowered by d in odd
+    ones: the window base falls at every odd window."""
+    w = np.arange(boffs.shape[1])
+    return (boffs + np.where(w % 2 == 0, d, -d)).astype(np.int32)
+
+
+@pytest.mark.parametrize("k,r,rot,fall", [
+    (12, 0.5, False, False), (12, 0.9, True, False), (64, 0.5, True, False),
+    (512, 0.5, False, True), (512, 0.9, True, True),
+])
+def test_a5_chunk_model_matches_plain_and_jax(k, r, rot, fall):
+    # A5 in its chunked compact form at the JAX suite's shapes, and at two
+    # windows a stream with anchors that fall between them; chunks of whole
+    # flush groups
+    data = generate_redundant(2 * k * ILS_LANES, r, seed=4)
+    jt, pt, snum, jd, td, _ = _case(data, k)
+    bits, dmin, dmax, emin, emax = jk.ils_lengths_pass(
+        jd, _jparams(snum), jk.ils_enc_tabs(jt), k=k, rot=rot, interpret=True)
+    enc_min = np.asarray(jnp.min(emin, axis=(2, 3)))
+    enc_max = np.asarray(jnp.max(emax, axis=(2, 3)))
+    w_band = jils.round_band(
+        int(np.maximum(enc_max - enc_min, 0).max(initial=0)) + 2)
+    w_tiles = np.maximum(2 * (-(-np.asarray(bits).max(axis=(1, 2)) // 64)), 4)
+    p = jils.certify_params(
+        k=k, snum=snum, n_tiles=2, w_tiles=w_tiles.astype(np.int64),
+        dec_min=np.asarray(jnp.min(dmin, axis=(2, 3))),
+        dec_max=np.asarray(jnp.max(dmax, axis=(2, 3))),
+        extra_band_pairs=w_band, rot=rot)
+    boffs = np.where(enc_min <= enc_max, enc_min, 0).astype(np.int32)
+    if fall:
+        assert boffs.shape[1] == 2
+        boffs = _falling(boffs)
+    starts = p.row_starts[:-1].astype(np.int32)
+    kw = dict(k=k, w_cap=p.w_cap, w_band=w_band, total_rows=p.total_rows,
+              rot=rot)
+    ref = np.asarray(jk.ils_pack(jd, _jparams(snum), jnp.asarray(boffs),
+                                 jnp.asarray(starts), jk.ils_enc_tabs(jt),
+                                 interpret=True, **kw))
+    enc = tk.ils_enc_tabs(pt)
+    plain = tk.ils_pack(td, snum, torch.from_numpy(boffs),
+                        torch.from_numpy(starts), enc, **kw).numpy()
+    G = tk.flush_group(k, w_band)
+    for C in (1, 2, 4):
+        got = _a5_chunked(td.numpy(), enc.numpy(), boffs, starts, snum=snum,
+                          bounds=_chunk_bounds(k // 4, G, C), **kw)
+        assert np.array_equal(got, plain), C
+        assert np.array_equal(ref.reshape(-1, ILS_LANES)[: p.total_rows],
+                              got[: p.total_rows]), C
+
+
+# (k, rot, w_band or None for A4's) of A5's kernel geometry: G = 2 where
+# the band is at most 192 pairs, else 1
+_A5_CASES = {
+    "k=2048 G=2": (2048, False, None),
+    "k=4096 G=1 rot": (4096, True, 200),
+    "k=8192 G=2 rot": (8192, True, None),
+    "k=8192 G=1": (8192, False, 200),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _a5_reference(case):
+    """(data, enc, snum, anchors, row starts, kw, plain payload) of 2
+    tiles: A4's anchors made to fall at every odd window, and the row
+    starts moved so that tile 0's first pairs and tile 1's last ones lie
+    outside the payload (skipped)."""
+    k, rot, w_band = _A5_CASES[case]
+    data = generate_redundant(2 * k * ILS_LANES, 0.5, seed=k + rot)
+    jt = _fit(data)
+    pt = code_table_from_numpy(jt.lengths, jt.max_len)
+    snum = ils_schedule_numer(float(jt.lengths.astype(np.int64)[data].mean()))
+    td = torch.from_numpy(data.view(np.int32).reshape(-1, ILS_LANES).copy())
+    enc = tk.ils_enc_tabs(pt)
+    bits, dn, dx, en, ex = tk.ils_lengths_pass(td, snum, enc, k=k, rot=rot)
+    band, boffs = tils.emission_band(en, ex)
+    p = tils.envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
+                             extra_band_pairs=band)
+    w_band = w_band or band
+    w_cap = max(p.w_cap, 2 * (w_band + 64))
+    starts = p.row_starts[:-1].astype(np.int32) + np.array([-6, 10], np.int32)
+    kw = dict(k=k, w_cap=w_cap, w_band=w_band, total_rows=p.total_rows,
+              rot=rot)
+    boffs = _falling(boffs)
+    plain = tk.ils_pack(td, snum, torch.from_numpy(boffs),
+                        torch.from_numpy(starts), enc, **kw).numpy()
+    return td.numpy(), enc.numpy(), snum, boffs, starts, kw, plain
+
+
+@pytest.mark.parametrize("case", list(_A5_CASES))
+def test_a5_chunk_model_whole_windows(case):
+    # the kernel's geometry: 1, 2 and certify_chunks(k) chunks of whole
+    # windows; A2's flush rule (up to the window base) loses pairs here,
+    # since the base falls
+    data, enc, snum, boffs, starts, kw, plain = _a5_reference(case)
+    k = kw["k"]
+    assert tk.flush_group(k, kw["w_band"]) == int(case.split("G=")[1][0])
+    nb, n_win = k // 4, -(-(k // 4) // 64)
+    C_k, win_k = tk.certify_chunks(k)
+    for C in sorted({1, 2, C_k}):
+        win = win_k if C == C_k else -(-n_win // C)
+        bounds = list(range(0, nb, 64 * win)) + [nb]
+        assert len(bounds) == C + 1
+        got = _a5_chunked(data, enc, boffs, starts, snum=snum, bounds=bounds,
+                          **kw)
+        assert np.array_equal(got, plain), C
+    a2_rule = _a5_chunked(data, enc, boffs, starts, snum=snum, bounds=bounds,
+                          flush_to_base=True, **kw)
+    assert not np.array_equal(a2_rule, plain)
 
 
 @pytest.mark.parametrize("k,chunks", [(8, 1), (12, 1), (256, 1), (1024, 1),
