@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke test of huffman_tpu_torch: the ILS and HTC1 codecs and the
-foreign-stream (Yamamoto, self-sync) decoders end to end on one GPU.
+"""Chip smoke test of huffman_tpu_torch: the ILS and HTC1 codecs, the ILS
+file path and the foreign-stream (Yamamoto, self-sync) decoders end to end
+on one GPU.
 
     python3 chip_smoke.py [--size BYTES] [--tail BYTES] [--redundancy R]
                           [--gap-block BYTES]
@@ -14,13 +15,14 @@ failure raises and exits non-zero with the traceback):
    memory, stack and spill bytes), with the geometry of B4b, B4c, B1,
    C2, B2 and A2 (`row_pack_tile`, `meta_tile`, `ranks_tile`,
    `sync_tile`, `place_tile`, `certify_chunks`), B4d's rows a warp,
-   A1's length-and-symbol table, A5's grid, A4's block and C1's count
-   table, a line each for those eleven.
+   A1's length-and-symbol table, A5's grid, A4's (tile, chunk) grid at
+   the shapes below and C1's count table, a line each for those eleven.
 2. Kernels A1-A5 against their plain PyTorch versions on the card, bit for
    bit, on: 4 tiles at k=4096 of generate_redundant(r=0.5) with rotation
    off and on (A2 in its chunks, `certify_chunks`); the zeros-then-uniform
    input at k=256, e_band=8 (the "mu" anchor violates, "laggard" passes);
-   a k=8 tail tile.
+   a k=8 tail tile.  A4 also hands its chunk bits to A5 there, as the
+   two-pass tier does, and both are held to the plain versions.
 3. Container parity: for those inputs, and for the two-pass tier forced with
    stride_budget=0, the container bytes of the kernel path (device="cuda")
    equal those of the plain path (device="cpu"), and the card decodes them.
@@ -46,7 +48,10 @@ failure raises and exits non-zero with the traceback):
    and A5 launched, A2 not); k, stride_rows, the container bytes and
    ratio; A4 and A5 held against their plain versions at its main
    section's shape and timed; encode and decode timed (medians of 3 and
-   5) and profiled once.
+   5) and profiled once.  Phase 4b also holds A4 to its plain version at
+   the file path's first attempt on this input (one tile at
+   k = 4 * ceil(n / 4096), 262,148 by default; the plain version takes
+   about a minute there and is timed by that one call).
 5. HTC1 kernels B1, B2, B4b-B4d against their plain versions, bit for
    bit, on multi-block groups of generate_redundant(r=0.1, 0.5, 0.9), a
    one-symbol input and the uniform 256-symbol input at seg_bits 128, 1024
@@ -108,14 +113,35 @@ failure raises and exits non-zero with the traceback):
    bit-exact, timed and profiled; decode_yamamoto(method="lut",
    "canonical") on phase 9's container, bit-exact, timed once, and
    method="twolevel" raising as in the JAX package.
-13. One JSON line per kernel list (name, route, source, replaces, launches,
+13. The ILS file path, in a temporary directory the phase removes:
+   (a) phase 4's input written as a file through IlsCodec.fit_file,
+   encode_file (default SECTION_BYTES: the ragged file is one tile whose
+   k halves, rounded up to a multiple of 4, until it fits the row
+   budget), decode_file and a comparison with the input, and
+   read_ils_container + IlsCodec.decode of the same container, with the
+   k_sec of every attempt, the sections' (k, n_tiles, w_cap) and the
+   launch counters of the encode and the decode; encode_file and
+   decode_file timed by the host clock (disk included; medians of 3, one
+   profiled call each) beside the disk, host-to-device and device-to-host
+   times of the same bytes measured apart; (b) the same file at
+   section_bytes = 64 MiB (whole sections at k=4096, A2 + A3, and the
+   777-byte tail at k=8, A4 + A5), round trip as in (a); (d) the same at
+   a chosen k = 16388 (4 times an odd number, over the row budget): the
+   whole-tile sections before the last retry unpadded at a multiple of 4
+   that divides them, round trip as in (a) (run before (c)); (c) the
+   first 20 MiB + 777 B as a file encoded on the card and on the CPU:
+   equal container bytes.
+14. One JSON line per kernel list (name, route, source, replaces, launches,
    max_abs_err, ms, ms_by, wrapper_ms, plain_ms, bound_ms, bound_by,
    library_ms):
    each kernel's launches in its codec's end-to-end run (phase 4 or 6)
    beside its times at that run's shapes; A4 and A5, which phase 4 gives
    only the small tail, also under "full_section" at the main section's
    shape (the two-pass tier's shape when a full section takes it) and
-   under "ratio_section" at phase 4c's main section, A1, B1
+   under "ratio_section" at phase 4c's main section, A4 under
+   "file_first_attempt" at phase 4b's one tile (the two-kernel form's
+   own floor, where the bits kernel reads all chunks but the last a
+   second time, is logged beside each A4 check, not listed), A1, B1
    and B2 also under "tail" at the tail's; C1's launches are phase 9's,
    C2's phase 10's, B5's phase 12's.  The TPU kernels whose function a
    kernel here computes are under its "also_replaces" (B3, B4a, D1, D3).
@@ -123,7 +149,7 @@ failure raises and exits non-zero with the traceback):
    before it under "htc1"."kernels", phase 11-12's results under
    "portable", phase 4c's under "ratio", and B1/B2/C1/C2 at the foreign
    paths' shapes under
-   "yamamoto"."kernels" and "selfsync"."kernels".  The rows of A1, A2,
+   "yamamoto"."kernels" and "selfsync"."kernels", phase 13's under "file".  The rows of A1, A2,
    A4, A5, B1, B2, B4b-B4d, C1 and C2 also carry their "ptxas" report.  Then the card
    line, then the device line last.
 
@@ -137,9 +163,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -190,16 +219,18 @@ FOLDED = {
 }
 # wrapper name -> the names of its kernels as the profiler reports them;
 # the last one is launched once per wrapper call, an earlier one at most
-# once (A2's and A5's bits kernel, where a stream has more than one chunk;
+# once (A2's, A4's and A5's bits kernel, where a stream has more than one
+# chunk, and A5's only where it was not handed A4's chunk bits;
 # C1's table kernel, where the code has more than one length)
 A2_KERNELS = ("ils_certify_bits_kernel", "ils_pack_certify_kernel")
+A4_KERNELS = ("ils_certify_bits_kernel", "ils_lengths_kernel")
 A5_KERNELS = ("ils_certify_bits_kernel", "ils_pack_kernel")
 C1_KERNELS = ("gap_count_table_kernel", "gap_count_segments_kernel")
 SYMBOLS = {
     "ils_decode": ("ils_decode_kernel",),
     "ils_pack_certify": A2_KERNELS,
     "ils_compact": ("ils_compact_kernel",),
-    "ils_lengths_pass": ("ils_lengths_kernel",),
+    "ils_lengths_pass": A4_KERNELS,
     "ils_pack": A5_KERNELS,
     "gap_decode_ranks": ("gap_decode_ranks_kernel",),
     "gap_place_bytes": ("gap_place_bytes_kernel",),
@@ -395,14 +426,13 @@ def two_pass_cases(stats, tk, tils, words, codec, snum, k, rot, label,
                    timing=None):
     """The two-pass tier's kernels A4 and A5 and their plain versions on
     one input (CUDA tensors), at the shapes `ils_encode_to_device` gives
-    them; returns (A5's payload, its row starts, the params).  With
-    `timing`, also times both and records the bytes and operations."""
+    them, A5 handed A4's chunk bits as the tier does; returns (A5's
+    payload, its row starts, the params).  With `timing`, also times both
+    and records the bytes and operations."""
     enc = codec.enc
-    n_sym = words.numel() * 4
-    got = tk.ils_lengths_pass(words, snum, enc, k=k, rot=rot)
-    stats.check("ils_lengths_pass", got,
-                tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot), label)
-    bits, dn, dx, en, ex = got
+    got = tk.ils_lengths_pass(words, snum, enc, k=k, rot=rot, chunk_bits=True)
+    bits, dn, dx, en, ex, cbits = got
+    lengths_case(stats, tk, words, snum, enc, k, rot, got, label, timing)
     w_band_enc, boffs = tils.emission_band(en, ex)
     p2 = tils.envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
                               extra_band_pairs=w_band_enc)
@@ -410,25 +440,71 @@ def two_pass_cases(stats, tk, tils, words, codec, snum, k, rot, label,
     starts2 = tils.row_starts_of(p2, words.device)
     kw5 = dict(k=k, w_cap=p2.w_cap, w_band=w_band_enc, total_rows=p2.total_rows,
                rot=rot)
-    rows = tk.ils_pack(words, snum, boffs, starts2, enc, **kw5)
+    rows = tk.ils_pack(words, snum, boffs, starts2, enc, cbits=cbits, **kw5)
     stats.check("ils_pack", rows,
                 tk.ils_pack_plain(words, snum, boffs, starts2, enc, **kw5), label)
+    if not torch.equal(rows, tk.ils_pack(words, snum, boffs, starts2, enc,
+                                         **kw5)):
+        raise AssertionError(f"ils_pack with A4's chunk bits differs on {label}")
     if timing is not None:
-        # per symbol a lookup and add (A4: the refill and emission
-        # envelopes per body; A5: the code's insert and the pair's store)
-        timing["ils_lengths_pass"] = timed(
-            "ils_lengths_pass",
-            lambda: tk.ils_lengths_pass(words, snum, enc, k=k, rot=rot),
-            lambda: tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot), 5,
-            bytes=n_sym + sum(x.numel() * 4 for x in (bits, dn, dx, en, ex)),
-            ops=3 * n_sym + 4 * n_sym, shape=list(bits.shape))
+        # per symbol a lookup and add, the code's insert and the pair's
+        # store; the bits kernel does not run (A4's chunk bits)
+        n_sym = words.numel() * 4
         timing["ils_pack"] = timed(
-            "ils_pack", lambda: tk.ils_pack(words, snum, boffs, starts2, enc, **kw5),
+            "ils_pack", lambda: tk.ils_pack(words, snum, boffs, starts2, enc,
+                                            cbits=cbits, **kw5),
             lambda: tk.ils_pack_plain(words, snum, boffs, starts2, enc, **kw5), 5,
-            symbols=chunk_kernels(tk, k, A5_KERNELS),
-            bytes=n_sym + p2.total_rows * 4096, ops=8 * n_sym + 3 * n_sym,
-            shape=list(rows.shape))
+            symbols=A5_KERNELS[1:],
+            bytes=n_sym + cbits.numel() * 4 + p2.total_rows * 4096,
+            ops=8 * n_sym + 3 * n_sym, shape=list(rows.shape))
     return rows, starts2, p2
+
+
+def lengths_case(stats, tk, words, snum, enc, k, rot, got, label, timing=None,
+                 plain_once=False):
+    """A4's outputs `got` (with its chunk bits) against the plain versions;
+    with `timing`, its times.  The bound reads the data once.  The log
+    line also gives the two-kernel form's own floor, which reads every
+    chunk but the last twice (the bits kernel, then the walk) and writes
+    and reads the chunk bits once; it is not the bound.  `plain_once`
+    takes the
+    plain version's time from the one call of the check (host clock,
+    synchronised) where a call takes long."""
+    t0 = time.perf_counter()
+    ref = tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    stats.check("ils_lengths_pass", got[:5], ref, label)
+    if not torch.equal(got[5], tk.ils_chunk_bits_plain(words, enc, k=k,
+                                                       rot=rot)):
+        raise AssertionError(f"A4's chunk bits differ on {label}")
+    if timing is None:
+        return
+    # per symbol a lookup and add, and the refill and emission envelopes
+    # per body
+    n_sym = words.numel() * 4
+    chunks = tk.certify_chunks(k)[0]
+    out_bytes = sum(x.numel() * 4 for x in got)
+    call = (lambda: tk.ils_lengths_pass(words, snum, enc, k=k, rot=rot,
+                                        chunk_bits=True))
+    if not plain_once:
+        t = timed("ils_lengths_pass", call,
+                  lambda: tk.ils_lengths_pass_plain(words, snum, enc, k=k,
+                                                    rot=rot), 5,
+                  symbols=chunk_kernels(tk, k, A4_KERNELS))
+    else:
+        ms, ms_by, parts = kernel_ms(call, chunk_kernels(tk, k, A4_KERNELS), 5)
+        t = dict(ms=ms, ms_by=ms_by, wrapper_ms=cuda_ms(call, 5),
+                 plain_ms=plain_ms,
+                 **({"ms_parts": parts} if parts and len(parts) > 1 else {}))
+    floor_bytes = (n_sym * (2 * chunks - 1) // chunks + out_bytes
+                   + got[5].numel() * 4)
+    t.update(bytes=n_sym + out_bytes - got[5].numel() * 4,
+             ops=3 * n_sym + 4 * n_sym, shape=list(got[0].shape))
+    log(f"  A4 {label}: {chunks} chunks a stream, kernel_ms={t['ms']}; "
+        f"two-kernel floor {floor_bytes / HBM_BYTES_PER_S * 1e3} ms "
+        "(not the bound)")
+    timing["ils_lengths_pass"] = t
 
 
 def kernel_cases(stats, tk, tils, words, codec, snum, k, rot, e_band, label,
@@ -901,6 +977,209 @@ def portable_small(stats, ns, dev):
     return {"d1": d1, "d3": d3, "summary": summary}
 
 
+def host_ms(fn) -> float:
+    """Host-clock ms of one call of `fn` (which ends on the host)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def host_io_ms(path, out_bytes, dev):
+    """Host-clock ms of the data movement of one file-path call, measured
+    apart: reading `path` from disk and moving its bytes host to device,
+    then moving `out_bytes` device to host and writing them to disk
+    (pageable memory, synchronised)."""
+    t0 = time.perf_counter()
+    arr = np.fromfile(path, np.uint8)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    sync()
+    t0 = time.perf_counter()
+    torch.from_numpy(arr).to(dev)
+    sync()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    on_dev = torch.zeros(out_bytes, dtype=torch.uint8, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    buf = on_dev.cpu().numpy()
+    d2h_ms = (time.perf_counter() - t0) * 1e3
+    out = path + ".w"
+    t0 = time.perf_counter()
+    with open(out, "wb") as f:
+        f.write(buf.data)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    os.unlink(out)
+    return {"in_bytes": int(arr.size), "read_ms": read_ms, "h2d_ms": h2d_ms,
+            "out_bytes": out_bytes, "d2h_ms": d2h_ms, "write_ms": write_ms}
+
+
+def file_phase(host, data, tk, IlsCodec, read_ils_container, card,
+               section_bytes=64 << 20, parity_bytes=(20 << 20) + 777,
+               chosen_k=16388):
+    """Phase 13: the ILS file path (fit_file, encode_file, decode_file) on
+    phase 4's input written as a file, in a temporary directory that the
+    phase removes: (a) at the default SECTION_BYTES, (b) at
+    `section_bytes`, (d) at `section_bytes` with k = `chosen_k`, 4 times
+    an odd number over the row budget, (c) the first `parity_bytes`
+    encoded on the card and on the CPU.  Returns the summary."""
+    import huffman_tpu_torch.models.ils_codec as ils_codec_mod
+
+    n = host.size
+    dev = data.device
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_file_")
+    src, ils, out = (os.path.join(tmp, f) for f in ("src.bin", "a.ils",
+                                                     "out.bin"))
+    attempts = []
+    real = ils_codec_mod.ils_encode_device
+
+    def record(buf, *a, k, **kw):
+        attempts.append(k)
+        return real(buf, *a, k=k, **kw)
+
+    def round_trip(label, section_bytes=None, check=None, k=None):
+        """fit_file, encode_file, decode_file with the launch counts of
+        each; the decoded file and a whole-buffer decode of the container
+        must be the input."""
+        attempts.clear()
+        sync()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        codec = IlsCodec.fit_file(src, device="cuda", k=k)
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        size = codec.encode_file(src, ils, section_bytes=section_bytes)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        enc_launches = tk.launch_counts()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = IlsCodec.decode_file(ils, out)
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        dec_launches = tk.launch_counts()
+        ok = got == n and np.array_equal(np.fromfile(out, np.uint8), host)
+        comp = read_ils_container(open(ils, "rb").read())
+        whole = torch.equal(codec.decode(comp), data)
+        secs = [(q.params.k, q.params.n_tiles, q.params.w_cap)
+                for q in comp.sections]
+        log(f"  {label}: k={codec.k} attempts k_sec={attempts} sections "
+            f"(k, n_tiles, w_cap)={secs} container {size} bytes")
+        log(f"  {label}: fit_file {fit_ms:.1f} ms, encode_file {enc_ms:.1f} "
+            f"ms, decode_file {dec_ms:.1f} ms (host clock, disk included); "
+            f"decoded file bit-exact={ok}, read_ils_container + decode "
+            f"bit-exact={whole}")
+        log(f"  {label}: launches encode_file {enc_launches}, decode_file "
+            f"{dec_launches}")
+        if not (ok and whole):
+            raise AssertionError(f"file path {label}: round trip not bit-exact")
+        if any(k % 4 for k, _, _ in secs):
+            raise AssertionError(f"file path {label}: k not a multiple of 4")
+        if not dec_launches["ils_decode"]:
+            raise AssertionError(f"file path {label}: A1 not launched")
+        check(enc_launches, secs)
+        return codec, {"k": codec.k, "attempts": list(attempts),
+                       "sections": secs, "container_bytes": size,
+                       "fit_ms": fit_ms, "encode_ms": enc_ms,
+                       "decode_ms": dec_ms, "encode_launches": enc_launches,
+                       "decode_launches": dec_launches}
+
+    def ragged(enc_launches, secs):
+        # the attempts before the last fail the row budget on the two-pass
+        # tier (A4), the last takes a tier (A5, or A2 + A3 where its stride
+        # is within the budget); the halvings round up where plain halving
+        # leaves k % 4 != 0 (F9)
+        f9 = [a for a, b in zip(attempts, attempts[1:])
+              if (a // 2) % 4 and b == -(-a // 8) * 4]
+        if len(attempts) < 2 or not f9:
+            raise AssertionError(f"no F9 rounding in the attempts {attempts}")
+        if (enc_launches["ils_lengths_pass"] < len(attempts) - 1
+                or not (enc_launches["ils_pack"]
+                        or enc_launches["ils_compact"])):
+            raise AssertionError(f"file path: A4/A5 launches {enc_launches}")
+
+    def sections64(enc_launches, secs):
+        # whole sections at the codec's k (A2 + A3), the tail at k=8
+        if (len(secs) != -(-n // section_bytes) or secs[-1][:2] != (8, 1)
+                or not enc_launches["ils_pack_certify"]
+                or not enc_launches["ils_compact"]
+                or not enc_launches["ils_lengths_pass"]
+                or not enc_launches["ils_pack"]):
+            raise AssertionError(f"64 MiB sections: {secs} {enc_launches}")
+
+    def unpadded(enc_launches, secs):
+        # whole-tile sections before the file's last, over the row budget
+        # at k = 4 * odd: never zero-padded (F9), each retried at a
+        # multiple of 4 that divides it, so each covers its bytes exactly
+        take = section_bytes // (chosen_k * 1024) * chosen_k * 1024
+        if (len(secs) < 2 or secs[0][0] == chosen_k
+                or any(k * t * 1024 != take for k, t, _ in secs[:-1])):
+            raise AssertionError(f"13d: sections {secs} attempts {attempts}")
+
+    summary = {"bytes": n, "card": card}
+    t_phase = time.perf_counter()
+    ils_codec_mod.ils_encode_device = record
+    try:
+        host.tofile(src)
+        log(f"phase 13a: {n} bytes as a file, default SECTION_BYTES")
+        codec, summary["default"] = round_trip("13a", check=ragged)
+        enc_ms = [host_ms(lambda: codec.encode_file(src, ils))
+                  for _ in range(3)]
+        dec_ms = [host_ms(lambda: IlsCodec.decode_file(ils, out))
+                  for _ in range(3)]
+        size = os.path.getsize(ils)
+        summary["default"].update(
+            encode_ms_runs=enc_ms, decode_ms_runs=dec_ms,
+            encode_ms_median=statistics.median(enc_ms),
+            decode_ms_median=statistics.median(dec_ms),
+            encode_io=host_io_ms(src, size, dev),
+            decode_io=host_io_ms(ils, n, dev),
+            encode_profile=device_profile(
+                lambda: codec.encode_file(src, ils), "encode_file",
+                tk.launch_counts),
+            decode_profile=device_profile(
+                lambda: IlsCodec.decode_file(ils, out), "decode_file",
+                tk.launch_counts))
+        log(f"  13a: encode_file ms {[round(x, 1) for x in enc_ms]}, "
+            f"decode_file ms {[round(x, 1) for x in dec_ms]}; apart: "
+            f"{summary['default']['encode_io']} (encode), "
+            f"{summary['default']['decode_io']} (decode)")
+        log(f"phase 13b: the same file, section_bytes = {section_bytes}")
+        summary["sections"] = round_trip("13b", section_bytes=section_bytes,
+                                         check=sections64)[1]
+        log(f"phase 13d: the same file, section_bytes = {section_bytes}, "
+            f"k = {chosen_k}")
+        summary["chosen_k"] = round_trip("13d", section_bytes=section_bytes,
+                                         check=unpadded, k=chosen_k)[1]
+        # 13c: the first parity_bytes as a file, on the card and on the CPU
+        m = parity_bytes
+        log(f"phase 13c: {m} bytes, encode_file on the card and on the CPU")
+        host[:m].tofile(src)
+        blobs = {}
+        for device in ("cuda", "cpu"):
+            attempts.clear()
+            t0 = time.perf_counter()
+            c = IlsCodec.fit_file(src, device=device)
+            c.encode_file(src, ils)
+            blobs[device] = (open(ils, "rb").read(), list(attempts),
+                             (time.perf_counter() - t0) * 1e3)
+        (cuda_blob, cuda_att, cuda_ms_), (cpu_blob, cpu_att, cpu_ms_) = (
+            blobs["cuda"], blobs["cpu"])
+        equal = cuda_blob == cpu_blob
+        log(f"  13c: attempts k_sec={cuda_att} (cpu {cpu_att}), container "
+            f"{len(cuda_blob)} bytes, card == cpu bytes: {equal} "
+            f"({cuda_ms_:.1f} ms card, {cpu_ms_:.1f} ms cpu)")
+        if not equal or cuda_att != cpu_att:
+            raise AssertionError("13c: card and CPU containers differ")
+        if len(cuda_att) < 2:
+            raise AssertionError("13c: the section did not halve its k")
+        summary["parity"] = {"bytes": m, "attempts": cuda_att,
+                                   "container_bytes": len(cuda_blob),
+                                   "equal": equal}
+        summary["phase_s"] = time.perf_counter() - t_phase
+        log(f"  phase 13 took {summary['phase_s']:.1f} s")
+    finally:
+        ils_codec_mod.ils_encode_device = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def portable_block(stats, ns, bcodec, blocks, yblob, ydata):
     """Phase 12: the portability path at phase 7's block (and phase 9's
     Yamamoto container).  Returns (summary, B5's launches in the one
@@ -1002,6 +1281,7 @@ def portable_block(stats, ns, bcodec, blocks, yblob, ydata):
 
 
 def main(argv=None) -> int:
+    t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=1 << 28,
                     help="bytes of the end-to-end input before the tail")
@@ -1093,7 +1373,12 @@ def main(argv=None) -> int:
          + f"; grid (tile, chunk) of {ILS_LANES} threads"),
         ("ils_pack", "A2's bits kernel and ring, compact form: the same "
          "certify_chunks(k) grid"),
-        ("ils_lengths_pass", f"one block of {ILS_LANES} threads a tile"),
+        ("ils_lengths_pass", "A2's bits kernel, then a grid (tile, chunk) "
+         f"of {ILS_LANES} threads over certify_chunks(k) chunks (tiles x "
+         "chunks): 4 tiles at k=4096 4x4, the k=8 tail 1x1, the 256 MiB "
+         f"section at k=4096 64x{tk.certify_chunks(4096)[0]}, at k=8192 32x"
+         f"{tk.certify_chunks(8192)[0]}, one tile at k=262148 1x"
+         f"{tk.certify_chunks(262148)[0]}"),
         ("count_segments", f"count table on {gd.COUNT_TAB_BITS} bits: "
          f"{2 << gd.COUNT_TAB_BITS} B built per call, copied to each block's "
          "static shared memory"),
@@ -1204,6 +1489,22 @@ def main(argv=None) -> int:
         main_timing["ils_lengths_pass"] = timing["ils_lengths_pass"]
         main_timing["ils_pack"] = timing["ils_pack"]
         a1_tail = timing["ils_decode"]
+    # A4 at the first attempt of the file path on this input written as a
+    # file (phase 13): one tile at k = 4 * ceil(n / 4096), 257 chunks at the
+    # default size, unrotated (its section fails the row budget, so
+    # rotate="auto" never re-encodes it)
+    k_first = max(-(-n // (4 * ILS_LANES)) * 4, 8)
+    first = torch.zeros(k_first * ILS_LANES, dtype=torch.uint8, device=dev)
+    first[:n] = data
+    fwords = first.view(torch.int32).view(-1, ILS_LANES)
+    fsnum = ils_schedule_numer(codec._avg_bits(first))
+    timing = {}
+    lengths_case(stats, tk, fwords, fsnum, codec.enc, k_first, False,
+                 tk.ils_lengths_pass(fwords, fsnum, codec.enc, k=k_first,
+                                     chunk_bits=True),
+                 f"file first attempt 1x k={k_first}", timing, plain_once=True)
+    first_timing = timing["ils_lengths_pass"]
+    del first, fwords
 
     enc_ms = [cuda_ms(lambda: codec.encode(data), 1) for _ in range(3)]
     dec_ms = [cuda_ms(lambda: codec.decode(comp), 1) for _ in range(5)]
@@ -1575,7 +1876,11 @@ def main(argv=None) -> int:
     launches["encode_map"] = map_launches["encode_map"]
     main_timing["encode_map"] = map_timing
 
-    # ---- 13. results
+    # ---- 13. the ILS file path
+    file_summary = file_phase(host, data, tk, IlsCodec, read_ils_container,
+                              card)
+
+    # ---- 14. results
     def times(t):
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
         o_ms = t.get("ops", 0) / ALU_OPS_PER_S * 1e3
@@ -1603,6 +1908,7 @@ def main(argv=None) -> int:
     main_timing.update(htc1_timing)
     extra = {name: [("full_section", t), ("ratio_section", ratio_timing[name])]
              for name, t in section_timing.items()}
+    extra["ils_lengths_pass"].append(("file_first_attempt", first_timing))
     for name, t in tail_timing.items():
         extra.setdefault(name, []).append(("tail", t))
     if n % tile_bytes:
@@ -1667,7 +1973,9 @@ def main(argv=None) -> int:
                  "decode_device_gbps": gb / gdec_med / 1e6,
                  "card": card, "profile": gprof, "kernels": bench_rows},
         "portable": portable,
+        "file": file_summary,
     }))
+    log(f"chip_smoke took {time.perf_counter() - t_main:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

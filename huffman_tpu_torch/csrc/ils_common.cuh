@@ -25,8 +25,10 @@ __device__ __forceinline__ int ils_rot_src(int s, int gi) {
   return (src_sub << 7) | src_lane;
 }
 
-// Schedule position mu_i = (i * snum) >> 16 in pairs.  i < 2^14 bodies and
-// snum <= 2^16 keep the product inside 31 bits; 64-bit anyway.
+// Schedule position mu_i = (i * snum) >> 16 in pairs, in 64 bits: the
+// product passes 2^31 once i >= 2^16 bodies at 8-bit codes (snum 2^15), as
+// on the file path's first attempt at a ragged file (one tile of up to
+// 2^18 bodies); the JAX kernels' int32 product wraps there.
 __device__ __forceinline__ int ils_mu(int i, int snum) {
   return (int)(((long long)i * (long long)snum) >> 16);
 }

@@ -51,11 +51,24 @@
 // finished pairs in shared memory and stores each final pair as two rows
 // of 32 consecutive columns.
 //
-// A4 keeps one block of 1024 threads per tile, thread s = stream s: four
-// lookups per body in a 256-entry shared table of (len << 20) | code; it
-// simulates the decoder refill and gives the per-(tile, window) envelopes
-// per lane.
-
+// A4's design rests on the same fact: its state after every body is a
+// closed form of the code bits so far (e_ptr == cum >> 6, used == cum &
+// 63, the decoder's pptr == 2 + e_ptr), so it needs neither an
+// accumulator nor a walk back.  It runs on A2's (tile, chunk) grid: the
+// bits kernel above writes every chunk's code bits but the last's, then
+// ils_lengths_kernel starts chunk c of each stream from the sum of the
+// earlier chunks' bits and walks its bodies, four lookups a body in a
+// 256-entry shared table of code lengths, writing the envelopes of its own
+// whole windows; the last chunk writes `bits` and takes the final flush at
+// the mu of body nb - 1.  A refill happens in exactly the bodies where a
+// pair retires, at pptr == 2 + e_ptr, so a window's refill envelope is its
+// emission envelope + 2 (before the final flush, which only the emission
+// envelope takes), and a window without a retiring pair keeps both
+// sentinels: the kernel tracks one min/max pair.  A grid of (tile, chunk)
+// gives one tile at k=262,148 (the file path's first attempt on a ragged
+// 256 MiB file) 257 blocks where one block a tile gave it one.  The two-pass
+// tier hands A5 the chunk bits A4's bits kernel wrote (`have_cbits`), so
+// that kernel runs once per tier call.
 #include "ils_common.cuh"
 
 #define COUNT_THREADS 256  // pass 1
@@ -345,24 +358,33 @@ __global__ void __launch_bounds__(ILS_LANES, 2) ils_pack_kernel(
   pack_chunk<true>(a);
 }
 
-// The chunks' bits kernel where a stream has more than one chunk, then the
-// pack kernel over (tile, chunk).  The wrapper's `certify_chunks` computes
-// the same geometry: C chunks of chunk_win windows, the last one possibly
-// shorter.
+// The geometry `certify_chunks` computes in the wrapper: C chunks of
+// chunk_win windows a stream, the last one possibly shorter.
+static inline bool chunks_ok(int k, int chunks, int chunk_win) {
+  const int n_win = ((k >> 2) + ILS_WIN - 1) / ILS_WIN;
+  return chunk_win >= 1 && chunks == (n_win + chunk_win - 1) / chunk_win;
+}
+
+// The bits kernel over every chunk but the last (C > 1).
+static int launch_bits(const CertArgs& a, int n_tiles, cudaStream_t stream) {
+  ils_certify_bits_kernel<<<n_tiles * (a.chunks - 1) *
+                                (ILS_LANES / COUNT_THREADS),
+                            COUNT_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The chunks' bits kernel where a stream has more than one chunk (unless
+// A5 was handed A4's, `have_cbits`), then the pack kernel over (tile,
+// chunk).
 template <bool COMPACT>
-int launch_chunks(CertArgs& a, int n_tiles, int chunk_win,
+int launch_chunks(CertArgs& a, int n_tiles, int chunk_win, int have_cbits,
                   cudaStream_t stream) {
-  const int n_win = ((a.k >> 2) + ILS_WIN - 1) / ILS_WIN;
-  if (chunk_win < 1 || a.chunks != (n_win + chunk_win - 1) / chunk_win ||
-      (a.G != 1 && a.G != 2))
+  if (!chunks_ok(a.k, a.chunks, chunk_win) || (a.G != 1 && a.G != 2))
     return (int)cudaErrorInvalidValue;
   a.chunk_bodies = chunk_win * ILS_WIN;
-  if (a.chunks > 1) {
-    ils_certify_bits_kernel<<<n_tiles * (a.chunks - 1) *
-                                  (ILS_LANES / COUNT_THREADS),
-                              COUNT_THREADS, 0, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (a.chunks > 1 && !have_cbits) {
+    const int err = launch_bits(a, n_tiles, stream);
+    if (err != cudaSuccess) return err;
   }
   // a refusal of the shared-memory size is returned, and cleared so that
   // it does not surface at a later launch's check
@@ -384,94 +406,117 @@ int launch_chunks(CertArgs& a, int n_tiles, int chunk_win,
 struct EncArgs {
   const uint32_t* data;    // (n_tiles * k/4, 1024) u32 words
   const int* tab;          // (256,) (len << 20) | code
+  const int* cbits;        // (n_tiles, C - 1, 1024) code bits of each chunk
   int* bits;               // (n_tiles, 1024) bits per stream
   int* dn;                 // (n_tiles, n_win, 1024) refill envelope
   int* dx;
   int* en;                 // (n_tiles, n_win, 1024) emission envelope
   int* ex;
   int k, snum, rot;
+  int chunks;              // C
+  int chunk_bodies;        // bodies of every chunk but the last
 };
 
-// Registers: a 1024-thread block may use at most 64 registers per thread;
-// the launch bound makes the compiler hold to it, and a launch that still
-// asks for more fails and surfaces through cudaGetLastError().
-__global__ void __launch_bounds__(ILS_LANES) ils_lengths_kernel(
+// The refill envelope of a window from its emission envelope before the
+// final flush: +2, or the sentinels where no pair retired.
+__device__ __forceinline__ void put_refill(const EncArgs& a, size_t o,
+                                          int emin, int emax) {
+  a.dn[o] = emin == ILS_BIG ? ILS_BIG : emin + 2;
+  a.dx[o] = emax == -ILS_BIG ? -ILS_BIG : emax + 2;
+}
+
+// One chunk of every stream of a tile, thread s = stream s.  Registers:
+// two blocks of 1024 threads an SM leave 32 a thread; ptxas reports
+// whether the kernel holds to it (chip_smoke.py phase 1).
+__global__ void __launch_bounds__(ILS_LANES, 2) ils_lengths_kernel(
     const EncArgs a) {
-  __shared__ int s_tab[256];
+  __shared__ int s_len[256];
   const int s = threadIdx.x;
-  const int t = blockIdx.x;
-  if (s < 256) s_tab[s] = a.tab[s];
+  const int c = blockIdx.x % a.chunks;
+  const int t = blockIdx.x / a.chunks;
+  if (s < 256) s_len[s] = a.tab[s] >> 20;
   __syncthreads();
 
   const int nb = a.k >> 2;
   const int n_win = (nb + ILS_WIN - 1) / ILS_WIN;
+  const int b0 = c * a.chunk_bodies;
+  const int b1 = min(nb, b0 + a.chunk_bodies);
+  // the stream's state at body b0, from the earlier chunks' bits
+  const int* cb = a.cbits + (size_t)t * (a.chunks - 1) * ILS_LANES + s;
+  int cum = 0;
+  for (int j = 0; j < c; ++j) cum += cb[(size_t)j * ILS_LANES];
+  int used = cum & 63, e_ptr = cum >> 6;
   // 64-bit offsets: a 1 GiB section holds ~2.7e8 words
   const uint32_t* data_t = a.data + (size_t)t * nb * ILS_LANES;
   const size_t env0 = (size_t)t * n_win * ILS_LANES + s;
 
-  int used = 0, e_ptr = 0, valid = 128, pptr = 2;
-  int dmin = ILS_BIG, dmax = -ILS_BIG, emin = ILS_BIG, emax = -ILS_BIG;
-  for (int i = 0; i < nb; ++i) {
-    const int mu = ils_mu(i, a.snum);
-    const uint32_t w =
-        data_t[(size_t)i * ILS_LANES + (a.rot ? ils_rot_src(s, i) : s)];
-    int l4 = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ln = s_tab[(w >> (8 * j)) & 255] >> 20;
-      used += ln;
-      l4 += ln;
+  int emin = ILS_BIG, emax = -ILS_BIG;
+  for (int w0 = b0; w0 < b1; w0 += ILS_WIN) {
+    const int w1 = min(b1, w0 + ILS_WIN);
+#pragma unroll 4
+    for (int i = w0; i < w1; ++i) {
+      const uint32_t w = stream_word(data_t, i, s, a.rot);
+      used += s_len[w & 255] + s_len[(w >> 8) & 255] +
+              s_len[(w >> 16) & 255] + s_len[w >> 24];
+      if (used >= 64) {  // at most one pair per body: used <= 63 + 64
+        const int dev = e_ptr - ils_mu(i, a.snum);
+        emin = min(emin, dev);
+        emax = max(emax, dev);
+        ++e_ptr;
+        used -= 64;
+      }
     }
-    // the decoder refill
-    valid -= l4;
-    if (valid <= 64) {
-      const int dev = pptr - mu;
-      dmin = min(dmin, dev);
-      dmax = max(dmax, dev);
-      ++pptr;
-      valid += 64;
-    }
-    if (used >= 64) {  // at most one pair per body: used <= 63 + 64
-      const int dev = e_ptr - mu;
-      emin = min(emin, dev);
-      emax = max(emax, dev);
-      ++e_ptr;
-      used -= 64;
-    }
-    if ((i + 1) % ILS_WIN == 0 && i + 1 < nb) {
-      const size_t o = env0 + (size_t)(i / ILS_WIN) * ILS_LANES;
-      a.dn[o] = dmin;
-      a.dx[o] = dmax;
-      dmin = ILS_BIG;
-      dmax = -ILS_BIG;
+    if (w1 < nb) {  // a whole window; the last one is the last chunk's
+      const size_t o = env0 + (size_t)(w0 / ILS_WIN) * ILS_LANES;
       a.en[o] = emin;
       a.ex[o] = emax;
+      put_refill(a, o, emin, emax);
       emin = ILS_BIG;
       emax = -ILS_BIG;
     }
   }
+  if (c != a.chunks - 1) return;
 
   a.bits[t * ILS_LANES + s] = 64 * e_ptr + used;
-  // the final flush of the zero-padded partial pair, at the last body's mu
+  const size_t o = env0 + (size_t)(n_win - 1) * ILS_LANES;
+  put_refill(a, o, emin, emax);
+  // the final flush of the zero-padded partial pair, at the last body's
+  // mu: the emission envelope only
   if (used > 0) {
     const int dev = e_ptr - ils_mu(nb - 1, a.snum);
     emin = min(emin, dev);
     emax = max(emax, dev);
   }
-  const size_t o = env0 + (size_t)(n_win - 1) * ILS_LANES;
-  a.dn[o] = dmin;
-  a.dx[o] = dmax;
   a.en[o] = emin;
   a.ex[o] = emax;
 }
 
+// The chunks' bits kernel where a stream has more than one chunk, then
+// the lengths kernel over (tile, chunk); `cbits` keeps the chunk bits for
+// A5 (`ils_pack_launch`'s have_cbits).
 extern "C" int ils_lengths_launch(const void* data, const void* tab,
                                   void* bits, void* dn, void* dx, void* en,
-                                  void* ex, int n_tiles, int k, int snum,
-                                  int rot, void* stream) {
+                                  void* ex, void* cbits, int n_tiles, int k,
+                                  int snum, int rot, int chunks,
+                                  int chunk_win, void* stream) {
+  if (!chunks_ok(k, chunks, chunk_win)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (chunks > 1) {
+    CertArgs b = {};
+    b.data = (const uint32_t*)data;
+    b.tab = (const int*)tab;
+    b.cbits = (int*)cbits;
+    b.k = k;
+    b.rot = rot;
+    b.chunks = chunks;
+    b.chunk_bodies = chunk_win * ILS_WIN;
+    const int err = launch_bits(b, n_tiles, st);
+    if (err != cudaSuccess) return err;
+  }
   EncArgs a = {};
   a.data = (const uint32_t*)data;
   a.tab = (const int*)tab;
+  a.cbits = (const int*)cbits;
   a.bits = (int*)bits;
   a.dn = (int*)dn;
   a.dx = (int*)dx;
@@ -480,7 +525,9 @@ extern "C" int ils_lengths_launch(const void* data, const void* tab,
   a.k = k;
   a.snum = snum;
   a.rot = rot;
-  ils_lengths_kernel<<<n_tiles, ILS_LANES, 0, (cudaStream_t)stream>>>(a);
+  a.chunks = chunks;
+  a.chunk_bodies = chunk_win * ILS_WIN;
+  ils_lengths_kernel<<<n_tiles * chunks, ILS_LANES, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -508,7 +555,7 @@ extern "C" int ils_pack_certify_launch(
   a.laggard = laggard;
   a.chunks = chunks;
   a.stride_rows = stride_rows;
-  return launch_chunks<false>(a, n_tiles, chunk_win, (cudaStream_t)stream);
+  return launch_chunks<false>(a, n_tiles, chunk_win, 0, (cudaStream_t)stream);
 }
 
 extern "C" int ils_pack_launch(const void* data, const void* tab,
@@ -516,7 +563,7 @@ extern "C" int ils_pack_launch(const void* data, const void* tab,
                                void* pay, void* cbits, int n_tiles, int k,
                                int snum, int rot, int G, int W, int cap_pairs,
                                long long n_rows, int chunks, int chunk_win,
-                               void* stream) {
+                               int have_cbits, void* stream) {
   CertArgs a = {};
   a.data = (const uint32_t*)data;
   a.tab = (const int*)tab;
@@ -532,5 +579,6 @@ extern "C" int ils_pack_launch(const void* data, const void* tab,
   a.cap_pairs = cap_pairs;
   a.chunks = chunks;
   a.n_rows = n_rows;
-  return launch_chunks<true>(a, n_tiles, chunk_win, (cudaStream_t)stream);
+  return launch_chunks<true>(a, n_tiles, chunk_win, have_cbits,
+                             (cudaStream_t)stream);
 }

@@ -1,6 +1,9 @@
 """The ILS1 and HTC1 containers, byte-identical to the JAX package's
 writers and readers (`huffman_tpu/io/container.py`), with the same errors.
 
+`IlsStreamWriter` and `IlsStreamReader` write and read the same ILS1 bytes
+one section at a time, for the codec's file paths.
+
 ILS1 layout (little-endian):
 
     magic          4s  b"ILS1"
@@ -42,6 +45,7 @@ HTC1 layout (little-endian), the gap-array codec's:
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 
@@ -66,6 +70,8 @@ __all__ = [
     "write_ils_container",
     "read_ils_container",
     "ils_container_size",
+    "IlsStreamWriter",
+    "IlsStreamReader",
 ]
 
 MAGIC = b"HTC1"
@@ -207,34 +213,141 @@ def ils_container_size(comp) -> int:
 
 def write_ils_container(comp) -> bytes:
     """Serialize an `IlsCompressed`; device payloads come to the host."""
-    payloads = [np.ascontiguousarray(sec.payload_u32()) for sec in comp.sections]
-    # v3 readers reject v4, which any rotated section requires; plain
-    # sections keep writing v3 for older readers
-    version = 4 if any(sec.params.rot for sec in comp.sections) else 3
-    parts = [
-        _ILS_HEADER.pack(
-            ILS_MAGIC,
-            version,
-            comp.table.max_len,
-            comp.table.num_symbols,
-            comp.original_size,
-            len(comp.sections),
-            _crc(comp.original_size, payloads),
-        ),
-        _table_entries(comp.table).tobytes(),
-    ]
-    for sec, payload in zip(comp.sections, payloads):
+    buf = io.BytesIO()
+    writer = IlsStreamWriter(buf, comp.table, comp.original_size)
+    for sec in comp.sections:
+        writer.write_section(sec)
+    writer.close()
+    return buf.getvalue()
+
+
+def _check_ils_flags(version: int, flags: int) -> None:
+    if version == 3 and flags:
+        # v3 reserves the flags word as zero: rejecting here catches a
+        # metadata bit flip the payload CRC cannot see
+        raise ValueError(f"unknown ILS section flags {flags:#x}")
+    if version >= 4 and flags not in (0, _ROT_FLAGS):
+        # a rotation layout these kernels do not implement must be
+        # rejected, not silently mis-decoded
+        raise ValueError(
+            f"unsupported ILS section flags {flags:#x} (this reader "
+            f"implements rotation constants sub={ILS_ROT_SUB}, "
+            f"lane={ILS_ROT_LANE})")
+
+
+class IlsStreamWriter:
+    """Write an ILS1 container to a seekable file one section at a time.
+
+    Each section's metadata and payload are appended as soon as they are
+    written; the header (version, section count, CRC across the sections)
+    is patched on `close()`.  The bytes equal `write_ils_container`'s of
+    the same sections."""
+
+    def __init__(self, fileobj, table, original_size: int):
+        self.f = fileobj
+        self.table = table
+        self.original_size = int(original_size)
+        self.n_sections = 0
+        self.any_rot = False
+        self.crc = zlib.crc32(str(self.original_size).encode())
+        self._hdr_pos = self.f.tell()
+        self.f.write(b"\0" * _ILS_HEADER.size)
+        self.f.write(_table_entries(table).tobytes())
+
+    def write_section(self, sec) -> None:
+        """Append one `IlsSection`; a device payload comes to the host."""
         p = sec.params
-        parts.append(
-            _ILS_SECTION.pack(
-                p.k, p.snum, _ROT_FLAGS if p.rot else 0, p.w_band, p.w_cap,
-                p.n_tiles
-            )
+        payload = np.ascontiguousarray(sec.payload_u32())
+        self.f.write(_ILS_SECTION.pack(p.k, p.snum, _ROT_FLAGS if p.rot else 0,
+                                       p.w_band, p.w_cap, p.n_tiles))
+        self.f.write(p.w_tiles.astype(np.uint32).tobytes())
+        self.f.write(p.boffs.astype(np.int32).tobytes())
+        self.crc = zlib.crc32(payload, self.crc)
+        self.f.write(payload.tobytes())
+        self.any_rot = self.any_rot or bool(p.rot)
+        self.n_sections += 1
+
+    def close(self) -> None:
+        # v3 readers reject v4, which any rotated section requires; plain
+        # sections keep writing v3 for older readers
+        end = self.f.tell()
+        self.f.seek(self._hdr_pos)
+        self.f.write(_ILS_HEADER.pack(
+            ILS_MAGIC, 4 if self.any_rot else 3, self.table.max_len,
+            self.table.num_symbols, self.original_size, self.n_sections,
+            self.crc & 0xFFFFFFFF))
+        self.f.seek(end)
+
+
+class IlsStreamReader:
+    """Read an ILS1 container from a file one section at a time.
+
+    `read_section()` returns the next `IlsSection` (None past the last),
+    its payload a CPU int32 tensor.  The payload CRC accumulates as the
+    sections stream, and `close()` raises on a mismatch, on sections left
+    unread and on trailing bytes: a caller that streams its output to disk
+    sees that error after its last write."""
+
+    def __init__(self, fileobj):
+        self.f = fileobj
+        hdr = self.f.read(_ILS_HEADER.size)
+        if len(hdr) < _ILS_HEADER.size or hdr[:4] != ILS_MAGIC:
+            raise ValueError("not an ILS1 container (bad magic)")
+        (_, self.version, max_len, n_sym, self.original_size,
+         self.n_sections, self._crc_stored) = _ILS_HEADER.unpack(hdr)
+        if self.version not in (3, 4):
+            raise ValueError(
+                f"unsupported ILS container version {self.version}")
+        ebuf = self.f.read(2 * n_sym)
+        if len(ebuf) < 2 * n_sym:
+            raise ValueError("truncated ILS1 container")
+        entries = np.frombuffer(ebuf, np.uint8).reshape(n_sym, 2)
+        lengths = np.zeros(256, np.uint8)
+        lengths[entries[:, 0]] = entries[:, 1]
+        self.table = canonical_code_table(lengths, max_len)
+        self._read = 0
+        self.crc = zlib.crc32(str(int(self.original_size)).encode())
+
+    def _take(self, n: int) -> bytes:
+        buf = self.f.read(n)
+        if len(buf) < n:
+            raise ValueError("truncated ILS1 container")
+        return buf
+
+    def read_section(self):
+        from ..ops.ils import IlsSection
+
+        if self._read >= self.n_sections:
+            return None
+        k, snum, flags, w_band, w_cap, n_tiles = _ILS_SECTION.unpack(
+            self._take(_ILS_SECTION.size))
+        _check_ils_flags(self.version, flags)
+        n_win = ils_n_win(int(k))
+        meta = self._take(4 * n_tiles * (1 + n_win))
+        w_tiles = np.frombuffer(meta, np.uint32, n_tiles).astype(np.int32)
+        boffs = (np.frombuffer(meta, np.int32, n_tiles * n_win, 4 * n_tiles)
+                 .reshape(n_tiles, n_win).copy())
+        total_rows = int(w_tiles.sum())
+        payload = (np.frombuffer(self._take(4 * total_rows * ILS_LANES),
+                                 np.uint32)
+                   .reshape(total_rows, ILS_LANES).copy())
+        self.crc = zlib.crc32(payload, self.crc)
+        self._read += 1
+        return IlsSection(
+            params=IlsParams(
+                k=int(k), snum=int(snum), boffs=boffs, w_band=int(w_band),
+                w_cap=int(w_cap), w_tiles=w_tiles, n_tiles=int(n_tiles),
+                rot=bool(flags & 1)),
+            payload=torch.from_numpy(payload.view(np.int32)),
         )
-        parts.append(p.w_tiles.astype(np.uint32).tobytes())
-        parts.append(p.boffs.astype(np.int32).tobytes())
-        parts.append(payload.tobytes())
-    return b"".join(parts)
+
+    def close(self) -> None:
+        if self._read != self.n_sections:
+            raise ValueError("close() before all sections were read")
+        if self.f.read(1):
+            raise ValueError("container has trailing bytes")
+        if (self.crc & 0xFFFFFFFF) != self._crc_stored:
+            raise ValueError("ILS1 container payload checksum mismatch")
 
 
 def read_ils_container(buf: bytes):
@@ -264,18 +377,7 @@ def read_ils_container(buf: bytes):
         k, snum, flags, w_band, w_cap, n_tiles = _ILS_SECTION.unpack_from(
             mv, off
         )
-        if version == 3 and flags:
-            # v3 reserves the flags word as zero — rejecting here catches a
-            # metadata bit flip the payload CRC cannot see
-            raise ValueError(f"unknown ILS section flags {flags:#x}")
-        if version >= 4 and flags not in (0, _ROT_FLAGS):
-            # a rotation layout these kernels do not implement must be
-            # rejected, not silently mis-decoded
-            raise ValueError(
-                f"unsupported ILS section flags {flags:#x} (this reader "
-                f"implements rotation constants sub={ILS_ROT_SUB}, "
-                f"lane={ILS_ROT_LANE})"
-            )
+        _check_ils_flags(version, flags)
         off += _ILS_SECTION.size
         w_tiles = np.frombuffer(mv, np.uint32, n_tiles, off).astype(np.int32)
         off += 4 * n_tiles

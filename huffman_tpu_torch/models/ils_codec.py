@@ -5,11 +5,15 @@ Counterpart of `huffman_tpu/models/ils_codec.py`.  ``fit`` is host NumPy
 and ``decode`` run on the codec's device, CUDA by default.  The stream is
 cut into main sections of uniform ``k`` (at most ``SECTION_BYTES`` each)
 plus at most one zero-padded tail section with a smaller ``k``.
+``fit_file``, ``encode_file`` and ``decode_file`` stream a file through
+the same codec one section at a time (`io.container.IlsStreamWriter` and
+`IlsStreamReader`), holding at most one section's bytes on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -164,6 +168,146 @@ class IlsCodec:
             for sec in comp.sections
         ]
         return torch.cat(outs)[:n]
+
+    # ------------------------------------------------------------------
+    # File paths, one section at a time
+    # ------------------------------------------------------------------
+    @classmethod
+    def fit_file(
+        cls,
+        path: str,
+        *,
+        max_len: int = MAX_CODEWORD_LENGTH,
+        chunk_bytes: int = 1 << 28,
+        **kw,
+    ) -> "IlsCodec":
+        """`fit` from a file's histogram, counted on the host over
+        ``chunk_bytes`` chunks (the file is never loaded whole); ``kw``
+        goes to the constructor (``k``, ``optimize``, ``device``,
+        ``rotate``)."""
+        freqs = np.zeros(256, np.int64)
+        n = 0
+        with open(path, "rb") as f:
+            while True:
+                chunk = np.fromfile(f, np.uint8, chunk_bytes)
+                if chunk.size == 0:
+                    break
+                freqs += np.bincount(chunk, minlength=256)
+                n += chunk.size
+        freqs[0] += 1  # the tail section's zero padding (as in `fit`)
+        table = canonical_code_table(package_merge_lengths(freqs, max_len),
+                                     max_len)
+        # over the file's n bytes, where `fit` divides by n + 1 (as the JAX
+        # package does)
+        avg = float((freqs * table.lengths.astype(np.int64)).sum() / max(n, 1))
+        if kw.get("k") is None:
+            kw = dict(kw, k=pick_k(avg, kw.get("optimize", "speed")))
+        kw.pop("optimize", None)
+        codec = cls(table, **kw)
+        codec.fit_avg_bits = avg
+        return codec
+
+    def encode_file(self, in_path: str, out_path: str, *,
+                    section_bytes: int | None = None) -> int:
+        """Encode a file into an ILS1 container file, one chunk of at most
+        ``section_bytes`` (default SECTION_BYTES) whole tiles at a time:
+        read on the host, encoded on the codec's device, appended to the
+        container.  A chunk that is not whole tiles (the file's last) is
+        one zero-padded tile at its own k.  Returns the container's size.
+
+        A section over the row budget retries at half its k.  Where plain
+        halving keeps k a multiple of 4 this is the JAX package's sequence
+        and its bytes; where it would not (ROADMAP.md F9: a k of 4 times an
+        odd number), the JAX package writes a container that no reader can
+        decode.  Here the file's last chunk rounds the half up to a
+        multiple of 4 and is zero-padded to whole tiles of it (the decoder
+        trims the file's end); any other chunk must stay unpadded, and
+        takes the largest multiple of 4 under the half that divides it."""
+        from ..io.container import IlsStreamWriter
+
+        section_bytes = section_bytes or self.SECTION_BYTES
+        n = os.path.getsize(in_path)
+        tile_bytes = self.k * ILS_LANES
+        with open(in_path, "rb") as fin, open(out_path, "w+b") as fout:
+            writer = IlsStreamWriter(fout, self.table, n)
+            pos = 0
+            while pos < n:
+                take = min(max(section_bytes // tile_bytes, 1) * tile_bytes,
+                           n - pos)
+                chunk = np.fromfile(fin, np.uint8, take)
+                if chunk.size != take:
+                    raise ValueError(f"{in_path} changed size while encoding")
+                k_sec = self.k if take % tile_bytes == 0 else max(
+                    -(-take // (4 * ILS_LANES)) * 4, 8)
+                pos += take
+                writer.write_section(
+                    self._encode_chunk(chunk, k_sec, last=pos == n))
+            writer.close()
+            return fout.tell()
+
+    def _encode_chunk(self, chunk: np.ndarray, k: int, *,
+                      last: bool) -> IlsSection:
+        """One section of `encode_file`: the chunk's histogram once on the
+        device, then the row-budget retries.  Only the file's ``last``
+        chunk is zero-padded to whole tiles of its k, with the padding's
+        zeros added to the count of byte 0 (the same integers as counting
+        the padded chunk); any other chunk is whole tiles of every k it
+        tries."""
+        data = torch.from_numpy(chunk).to(self.device)
+        n = data.numel()
+        freqs = npref.histogram(data)
+        lengths = self.table.lengths.astype(np.int64)
+        while True:
+            tile_bytes = k * ILS_LANES
+            size = -(-n // tile_bytes) * tile_bytes
+            assert last or size == n
+            padded = freqs.copy()
+            padded[0] += size - n
+            avg = float((padded * lengths).sum() / size)
+            buf = data
+            if size != n:
+                buf = torch.zeros(size, dtype=torch.uint8, device=self.device)
+                buf[:n] = data
+            try:
+                return ils_encode_device(buf, self.table, self.enc, k=k,
+                                         avg_bits=avg, rot=self.rotate,
+                                         device=self.device)
+            except IlsVmemError:
+                if k <= ils_ops.MIN_K:
+                    raise
+                if last:
+                    k = -(-k // 8) * 4
+                else:  # 4 always divides: the chunk is whole tiles of k
+                    units = n // ILS_LANES
+                    k = next(c for c in range(k // 8 * 4, 0, -4)
+                             if units % c == 0)
+
+    @classmethod
+    def decode_file(cls, in_path: str, out_path: str, *,
+                    device="cuda") -> int:
+        """Decode an ILS1 container file to a file, one section at a time
+        on ``device``; returns the decoded byte count.  The payload CRC
+        accumulates across the sections, and a mismatch raises after the
+        last write (write to a temporary path where that matters)."""
+        from ..io.container import IlsStreamReader
+
+        with open(in_path, "rb") as fin, open(out_path, "wb") as fout:
+            reader = IlsStreamReader(fin)
+            codec = cls(reader.table, device=device)
+            remaining = int(reader.original_size)
+            while (sec := reader.read_section()) is not None:
+                out = ils_decode_device(sec, reader.table, codec.dec,
+                                        device=codec.device)
+                take = min(out.numel(), remaining)
+                fout.write(out[:take].cpu().numpy().data)
+                remaining -= take
+            reader.close()
+            if remaining:
+                raise ValueError(
+                    f"container sections cover {remaining} bytes short of "
+                    "original_size"
+                )
+            return int(reader.original_size)
 
     def roundtrip_check(self, data) -> bool:
         """Self-verifying round trip, compared on the codec's device."""

@@ -48,14 +48,16 @@ _SIGNATURES = {
         ],
     },
     "ils_encode": {
-        "ils_lengths_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ils_lengths_launch": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+        ],
         "ils_pack_certify_launch": [
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             _I, _L, _I, _I, _P,
         ],
         "ils_pack_launch": [
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
-            _P,
+            _I, _P,
         ],
     },
     "ils_compact": {

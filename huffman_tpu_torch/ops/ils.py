@@ -338,7 +338,9 @@ def ils_encode_to_device(
             )
             return payload_rows, row_starts, params
 
-    bits, dn, dx, en, ex = ils_lengths_pass(data_i32, snum, enc, k=k, rot=rot)
+    # A5 takes A4's chunk bits rather than counting them again
+    bits, dn, dx, en, ex, cbits = ils_lengths_pass(
+        data_i32, snum, enc, k=k, rot=rot, chunk_bits=True)
     w_band_enc, boffs_enc = emission_band(en, ex)
     # the emission window needs w_band_enc <= w_cap // 2 as well; this
     # extra band is why the two-pass tier can write a wider w_cap
@@ -349,7 +351,7 @@ def ils_encode_to_device(
     payload_rows = ils_pack(
         data_i32, snum, torch.from_numpy(boffs_enc).to(dev), row_starts, enc,
         k=k, w_cap=params.w_cap, w_band=w_band_enc,
-        total_rows=params.total_rows, rot=rot,
+        total_rows=params.total_rows, rot=rot, cbits=cbits,
     )
     return payload_rows, row_starts, params
 

@@ -44,6 +44,7 @@ __all__ = [
     "ils_decode",
     "ils_decode_lut",
     "ils_lengths_pass_plain",
+    "ils_chunk_bits_plain",
     "ils_pack_certify_plain",
     "ils_pack_certify_stream_plain",
     "certify_chunks",
@@ -328,30 +329,62 @@ def ils_lengths_pass_plain(data_i32, snum, enc, *, k, rot=False):
     return bits, dn, dx, en, ex
 
 
-def ils_lengths_pass(data_i32, snum, enc, *, k, rot=False):
+def ils_chunk_bits_plain(data_i32, enc, *, k, rot=False):
+    """(n_tiles, C - 1, 1024) int32: each stream's code bits in every chunk
+    of `certify_chunks(k)` but the last, as the bits kernel of A2, A4 and
+    A5 writes them."""
+    nb = k // 4
+    n_tiles = data_i32.shape[0] // nb
+    chunks, chunk_win = certify_chunks(k)
+    cb = chunk_win * ILS_WIN
+    x = _u32(data_i32).view(n_tiles, nb, ILS_LANES)
+    if rot:
+        src = _rot_src(k, data_i32.device)
+        x = torch.gather(x, 2, src[None].expand(n_tiles, -1, -1))
+    x = x[:, : (chunks - 1) * cb]
+    lens = (enc >> 20).to(torch.int32)
+    l4 = sum(lens[(x >> (8 * j)) & 255] for j in range(4))
+    return l4.view(n_tiles, chunks - 1, cb, ILS_LANES).sum(
+        dim=2, dtype=torch.int32)
+
+
+def ils_lengths_pass(data_i32, snum, enc, *, k, rot=False, chunk_bits=False):
     """Schedule pass over (n_tiles*k//4, 1024) int32 data.
 
     Returns (bits (n_tiles, 1024), dec_min, dec_max, enc_min, enc_max —
     each (n_tiles, n_win, 1024) int32, per stream): total bits and the
     per-ILS_WIN-window refill/emission deviation envelopes relative to mu.
+    With ``chunk_bits`` also the code bits of every chunk but the last,
+    `ils_chunk_bits_plain`'s (n_tiles, C - 1, 1024), which `ils_pack` takes
+    as ``cbits`` in place of computing them again.  On a CUDA tensor the
+    bits kernel writes those chunk bits (C > 1), then one kernel over
+    (tile, chunk) walks each chunk from its closed-form state.
     """
     n_tiles = _n_tiles(data_i32, k)
     _check("data_i32", data_i32, torch.int32)
     _check("enc", enc, torch.int32, (256,))
     _same_device(data_i32, enc)
     if not _use_kernel(data_i32):
-        return ils_lengths_pass_plain(data_i32, snum, enc, k=k, rot=rot)
+        out = ils_lengths_pass_plain(data_i32, snum, enc, k=k, rot=rot)
+        if chunk_bits:
+            out += (ils_chunk_bits_plain(data_i32, enc, k=k, rot=rot),)
+        return out
     n_win = ils_n_win(k)
     dev = data_i32.device
     bits = torch.empty((n_tiles, ILS_LANES), dtype=torch.int32, device=dev)
     env = [torch.empty((n_tiles, n_win, ILS_LANES), dtype=torch.int32,
                        device=dev) for _ in range(4)]
+    chunks, chunk_win = certify_chunks(k)
+    cbits = torch.empty((n_tiles, chunks - 1, ILS_LANES), dtype=torch.int32,
+                        device=dev)
     rc = _lib("ils_encode").ils_lengths_launch(
         data_i32.data_ptr(), enc.data_ptr(), bits.data_ptr(),
-        *(e.data_ptr() for e in env), n_tiles, k, int(snum), int(bool(rot)), _stream(data_i32),
+        *(e.data_ptr() for e in env), cbits.data_ptr(), n_tiles, k,
+        int(snum), int(bool(rot)), chunks, chunk_win, _stream(data_i32),
     )
+    # one count per call, though a call of C > 1 chunks launches two kernels
     _launched(ils_lengths_pass, rc)
-    return (bits, *env)
+    return (bits, *env) + ((cbits,) if chunk_bits else ())
 
 
 # ----------------------------------------------------------------------
@@ -368,8 +401,8 @@ def _certify_geometry(k, stride_rows, e_band, anchor, G=None):
 
 
 def certify_chunks(k: int) -> tuple[int, int]:
-    """(chunks C per stream, windows per chunk) of A2's CUDA kernels, and
-    of A5's, which run in their compact form: each
+    """(chunks C per stream, windows per chunk) of A2's CUDA kernels, of
+    A5's, which run in their compact form, and of A4's: each
     stream's bodies cut into chunks of CERTIFY_CHUNK_WIN whole windows (the
     last one possibly shorter), so that a chunk writes its own envelope
     windows and starts at a flush boundary.  The grid is (tile, chunk):
@@ -531,7 +564,7 @@ def ils_pack_plain(data_i32, snum, boffs, row_starts, enc, *, k, w_cap,
 
 
 def ils_pack(data_i32, snum, boffs, row_starts, enc, *, k, w_cap, w_band,
-             total_rows, rot=False):
+             total_rows, rot=False, cbits=None):
     """Pack pass: returns compact payload rows (total_rows + w_cap, 1024).
 
     boffs: (n_tiles, n_win) int32 windowed emission band anchors (the exact
@@ -540,14 +573,20 @@ def ils_pack(data_i32, snum, boffs, row_starts, enc, *, k, w_cap, w_band,
     land outside the output is skipped, not checked on the host.  The
     trailing w_cap rows are zero slack.  On a CUDA tensor A2's two kernels
     in their compact form compute it over `certify_chunks(k)` chunks of
-    each stream."""
+    each stream; ``cbits``, the chunk bits of `ils_lengths_pass` on the
+    same data (``chunk_bits=True``), spares the kernel that computes them
+    (the plain version needs none)."""
     n_tiles = _n_tiles(data_i32, k)
     n_win = ils_n_win(k)
+    chunks, chunk_win = certify_chunks(k)
     _check("data_i32", data_i32, torch.int32)
     _check("enc", enc, torch.int32, (256,))
     _check("boffs", boffs, torch.int32, (n_tiles, n_win))
     _check("row_starts", row_starts, torch.int32, (n_tiles,))
     _same_device(data_i32, enc, boffs, row_starts)
+    if cbits is not None:
+        _check("cbits", cbits, torch.int32, (n_tiles, chunks - 1, ILS_LANES))
+        _same_device(data_i32, cbits)
     G, W, cap_pairs = _pack_geometry(k, w_cap, w_band)
     if not _use_kernel(data_i32):
         return ils_pack_plain(data_i32, snum, boffs, row_starts, enc, k=k,
@@ -557,17 +596,20 @@ def ils_pack(data_i32, snum, boffs, row_starts, enc, *, k, w_cap, w_band,
     # zero-filled: rows past a stream's end and the slack stay zero
     pay = torch.zeros((total_rows + w_cap, ILS_LANES), dtype=torch.int32,
                       device=dev)
-    # A2's chunks and bits kernel: the code bits of every chunk but the last
-    chunks, chunk_win = certify_chunks(k)
-    cbits = torch.empty((n_tiles, chunks - 1, ILS_LANES), dtype=torch.int32,
-                        device=dev)
+    # A2's chunks and bits kernel: the code bits of every chunk but the
+    # last, unless the caller has them
+    have_cbits = cbits is not None
+    if not have_cbits:
+        cbits = torch.empty((n_tiles, chunks - 1, ILS_LANES),
+                            dtype=torch.int32, device=dev)
     rc = _lib("ils_encode").ils_pack_launch(
         data_i32.data_ptr(), enc.data_ptr(), boffs.data_ptr(),
         row_starts.data_ptr(), pay.data_ptr(), cbits.data_ptr(), n_tiles, k,
         int(snum), int(bool(rot)), G, W, cap_pairs, total_rows + w_cap,
-        chunks, chunk_win, _stream(data_i32),
+        chunks, chunk_win, int(have_cbits), _stream(data_i32),
     )
-    # one count per call, though a call of C > 1 chunks launches two kernels
+    # one count per call, though a call of C > 1 chunks without cbits
+    # launches two kernels
     _launched(ils_pack, rc)
     return pay
 

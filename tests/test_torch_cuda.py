@@ -871,3 +871,51 @@ def test_place_bytes_column_chunks_match_plain(cuda):
         assert _equal(gd.gap_place_bytes(ranks, c, o, sym, n_out=n_out),
                       gd.gap_place_bytes_plain(ranks, c, o, sym, n_out=n_out))
     assert gd.launch_counts()["gap_place_bytes"] == 2
+
+
+# ----------------------------------------------------------------------
+# A4 over (tile, chunk), its chunk bits handed to A5
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("k,n_tiles,kind,rot", [
+    (4096, 4, "0.5", False), (4096, 4, "0.5", True), (8, 1, "0.5", False),
+    (4096, 64, "0.5", False), (8192, 32, "0.5", False),
+    (262148, 1, "0.0", False), (4096, 2, "lacks", True),
+    (1300, 3, "mixed", True),
+])
+def test_lengths_chunked_matches_plain(cuda, k, n_tiles, kind, rot):
+    # the shapes of the main paths: 4 tiles at k=4096, the k=8 tail, the
+    # 256 MiB section at k=4096 and at optimize="ratio" (32 tiles at
+    # k=8192), one tile at k=262,148 (the file path's first attempt on a
+    # 256 MiB + 777 B file: 257 chunks; uniform bytes, 8-bit codes, put
+    # i * snum at 2^31 in its last body);
+    # windows without a retiring pair ("lacks"), a short last chunk (k=1300)
+    if kind == "lacks":
+        codec, snum, words = _a2_case(kind, k, cuda)
+    else:
+        data = (_mixed(k, n_tiles) if kind == "mixed" else
+                generate_redundant(n_tiles * k * ILS_LANES, float(kind),
+                                   seed=k))
+        codec, snum, words = _inputs(data, k, cuda)
+    C = tk.certify_chunks(k)[0]
+    got = tk.ils_lengths_pass(words, snum, codec.enc, k=k, rot=rot,
+                              chunk_bits=True)
+    assert tk.launch_counts()["ils_lengths_pass"] == 1
+    ref = tk.ils_lengths_pass_plain(words, snum, codec.enc, k=k, rot=rot)
+    assert _equal(got[:5], ref)
+    assert tuple(got[5].shape) == (n_tiles, C - 1, ILS_LANES)
+    assert torch.equal(got[5], tk.ils_chunk_bits_plain(words, codec.enc, k=k,
+                                                       rot=rot))
+    if k == 262148:
+        assert C == 257 and (k // 4 - 1) * snum >= 1 << 31
+        return
+    bits, dn, dx, en, ex, cbits = got
+    band, boffs = tils.emission_band(en, ex)
+    p = tils.envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
+                             extra_band_pairs=band)
+    args = (words, snum, torch.from_numpy(boffs).to(cuda),
+            tils.row_starts_of(p, cuda), codec.enc)
+    kw = dict(k=k, w_cap=p.w_cap, w_band=band, total_rows=p.total_rows,
+              rot=rot)
+    with_bits = tk.ils_pack(*args, cbits=cbits, **kw)
+    assert torch.equal(with_bits, tk.ils_pack(*args, **kw))
+    assert torch.equal(with_bits, tk.ils_pack_plain(*args, **kw))

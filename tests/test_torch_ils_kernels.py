@@ -604,6 +604,147 @@ def test_certify_chunks_geometry(k, chunks):
         assert 132 < 64 * C <= 2 * 132
 
 
+# ----------------------------------------------------------------------
+# A4 in (tile, chunk) form: a NumPy model of its two kernels
+# ----------------------------------------------------------------------
+def _lengths_chunked(words, enc, *, k, snum, rot, bounds):
+    """A4's two kernels on chunks [bounds[c], bounds[c + 1]) of whole
+    windows of every stream: the bits pass (each chunk's code bits but the
+    last's), then each chunk from the closed-form state at its start
+    (e_ptr = cum >> 6, used = cum & 63), tracking the emission envelope
+    alone.  A refill happens exactly where a pair retires, at pptr = 2 +
+    e_ptr, so a window's refill envelope is its emission envelope + 2
+    before the final flush, and the sentinels where no pair retired.
+    Returns (bits, dn, dx, en, ex, chunk bits) as NumPy arrays."""
+    nb = k // 4
+    n_tiles = words.shape[0] // nb
+    n_win = -(-nb // 64)
+    assert bounds[0] == 0 and bounds[-1] == nb
+    assert all(b % 64 == 0 for b in bounds[:-1])
+    x = words.view(np.uint32).reshape(n_tiles, nb, ILS_LANES).astype(np.int64)
+    if rot:
+        x = np.take_along_axis(x, _rot_src_index(k)[None], axis=2)
+    lens = enc.astype(np.int64) >> 20
+    l4 = sum(lens[(x >> (8 * j)) & 255] for j in range(4))
+    cbits = [l4[:, b0:b1].sum(axis=1) for b0, b1 in zip(bounds[:-2],
+                                                          bounds[1:-1])]
+    big = 1 << 30
+    env = np.full((4, n_tiles, n_win, ILS_LANES), big, np.int64)
+    env[1::2] = -big  # dn, dx, en, ex
+    dn, dx, en, ex = env
+    shape = (n_tiles, ILS_LANES)
+    for c, (b0, b1) in enumerate(zip(bounds[:-1], bounds[1:])):
+        cum = sum(cbits[:c], np.zeros(shape, np.int64))
+        used, e_ptr = cum & 63, cum >> 6
+        emin, emax = np.full(shape, big), np.full(shape, -big)
+        for i in range(b0, b1):
+            used = used + l4[:, i]
+            emit = used >= 64
+            dev = e_ptr - ((i * snum) >> 16)
+            emin = np.where(emit, np.minimum(emin, dev), emin)
+            emax = np.where(emit, np.maximum(emax, dev), emax)
+            e_ptr, used = e_ptr + emit, used - 64 * emit
+            wi = i // 64
+            if (i + 1) % 64 == 0 and i + 1 < nb or i + 1 == nb:
+                dn[:, wi] = np.where(emin == big, big, emin + 2)
+                dx[:, wi] = np.where(emax == -big, -big, emax + 2)
+                if i + 1 == nb:
+                    # the final flush of the partial pair, at the last mu
+                    bits = 64 * e_ptr + used
+                    dev = e_ptr - ((i * snum) >> 16)
+                    emin = np.where(used > 0, np.minimum(emin, dev), emin)
+                    emax = np.where(used > 0, np.maximum(emax, dev), emax)
+                en[:, wi], ex[:, wi] = emin, emax
+                emin, emax = np.full(shape, big), np.full(shape, -big)
+    cb = np.stack(cbits, axis=1) if cbits else np.zeros(
+        (n_tiles, 0, ILS_LANES), np.int64)
+    return tuple(v.astype(np.int32) for v in (bits, dn, dx, en, ex, cb))
+
+
+def _lacking(k, n_tiles, seed):
+    """(data, JAX table) of r=0.5 data whose table lacks bytes >= 200, with
+    body rows 64-127 of tile 0 and the last window of the last tile all
+    byte 201 (no code bits: windows in which no pair retires, the last one
+    with a final flush where the stream has a partial pair)."""
+    data = generate_redundant(n_tiles * k * ILS_LANES, 0.5, seed=seed)
+    data[data >= 200] = 65
+    jt = _fit(data)
+    rows = data.view(np.int32).reshape(-1, ILS_LANES)
+    nb = k // 4
+    rows[64:128] = np.int32(-0x36363637)  # 0xC9C9C9C9: byte 201
+    rows[n_tiles * nb - (nb - 1) % 64 - 1:] = np.int32(-0x36363637)
+    return data, jt
+
+
+@pytest.mark.parametrize("k,rot,win", [
+    (1000, False, 1), (1000, True, 3), (1000, True, 4), (300, False, 1),
+])
+def test_a4_chunk_model_matches_plain_and_jax(k, rot, win):
+    # chunks of `win` windows, the last shorter (nb % 64 != 0 at both k),
+    # windows without a retiring pair, rotation on and off
+    data, jt = _lacking(k, 2, seed=k + rot)
+    pt = code_table_from_numpy(jt.lengths, jt.max_len)
+    snum = ils_schedule_numer(float(jt.lengths.astype(np.int64)[data].mean()))
+    words = data.view(np.int32).reshape(-1, ILS_LANES).copy()
+    enc = tk.ils_enc_tabs(pt)
+    ref = jk.ils_lengths_pass(jnp.asarray(words.reshape(-1, 8, 128)),
+                              _jparams(snum), jk.ils_enc_tabs(jt), k=k,
+                              rot=rot, interpret=True)
+    plain = tk.ils_lengths_pass(torch.from_numpy(words), snum, enc, k=k,
+                                rot=rot)
+    nb = k // 4
+    bounds = list(range(0, nb, 64 * win)) + [nb]
+    got = _lengths_chunked(words, enc.numpy(), k=k, snum=snum, rot=rot,
+                           bounds=bounds)
+    for name, a, b, p in zip(("bits", "dn", "dx", "en", "ex"), ref, got,
+                             plain):
+        assert np.array_equal(b, p.numpy()), name
+        assert np.array_equal(np.asarray(a).reshape(b.shape), b), name
+    # the sentinels of the empty windows (window 1 of tile 0, the last of
+    # tile 1), and the final flush in the last one's emission envelope
+    n_win = got[1].shape[1]
+    assert (got[1][0, 1] == 1 << 30).all() and (got[1][1, -1] == 1 << 30).all()
+    assert (got[3][0, 1] == 1 << 30).all() or n_win == 2
+    assert (got[3][1, -1] < 1 << 30).any()
+
+
+@pytest.mark.parametrize("k,rot", [(2048, False), (1300, True), (8, False)])
+def test_a4_chunk_model_kernel_geometry(k, rot):
+    # certify_chunks(k): 2 chunks of 4 windows at k=2048, 2 at k=1300 (the
+    # last of 2 windows, the last one partial), 1 at the k=8 tail; the
+    # wrapper's chunk bits (`chunk_bits=True`) on the CPU are the model's,
+    # and A5 given them writes the same payload
+    data, jt = _lacking(k, 2, seed=5) if k > 8 else (
+        generate_redundant(2 * k * ILS_LANES, 0.5, seed=5), None)
+    jt = jt or _fit(data)
+    pt = code_table_from_numpy(jt.lengths, jt.max_len)
+    snum = ils_schedule_numer(float(jt.lengths.astype(np.int64)[data].mean()))
+    td = torch.from_numpy(data.view(np.int32).reshape(-1, ILS_LANES).copy())
+    enc = tk.ils_enc_tabs(pt)
+    out = tk.ils_lengths_pass(td, snum, enc, k=k, rot=rot, chunk_bits=True)
+    C, win = tk.certify_chunks(k)
+    nb = k // 4
+    bounds = list(range(0, nb, 64 * win)) + [nb]
+    assert len(bounds) == C + 1 and C == (2 if k > 8 else 1)
+    got = _lengths_chunked(td.numpy(), enc.numpy(), k=k, snum=snum, rot=rot,
+                           bounds=bounds)
+    for name, a, b in zip(("bits", "dn", "dx", "en", "ex", "cbits"), out,
+                          got):
+        assert np.array_equal(a.numpy(), b), name
+    assert tuple(out[5].shape) == (2, C - 1, ILS_LANES)
+    band, boffs = tils.emission_band(out[3], out[4])
+    p = tils.envelope_params(*out[:3], k=k, snum=snum, rot=rot,
+                             extra_band_pairs=band)
+    kw = dict(k=k, w_cap=p.w_cap, w_band=band, total_rows=p.total_rows,
+              rot=rot)
+    args = (td, snum, torch.from_numpy(boffs), tils.row_starts_of(p, "cpu"),
+            enc)
+    assert torch.equal(tk.ils_pack(*args, **kw),
+                       tk.ils_pack(*args, cbits=out[5], **kw))
+    with pytest.raises(ValueError, match="cbits"):
+        tk.ils_pack(*args, cbits=out[5][:1], **kw)
+
+
 def test_compact_matches():
     k, rot = 64, True
     data = generate_redundant(3 * k * ILS_LANES, 0.5, seed=31)
