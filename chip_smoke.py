@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of huffman_tpu_torch: the ILS and HTC1 codecs, the ILS
-file path and the foreign-stream (Yamamoto, self-sync) decoders end to end
-on one GPU.
+file path, the foreign-stream (Yamamoto, self-sync) decoders and the
+command line end to end on one GPU.
 
     python3 chip_smoke.py [--size BYTES] [--tail BYTES] [--redundancy R]
                           [--gap-block BYTES]
@@ -131,7 +131,21 @@ failure raises and exits non-zero with the traceback):
    that divides them, round trip as in (a) (run before (c)); (c) the
    first 20 MiB + 777 B as a file encoded on the card and on the CPU:
    equal container bytes.
-14. One JSON line per kernel list (name, route, source, replaces, launches,
+14. The command line (`huffman_tpu_torch.cli.main`, in process, in a
+   temporary directory the phase removes), each command with the launch
+   counts set to 0 just before it and read just after, failing where its
+   path's kernels were not launched (PATH_KERNELS): generate (equal to
+   phase 4's input); encode and decode --format ils (the file equals phase
+   4's container) and htc1 (phase 6's); yamamoto and seq on the first 128
+   MiB, each file equal to write_yamamoto / write_seq called with the
+   table the CLI fits (package_merge_lengths of the histogram, 16 bits);
+   encode and decode --stream (equal to phase 13a's container); roundtrip
+   (PASS); bench at 256 MiB, 5 runs, its medians logged beside phase 4's;
+   the native host module's histogram of the input against torch.bincount
+   on the card; one `python -m huffman_tpu_torch.cli --help` subprocess.
+   Every decode must give the input back; every command's host-clock ms is
+   logged with the card's name and power limit.
+15. One JSON line per kernel list (name, route, source, replaces, launches,
    max_abs_err, ms, ms_by, wrapper_ms, plain_ms, bound_ms, bound_by,
    library_ms):
    each kernel's launches in its codec's end-to-end run (phase 4 or 6)
@@ -149,7 +163,8 @@ failure raises and exits non-zero with the traceback):
    before it under "htc1"."kernels", phase 11-12's results under
    "portable", phase 4c's under "ratio", and B1/B2/C1/C2 at the foreign
    paths' shapes under
-   "yamamoto"."kernels" and "selfsync"."kernels", phase 13's under "file".  The rows of A1, A2,
+   "yamamoto"."kernels" and "selfsync"."kernels", phase 13's under "file",
+   phase 14's under "cli".  The rows of A1, A2,
    A4, A5, B1, B2, B4b-B4d, C1 and C2 also carry their "ptxas" report.  Then the card
    line, then the device line last.
 
@@ -162,8 +177,10 @@ is at most that, so the bound stays a lower bound).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1055,7 +1072,9 @@ def file_phase(host, data, tk, IlsCodec, read_ils_container, card,
         dec_ms = (time.perf_counter() - t0) * 1e3
         dec_launches = tk.launch_counts()
         ok = got == n and np.array_equal(np.fromfile(out, np.uint8), host)
-        comp = read_ils_container(open(ils, "rb").read())
+        with open(ils, "rb") as f:
+            raw = f.read()
+        comp = read_ils_container(raw)
         whole = torch.equal(codec.decode(comp), data)
         secs = [(q.params.k, q.params.n_tiles, q.params.w_cap)
                 for q in comp.sections]
@@ -1076,6 +1095,7 @@ def file_phase(host, data, tk, IlsCodec, read_ils_container, card,
         check(enc_launches, secs)
         return codec, {"k": codec.k, "attempts": list(attempts),
                        "sections": secs, "container_bytes": size,
+                       "sha256": hashlib.sha256(raw).hexdigest(),
                        "fit_ms": fit_ms, "encode_ms": enc_ms,
                        "decode_ms": dec_ms, "encode_launches": enc_launches,
                        "decode_launches": dec_launches}
@@ -1176,6 +1196,216 @@ def file_phase(host, data, tk, IlsCodec, read_ils_container, card,
         log(f"  phase 13 took {summary['phase_s']:.1f} s")
     finally:
         ils_codec_mod.ils_encode_device = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
+PATH_KERNELS = {
+    # CLI command -> the kernels its path must launch
+    "encode ils": ("ils_pack_certify", "ils_compact", "ils_lengths_pass",
+                   "ils_pack"),
+    "decode ils": ("ils_decode",),
+    "encode htc1": ("gap_row_pack", "gap_row_meta", "gap_place_bits"),
+    "decode htc1": ("gap_decode_ranks", "gap_place_bytes"),
+    "decode yamamoto": ("count_segments", "gap_decode_ranks",
+                        "gap_place_bytes"),
+    "decode seq": ("sync_transitions", "gap_decode_ranks", "gap_place_bytes"),
+    "encode --stream": ("ils_lengths_pass",),
+    "decode --stream": ("ils_decode",),
+    "roundtrip": ("ils_pack_certify", "ils_compact", "ils_lengths_pass",
+                  "ils_pack", "ils_decode"),
+    "bench": ("ils_pack_certify", "ils_compact", "ils_decode"),
+}
+
+
+def require_launched(label, launches, names):
+    missing = [name for name in names if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"CLI {label}: kernels not launched: {missing} "
+                             f"({launches})")
+
+
+def cli_phase(host, data, expect, card, mods, dev_args=(),
+              bench_size=1 << 28, bench_repeat=5, ref_bytes=1 << 27):
+    """Phase 14: the command line (`huffman_tpu_torch.cli.main`, in
+    process) on the card, in a temporary directory that the phase removes.
+    Each command runs with the launch counts set to 0 just before it and
+    read just after, and must launch its path's kernels (PATH_KERNELS).
+    `expect` holds the codec API's containers of the same input: phase
+    4's ILS blob ("ils"), phase 6's HTC1 blob ("htc1"), the SHA-256 of
+    phase 13a's streamed container ("stream_sha256") and phase 9's
+    Yamamoto container ("yamamoto_device").  Returns the summary."""
+    import contextlib
+    import hashlib
+    import io
+
+    from huffman_tpu_torch import native
+    from huffman_tpu_torch.cli import main as cli
+    from huffman_tpu_torch.core import (
+        canonical_code_table,
+        npref,
+        package_merge_lengths,
+    )
+    from huffman_tpu_torch.io import write_seq, write_yamamoto
+
+    n = host.size
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    summary = {"card": card, "bytes": n, "commands": {}}
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    def run(label, argv):
+        """One CLI command: its printed lines, host-clock ms and the
+        launches of that call alone."""
+        for m in mods:
+            m.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli([*argv, *(dev_args if argv[0] != "generate" else ())])
+        except SystemExit as e:
+            raise AssertionError(f"CLI {label} exited {e.code}") from e
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for m in mods for k, v in m.launch_counts().items()
+                    if v}
+        lines = buf.getvalue().splitlines()
+        log(f"  {label}: {ms:.1f} ms host clock ({card}); launches "
+            f"{launches}")
+        for line in lines:
+            log(f"    | {line}")
+        require_launched(label, launches, PATH_KERNELS.get(label, ()))
+        summary["commands"][label] = {"ms": ms, "launches": launches,
+                                      "printed": lines}
+        return lines
+
+    def same_file(a, b):
+        return np.array_equal(np.fromfile(a, np.uint8),
+                              np.fromfile(b, np.uint8))
+
+    def check(label, ok):
+        summary.setdefault("checks", {})[label] = bool(ok)
+        log(f"  {label}: {bool(ok)}")
+        if not ok:
+            raise AssertionError(f"CLI: {label} failed")
+
+    t_phase = time.perf_counter()
+    try:
+        src = path("src.bin")
+        run("generate", ["generate", "--size", str(n), "--redundancy", "0.5",
+                         "--seed", "0", "-o", src])
+        check("generate equals phase 4's input",
+              np.array_equal(np.fromfile(src, np.uint8), host))
+
+        run("encode ils", ["encode", src, "-o", path("a.ils")])
+        with open(path("a.ils"), "rb") as f:
+            check("ILS file equals phase 4's container", f.read() == expect["ils"])
+        run("decode ils", ["decode", path("a.ils"), "-o", path("a.out")])
+        check("ILS decode is the input", same_file(path("a.out"), src))
+
+        run("encode htc1", ["encode", src, "--format", "htc1",
+                            "-o", path("a.htc")])
+        with open(path("a.htc"), "rb") as f:
+            check("HTC1 file equals phase 6's container",
+                  f.read() == expect["htc1"])
+        run("decode htc1", ["decode", path("a.htc"), "-o", path("h.out")])
+        check("HTC1 decode is the input", same_file(path("h.out"), src))
+
+        # the reference formats on the first ref_bytes, each file held to
+        # the API's writer with the table the CLI fits from these bytes
+        fs = min(ref_bytes, n)
+        ysrc = path("y.bin")
+        host[:fs].tofile(ysrc)
+        table = canonical_code_table(
+            package_merge_lengths(npref.histogram(host[:fs]), 16), 16)
+        for fmt, write in (("yamamoto", write_yamamoto), ("seq", write_seq)):
+            enc = path(f"y.{fmt}")
+            run(f"encode {fmt}", ["encode", ysrc, "--format", fmt, "-o", enc])
+            t0 = time.perf_counter()
+            want = write(host[:fs], table)
+            api_ms = (time.perf_counter() - t0) * 1e3
+            with open(enc, "rb") as f:
+                got = f.read()
+            log(f"  write_{fmt} through the API: {api_ms:.1f} ms host clock "
+                f"({card}), {len(want)} bytes")
+            check(f"{fmt} file equals write_{fmt} with the CLI's table",
+                  got == want)
+            if fmt == "yamamoto":
+                summary["yamamoto_equals_phase9"] = (
+                    got == expect["yamamoto_device"])
+                log(f"  (phase 9's device-built container equal: "
+                    f"{summary['yamamoto_equals_phase9']})")
+            run(f"decode {fmt}", ["decode", enc, "--format", fmt,
+                                  "-o", path(f"y_{fmt}.out")])
+            check(f"{fmt} decode is the input",
+                  same_file(path(f"y_{fmt}.out"), ysrc))
+        os.unlink(ysrc)
+
+        run("encode --stream", ["encode", src, "--stream",
+                                "-o", path("s.ils")])
+        with open(path("s.ils"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        check("streamed file equals phase 13a's container",
+              digest == expect["stream_sha256"])
+        run("decode --stream", ["decode", path("s.ils"), "--stream",
+                                "-o", path("s.out")])
+        check("streamed decode is the input", same_file(path("s.out"), src))
+
+        lines = run("roundtrip", ["roundtrip", src])
+        check("roundtrip prints PASS", "Verification:    PASS" in lines)
+
+        lines = run("bench", ["bench", "--size", str(bench_size), "--repeat",
+                              str(bench_repeat)])
+        pat = r"(encode|decode): ([\d.]+) GB/s \(median of (\d+), best ([\d.]+)\)"
+        parsed = [re.fullmatch(pat, line) for line in lines[:2]]
+        check("bench prints two lines that parse and PASS",
+              all(parsed) and lines[2] == "verification: PASS")
+        summary["bench"] = {m.group(1): {"gbps_median": float(m.group(2)),
+                                         "runs": int(m.group(3)),
+                                         "gbps_best": float(m.group(4))}
+                            for m in parsed}
+        summary["bench"]["bytes"] = bench_size
+        if "e2e_ms" in expect:
+            enc_ms, dec_ms, e2e_n = expect["e2e_ms"]
+            log(f"  bench medians {summary['bench']['encode']['gbps_median']}"
+                f" / {summary['bench']['decode']['gbps_median']} GB/s at "
+                f"{bench_size} B; phase 4 {e2e_n / enc_ms / 1e6:.3f} / "
+                f"{e2e_n / dec_ms / 1e6:.3f} GB/s at {e2e_n} B ({card})")
+
+        # the native host module: its histogram of the input against
+        # torch.bincount on the card
+        available = native.available()
+        log(f"  native host module: {native.library_path()}"
+            if available else
+            f"  native host module: {native.unavailable_reason()}")
+        check("native host module available", available)
+        hist_ms = [host_ms(lambda: native.histogram(host)) for _ in range(3)]
+        got = native.histogram(host)
+        want = torch.bincount(data, minlength=256).cpu().numpy()
+        bincount_ms = host_ms(
+            lambda: torch.bincount(data, minlength=256).cpu())
+        log(f"  native histogram: ms {[round(x, 2) for x in hist_ms]} host "
+            f"clock; torch.bincount + copy {bincount_ms:.2f} ms ({card})")
+        check("native histogram equals torch.bincount on the card",
+              np.array_equal(got, want))
+        summary["native"] = {"histogram_ms": hist_ms,
+                             "bincount_ms": bincount_ms}
+
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "huffman_tpu_torch.cli", "--help"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=120)
+        help_ms = (time.perf_counter() - t0) * 1e3
+        log(f"  python -m huffman_tpu_torch.cli --help: rc {res.returncode}, "
+            f"{help_ms:.1f} ms host clock ({card})")
+        check("python -m huffman_tpu_torch.cli --help",
+              res.returncode == 0 and "roundtrip" in res.stdout)
+        summary["help_ms"] = help_ms
+        summary["phase_s"] = time.perf_counter() - t_phase
+        log(f"  phase 14 took {summary['phase_s']:.1f} s")
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return summary
 
@@ -1880,7 +2110,15 @@ def main(argv=None) -> int:
     file_summary = file_phase(host, data, tk, IlsCodec, read_ils_container,
                               card)
 
-    # ---- 14. results
+    # ---- 14. the command line on the card
+    log(f"phase 14: the command line, {n} bytes ({card})")
+    cli_summary = cli_phase(
+        host, data, {"ils": blob, "htc1": gblob, "yamamoto_device": yblob,
+                     "stream_sha256": file_summary["default"]["sha256"],
+                     "e2e_ms": (enc_med, dec_med, n)},
+        card, (tk, gd, ge, sk), ref_bytes=fs)
+
+    # ---- 15. results
     def times(t):
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
         o_ms = t.get("ops", 0) / ALU_OPS_PER_S * 1e3
@@ -1974,6 +2212,7 @@ def main(argv=None) -> int:
                  "card": card, "profile": gprof, "kernels": bench_rows},
         "portable": portable,
         "file": file_summary,
+        "cli": cli_summary,
     }))
     log(f"chip_smoke took {time.perf_counter() - t_main:.1f} s")
     log(card)

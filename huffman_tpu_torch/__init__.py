@@ -9,12 +9,28 @@ version beside it (`ops/ils_kernels.py`, `ops/gap_decode_kernels.py`,
 `ops/gap_encode_kernels.py`, `ops/selfsync_kernels.py`).  The entry
 points run on the CUDA device unless the caller passes ``device="cpu"``.
 This package imports neither jax nor anything of `huffman_tpu`.
+
+Host helpers: ``native`` (a C++ histogram, package-merge, canonical
+assignment, bit packer and prefix-code walk, built by g++ at first use),
+``io.refbin`` (the reference's `sequential.cpp` behind a file driver) and
+the command line, ``python -m huffman_tpu_torch.cli`` (script
+``huffman-tpu-torch``).  ``models``, ``ops``, ``io``, ``utils`` and
+``native`` are also reachable as attributes, loaded at first use.
 """
 
 __version__ = "0.1.0"
 
-from .core.canonical import CodeTable, canonical_code_table
-from .core.package_merge import package_merge_lengths
+import importlib
+
+from . import constants
+from .core import (
+    CodeTable,
+    build_flat_lut,
+    build_two_level_table,
+    canonical_code_table,
+    huffman_lengths_unbounded,
+    package_merge_lengths,
+)
 from .io.container import (
     container_kind,
     container_size,
@@ -43,6 +59,10 @@ __all__ = [
     "CodeTable",
     "canonical_code_table",
     "package_merge_lengths",
+    "huffman_lengths_unbounded",
+    "build_flat_lut",
+    "build_two_level_table",
+    "constants",
     "IlsCodec",
     "IlsCompressed",
     "GapArrayCodec",
@@ -66,4 +86,17 @@ __all__ = [
     "selfsync_decode_device",
     "selfsync_decode_bytes",
     "is_canonical",
+    "models",
+    "ops",
+    "io",
+    "utils",
+    "native",
 ]
+
+_LAZY = ("models", "ops", "io", "utils", "native")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,9 +1,11 @@
 """Pure-NumPy reference codec — the test oracle of the HTC1 path.
 
-Copies of `huffman_tpu/core/npref.py` (without its optional native
-helpers, which give the same results): byte histogram, the MSB-first u32
+Copies of `huffman_tpu/core/npref.py`: byte histogram, the MSB-first u32
 bit stream, the per-segment (gap, count) metadata and two decoders.  The
-histogram also counts a tensor where it lies.
+histogram also counts a tensor where it lies.  As in the JAX package, the
+histogram of a host array of at least 64 KiB and the bit stream run in the
+native host module (`huffman_tpu_torch/native.py`) where it builds; its
+results are the NumPy code's.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ def histogram(data) -> np.ndarray:
         counts = torch.bincount(data.reshape(-1), minlength=ALPHABET_SIZE)
         return counts.cpu().numpy().astype(np.int64)
     data = np.asarray(data, dtype=np.uint8)
+    from .. import native
+
+    if data.size >= (1 << 16) and native.available():
+        return native.histogram(data)
     return np.bincount(data.reshape(-1), minlength=ALPHABET_SIZE).astype(np.int64)
 
 
@@ -46,6 +52,10 @@ def encode_bits(data: np.ndarray, table: CodeTable):
     data = np.asarray(data, dtype=np.uint8)
     if data.size == 0:
         return np.zeros(1, np.uint32), 0
+    from .. import native
+
+    if native.available():
+        return native.encode_bits(data, table.codes, table.lengths)
     lens = table.lengths[data].astype(np.int64)
     if np.any(lens == 0):
         raise ValueError("input contains a symbol absent from the code table")

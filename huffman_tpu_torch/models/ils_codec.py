@@ -117,7 +117,10 @@ class IlsCodec:
     def encode(self, data) -> IlsCompressed:
         """Encode a uint8 array or tensor.  A file whose longest stream
         overflows the row budget at the chosen k halves k and re-chunks
-        until it fits (MIN_K always fits)."""
+        until it fits (MIN_K always fits).  The half is rounded up to a
+        multiple of 4, as the format needs: the JAX package's plain
+        halving wherever that stays a multiple of 4 (a k of 4 times an odd
+        number, such as 4100, would halve to 2050)."""
         data = _as_bytes(data, self.device)
         k = self.k
         while True:
@@ -126,7 +129,7 @@ class IlsCodec:
             except IlsVmemError:
                 if k <= ils_ops.MIN_K:
                     raise
-                k //= 2
+                k = -(-k // 8) * 4
 
     def _encode_with_k(self, data: torch.Tensor, k_main: int) -> IlsCompressed:
         n = data.numel()

@@ -1,3 +1,3 @@
-from .datagen import generate_redundant
+from .datagen import generate_binomial, generate_redundant, generate_single_symbol
 
-__all__ = ["generate_redundant"]
+__all__ = ["generate_redundant", "generate_binomial", "generate_single_symbol"]

@@ -1,14 +1,17 @@
 """Synthetic test data, byte-identical to `huffman_tpu/utils/datagen.py`.
 
-Each byte is one of 'A'..'D' with probability ``redundancy``, else uniform
-over 0..255, drawn from a NumPy generator seeded with ``seed`` in 64 MiB
-chunks (the same draw order, so the same seed gives the same bytes)."""
+`generate_redundant`: each byte is one of 'A'..'D' with probability
+``redundancy``, else uniform over 0..255, drawn from a NumPy generator
+seeded with ``seed`` in 64 MiB chunks (the same draw order, so the same
+seed gives the same bytes).  `generate_binomial`: binomial(255, 0.5)
+bytes, mass near 128 (skewed code lengths).  `generate_single_symbol`:
+one repeated byte (a 1-bit code)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["generate_redundant"]
+__all__ = ["generate_redundant", "generate_binomial", "generate_single_symbol"]
 
 
 def generate_redundant(
@@ -25,3 +28,12 @@ def generate_redundant(
         full = rng.integers(0, 256, size=n, dtype=np.uint8)
         out[off : off + n] = np.where(r < redundancy, low, full)
     return out
+
+
+def generate_binomial(size: int, seed: int | None = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.binomial(255, 0.5, size=size).astype(np.uint8)
+
+
+def generate_single_symbol(size: int, symbol: int = 65) -> np.ndarray:
+    return np.full(size, symbol, np.uint8)

@@ -150,3 +150,146 @@ def test_ils_layout_helpers_match():
     assert np.array_equal(tp.row_starts, jp.row_starts)
     assert tp.row_starts.dtype == jp.row_starts.dtype
     assert tp.total_rows == jp.total_rows
+
+
+# ----------------------------------------------------------------------
+# The last host helpers: kraft_sum, huffman_lengths_unbounded, the two
+# generators and the NumPy ILS oracle
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("max_len", [8, 16])
+def test_kraft_sum_matches(max_len):
+    for seed in range(24):
+        f = _freqs(seed)
+        if np.count_nonzero(f) > (1 << max_len):
+            continue
+        lengths = tpm.package_merge_lengths(f, max_len)
+        assert tpm.kraft_sum(lengths) == jpm.kraft_sum(lengths), seed
+        assert tpm.kraft_sum(lengths) <= 1.0
+    bad = np.r_[np.ones(3, np.uint8), np.zeros(253, np.uint8)]
+    assert tpm.kraft_sum(bad) == jpm.kraft_sum(bad) == 1.5
+    assert tpm.kraft_sum(np.zeros(256, np.uint8)) == 0.0
+
+
+def test_huffman_lengths_unbounded_matches():
+    for seed in range(32):
+        f = _freqs(seed)
+        got = tpm.huffman_lengths_unbounded(f)
+        assert got.dtype == np.uint8
+        assert np.array_equal(got, jpm.huffman_lengths_unbounded(f)), seed
+    # a geometric skew drives the greedy tree past 16 bits
+    f = (2.0 ** -np.arange(40) * 2 ** 41).astype(np.int64)
+    f = np.r_[f, np.zeros(216, np.int64)]
+    got = tpm.huffman_lengths_unbounded(f)
+    assert got.max() > 16
+    assert np.array_equal(got, jpm.huffman_lengths_unbounded(f))
+    assert not tpm.huffman_lengths_unbounded(np.zeros(256, np.int64)).any()
+
+
+@pytest.mark.parametrize("size,seed", [(0, 0), (1, 1), (4097, 2),
+                                       (100_000, 3), (5000, None)])
+def test_generate_binomial_and_single_symbol_match(size, seed):
+    got = tgen.generate_binomial(size, seed=seed)
+    assert got.shape == (size,) and got.dtype == np.uint8
+    if seed is not None:
+        assert np.array_equal(got, jgen.generate_binomial(size, seed=seed))
+    for sym in (0, 65, 255):
+        assert np.array_equal(tgen.generate_single_symbol(size, sym),
+                               jgen.generate_single_symbol(size, sym))
+    assert np.array_equal(tgen.generate_single_symbol(size),
+                          jgen.generate_single_symbol(size))
+
+
+def _oracle_case(seed, k, n_tiles):
+    data = jgen.generate_redundant(n_tiles * k * 1024, (0.1, 0.5, 0.9)[seed % 3],
+                                   seed=seed)
+    table = tcan.canonical_code_table(
+        tpm.package_merge_lengths(tnpref.histogram(data), 16), 16)
+    jtable = jcan.canonical_code_table(table.lengths, 16)
+    return data, table, jtable
+
+
+@pytest.mark.parametrize("k,rot", [(8, False), (12, True), (64, False)])
+def test_ils_stream_symbols_and_schedule_match(k, rot):
+    data, table, _ = _oracle_case(k, k, 2)
+    syms = tref.ils_stream_symbols(data, k, rot=rot)
+    assert np.array_equal(syms, jref.ils_stream_symbols(data, k, rot=rot))
+    lens = table.lengths[syms].astype(np.int64)
+    for snum in (1, 40_000, jref.ils_schedule_numer(float(lens.mean())),
+                 1 << 20):
+        for got, want in zip(tref.ils_simulate_schedule(lens, snum),
+                             jref.ils_simulate_schedule(lens, snum)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+    for bad_k, size in ((6, data.size), (0, data.size), (k, data.size - 4)):
+        with pytest.raises(ValueError) as ref:
+            jref.ils_stream_symbols(data[:size], bad_k)
+        with pytest.raises(ValueError) as got:
+            tref.ils_stream_symbols(data[:size], bad_k)
+        assert str(got.value) == str(ref.value)
+
+
+def test_ils_oracle_rounding_and_mu_match():
+    for x in (0, 1, 8, 9, 24, 25, 300, 512, 513, 2000):
+        assert tref._round_band(x) == jref._round_band(x), x
+    # no 320/448/640 buckets in either oracle (the device path has them)
+    for x in (0, 8, 9, 300, 320, 448, 640, 2048, 2049, 5000):
+        assert tref._round_cap(x) == jref._round_cap(x), x
+    # 64-bit mu: i * snum past 2^31 does not wrap
+    for i, snum in ((0, 5), (65_535, 32_768), (3 << 20, 1 << 20)):
+        assert int(tref._mu(i, snum)) == jref._mu(i, snum)
+    i = np.arange(0, 1 << 22, 4099)
+    assert np.array_equal(tref._mu(i, 1 << 20), jref._mu(i, 1 << 20))
+
+
+@pytest.mark.parametrize("seed,k,n_tiles,rot", [
+    (0, 8, 1, False), (1, 12, 2, True), (2, 16, 2, False), (4, 64, 1, True),
+])
+def test_ils_oracle_encode_decode_match(seed, k, n_tiles, rot):
+    data, table, jtable = _oracle_case(seed, k, n_tiles)
+    payload, params = tref.ils_encode_np(data, table, k, rot=rot)
+    jpayload, jparams = jref.ils_encode_np(data, jtable, k, rot=rot)
+    assert payload.dtype == jpayload.dtype
+    assert np.array_equal(payload, jpayload)
+    for f in dataclasses.fields(jparams):
+        a, b = getattr(jparams, f.name), getattr(params, f.name)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    out = tref.ils_decode_np(payload, params, table)
+    assert out.dtype == np.uint8 and np.array_equal(out, data)
+    assert np.array_equal(jref.ils_decode_np(jpayload, jparams, jtable), out)
+
+
+def test_ils_oracle_decodes_the_ports_sections():
+    # the device path's w_cap buckets are finer than the oracle's (F1), yet
+    # the oracle decodes each section of a container from its parameters
+    from huffman_tpu_torch import IlsCodec
+
+    data = jgen.generate_redundant(2 * 12 * 1024 + 77, 0.5, seed=9)
+    codec = IlsCodec.fit(data, k=12, device="cpu")
+    comp = codec.encode(data)
+    outs = [tref.ils_decode_np(s.payload_u32(), s.params, comp.table)
+            for s in comp.sections]
+    assert np.array_equal(np.concatenate(outs)[: data.size], data)
+
+
+def test_ils_oracle_errors_match():
+    data, table, jtable = _oracle_case(5, 64, 1)
+    # a symbol absent from the table
+    sparse = tcan.canonical_code_table(
+        tpm.package_merge_lengths(np.r_[1, np.zeros(255, np.int64)], 16), 16)
+    with pytest.raises(ValueError) as ref:
+        jref.ils_encode_np(data, jcan.canonical_code_table(sparse.lengths, 16), 64)
+    with pytest.raises(ValueError) as got:
+        tref.ils_encode_np(data, sparse, 64)
+    assert str(got.value) == str(ref.value)
+    # a band too narrow for the refills
+    payload, params = tref.ils_encode_np(data, table, 64)
+    narrow = dataclasses.replace(params, w_band=1,
+                                 boffs=np.full_like(params.boffs, -50))
+    jnarrow = jref.IlsParams(**dataclasses.asdict(narrow))
+    with pytest.raises(ValueError) as ref:
+        jref.ils_decode_np(payload, jnarrow, jtable)
+    with pytest.raises(ValueError) as got:
+        tref.ils_decode_np(payload, narrow, table)
+    assert str(got.value) == str(ref.value)

@@ -259,6 +259,40 @@ def test_k_halves_on_row_budget_like_jax(monkeypatch):
     assert np.array_equal(tc.decode(tcomp).numpy(), data)
 
 
+def _row_budget_16(monkeypatch):
+    for mod in (jils, tils):
+        monkeypatch.setattr(mod, "VMEM_ROW_BUDGET", 16)
+        monkeypatch.setattr(mod, "MIN_K", 8)
+
+
+def test_k_halving_rounds_up_to_a_multiple_of_4(monkeypatch):
+    # k = 4 * 51 over the row budget: plain halving gives 102, which is no
+    # multiple of 4 (the JAX package writes sections of k=51 that decode
+    # short); the port takes 104, then 52, and its container decodes in
+    # both packages
+    _row_budget_16(monkeypatch)
+    data = generate_redundant(2 * 204 * ILS_LANES + 5, 0.5, seed=3)
+    tc = IlsCodec.fit(data, k=204, device="cpu")
+    tcomp = tc.encode(data)
+    assert [s.params.k for s in tcomp.sections] == [52, 48]
+    assert np.array_equal(tc.decode(tcomp).numpy(), data)
+    blob = write_ils_container(tcomp)
+    assert np.array_equal(tc.decode(read_ils_container(blob)).numpy(), data)
+    jc = JCodec(jread(blob).table, interpret=True)
+    assert np.array_equal(np.asarray(jc.decode(jread(blob))), data)
+
+
+def test_k_halving_keeps_jax_bytes_where_the_half_is_a_multiple_of_4(
+        monkeypatch):
+    _row_budget_16(monkeypatch)
+    data = generate_redundant(208 * ILS_LANES + 5, 0.5, seed=3)
+    jc, tc = _codecs(data, 208)
+    tcomp = tc.encode(data)
+    assert [s.params.k for s in tcomp.sections] == [52, 8]
+    assert write_ils_container(tcomp) == jwrite(jc.encode(data))
+    assert np.array_equal(tc.decode(tcomp).numpy(), data)
+
+
 # ----------------------------------------------------------------------
 # Errors
 # ----------------------------------------------------------------------

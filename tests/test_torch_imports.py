@@ -21,7 +21,7 @@ ROOT = PKG.parent
 FORBIDDEN = ("jax", "huffman_tpu", "jaxlib")
 
 
-def test_imports_with_jax_and_huffman_tpu_blocked():
+def test_imports_with_jax_and_huffman_tpu_blocked(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -56,15 +56,29 @@ def test_imports_with_jax_and_huffman_tpu_blocked():
         "y = decode_yamamoto(write_yamamoto(d, g.table), method='lut', "
         "device='cpu')\n"
         "assert np.array_equal(y.numpy(), d)\n"
+        "import huffman_tpu_torch.cli, huffman_tpu_torch.native\n"
+        "import huffman_tpu_torch.io.refbin, huffman_tpu_torch.core.ils_ref\n"
+        "from huffman_tpu_torch.core import huffman_lengths_unbounded, "
+        "kraft_sum, TwoLevelTable, npref\n"
+        "from huffman_tpu_torch.utils import generate_binomial, "
+        "generate_single_symbol\n"
+        "assert huffman_tpu_torch.native.available() in (True, False)\n"
+        "huffman_tpu_torch.cli.main(['roundtrip', '--device', 'cpu', "
+        "'--format', 'seq', sys.argv[1]])\n"
+        "for name in huffman_tpu_torch.__all__:\n"
+        "    getattr(huffman_tpu_torch, name)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    src = tmp_path / "data.bin"
+    src.write_bytes(np.arange(5000, dtype=np.uint8).tobytes())
+    res = subprocess.run([sys.executable, "-c", code, str(src)], env=env,
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+    assert "Verification:    PASS" in res.stdout
     assert res.stdout.strip().endswith("ok")
 
 
@@ -82,6 +96,31 @@ def test_sources_import_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: {name}"
+
+
+def test_exported_names_match_the_jax_package():
+    # the JAX package's exports (but `parallel`, not ported yet) resolve
+    # in the port, eagerly or at first use
+    import huffman_tpu
+    import huffman_tpu.core
+    import huffman_tpu_torch.core
+
+    assert set(huffman_tpu.core.__all__) <= set(huffman_tpu_torch.core.__all__)
+    for name in huffman_tpu.core.__all__:
+        assert getattr(huffman_tpu_torch.core, name) is not None, name
+    want = set(huffman_tpu.__all__) - {"parallel"}
+    assert want <= set(huffman_tpu_torch.__all__)
+    for name in want:
+        obj = getattr(huffman_tpu_torch, name)
+        if name in ("models", "ops", "io", "utils", "native", "constants"):
+            assert obj.__name__ == f"huffman_tpu_torch.{name}", name
+    assert huffman_tpu_torch.native.histogram is not None
+    assert huffman_tpu_torch.build_two_level_table(
+        huffman_tpu_torch.canonical_code_table(
+            huffman_tpu_torch.huffman_lengths_unbounded(
+                np.arange(256, dtype=np.int64) + 1), 16), 10) is not None
+    with pytest.raises(AttributeError, match="no attribute 'parallel'"):
+        huffman_tpu_torch.parallel
 
 
 def test_default_device_is_cuda_and_never_quietly_cpu():
