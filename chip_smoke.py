@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of huffman_tpu_torch: the ILS and HTC1 codecs, the ILS
-file path, the foreign-stream (Yamamoto, self-sync) decoders and the
-command line end to end on one GPU.
+file path, the foreign-stream (Yamamoto, self-sync) decoders, the
+command line and the multi-device paths end to end on one GPU.
 
     python3 chip_smoke.py [--size BYTES] [--tail BYTES] [--redundancy R]
                           [--gap-block BYTES]
@@ -145,7 +145,23 @@ failure raises and exits non-zero with the traceback):
    on the card; one `python -m huffman_tpu_torch.cli --help` subprocess.
    Every decode must give the input back; every command's host-clock ms is
    logged with the card's name and power limit.
-15. One JSON line per kernel list (name, route, source, replaces, launches,
+15. The multi-device paths (`huffman_tpu_torch.parallel`, `parallel_phase`):
+   (a) nccl at world 1 on this card, at phase 4's main section (its
+   tiles at its k, without the tail): the certified sharded encode and
+   its decode (equal to the codec's section and to ils_encode_to_device's,
+   bit-exact), the full-band round trip (rot=True), the collective
+   histogram (equal to torch.bincount) and the HTC1 block round trip on
+   the first 64 MiB as 16 blocks of 4 MiB (seg_bits=1024, "lut"), with
+   the launch counts of those calls (A1, A2, A3, A5 must launch); A5 and
+   A1 at the full-band shape held against their plain versions and
+   timed; the sharded encode, decode and round trip timed beside the
+   single-device calls (medians of 5 by CUDA events).  (b) gloo, two
+   spawned ranks on this card, through dryrun_multichip at 2 x 32 MiB of
+   ILS (8 tiles a rank at k=4096) and 2 x 4 blocks of 4 MiB, with its
+   fault checks: the rank-ordered certified section equals
+   ils_encode_to_device's on the same 64 MiB, every decode bit-exact,
+   each rank's launches of A1, A2, A3 and A5.
+16. One JSON line per kernel list (name, route, source, replaces, launches,
    max_abs_err, ms, ms_by, wrapper_ms, plain_ms, bound_ms, bound_by,
    library_ms):
    each kernel's launches in its codec's end-to-end run (phase 4 or 6)
@@ -164,7 +180,9 @@ failure raises and exits non-zero with the traceback):
    "portable", phase 4c's under "ratio", and B1/B2/C1/C2 at the foreign
    paths' shapes under
    "yamamoto"."kernels" and "selfsync"."kernels", phase 13's under "file",
-   phase 14's under "cli".  The rows of A1, A2,
+   phase 14's under "cli", phase 15's under "parallel".  A5 and A1 also
+   carry "full_band" (phase 15a's shape) and, with A2 and A3, their
+   phase-15 launches ("parallel_launches").  The rows of A1, A2,
    A4, A5, B1, B2, B4b-B4d, C1 and C2 also carry their "ptxas" report.  Then the card
    line, then the device line last.
 
@@ -433,6 +451,25 @@ def timed(name, call, plain, reps, plain_reps=1, symbols=None, **extra):
                 **extra)
 
 
+def time_plain_once(plain):
+    """(result, ms) of one call of a plain version (host clock,
+    synchronised), for shapes where it takes seconds: its check's call
+    also gives its time."""
+    t0 = time.perf_counter()
+    ref = plain()
+    sync()
+    return ref, (time.perf_counter() - t0) * 1e3
+
+
+def timed_kernel(name, call, plain_ms, reps, symbols=None, **extra):
+    """`timed` for a kernel whose plain version was timed once apart."""
+    ms, ms_by, parts = kernel_ms(call, symbols or SYMBOLS[name], reps)
+    return dict(ms=ms, ms_by=ms_by, wrapper_ms=cuda_ms(call, reps),
+                plain_ms=plain_ms,
+                **({"ms_parts": parts} if parts and len(parts) > 1 else {}),
+                **extra)
+
+
 def chunk_kernels(tk, k, kernels=A2_KERNELS):
     """A2's (or A5's) kernels of one call at k: the bits kernel too where
     a stream has more than one chunk."""
@@ -487,10 +524,8 @@ def lengths_case(stats, tk, words, snum, enc, k, rot, got, label, timing=None,
     takes the
     plain version's time from the one call of the check (host clock,
     synchronised) where a call takes long."""
-    t0 = time.perf_counter()
-    ref = tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot)
-    sync()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    ref, plain_ms = time_plain_once(
+        lambda: tk.ils_lengths_pass_plain(words, snum, enc, k=k, rot=rot))
     stats.check("ils_lengths_pass", got[:5], ref, label)
     if not torch.equal(got[5], tk.ils_chunk_bits_plain(words, enc, k=k,
                                                        rot=rot)):
@@ -510,10 +545,8 @@ def lengths_case(stats, tk, words, snum, enc, k, rot, got, label, timing=None,
                                                     rot=rot), 5,
                   symbols=chunk_kernels(tk, k, A4_KERNELS))
     else:
-        ms, ms_by, parts = kernel_ms(call, chunk_kernels(tk, k, A4_KERNELS), 5)
-        t = dict(ms=ms, ms_by=ms_by, wrapper_ms=cuda_ms(call, 5),
-                 plain_ms=plain_ms,
-                 **({"ms_parts": parts} if parts and len(parts) > 1 else {}))
+        t = timed_kernel("ils_lengths_pass", call, plain_ms, 5,
+                         symbols=chunk_kernels(tk, k, A4_KERNELS))
     floor_bytes = (n_sym * (2 * chunks - 1) // chunks + out_bytes
                    + got[5].numel() * 4)
     t.update(bytes=n_sym + out_bytes - got[5].numel() * 4,
@@ -1410,6 +1443,255 @@ def cli_phase(host, data, expect, card, mods, dev_args=(),
     return summary
 
 
+def median_ms(fn, runs=5) -> tuple[float, list]:
+    """Median of `runs` single calls timed by CUDA events, each after a
+    warm-up call."""
+    ms = [cuda_ms(fn, 1) for _ in range(runs)]
+    return statistics.median(ms), ms
+
+
+def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
+    """Phase 15: the multi-device paths (`huffman_tpu_torch.parallel`).
+
+    (a) nccl, world 1, on this card, at phase 4's main section (its tiles
+    at its k, without the tail): the certified sharded encode and its
+    decode, equal to the codec's own section and to
+    `ils_encode_to_device`; the full-band round trip (rot=True); the
+    collective histogram; the HTC1 block round trip on the first 64 MiB as
+    16 blocks of 4 MiB (seg_bits=1024, "lut").  The launch counts are set
+    to 0 just before these calls and read just after.  Then A5 and A1 at
+    the full-band shape are held against their plain versions and timed,
+    and the sharded calls timed beside the single-device ones.  (b) gloo,
+    world 2, both ranks on this card, through `dryrun_multichip` at 2 x 32
+    MiB of ILS (8 tiles a rank at k=4096) and 2 x 4 blocks of 4 MiB, and
+    its fault checks: the rank-ordered certified section equals
+    `ils_encode_to_device`'s on the same 64 MiB, and each rank launched
+    A1, A2, A3 and A5."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from huffman_tpu_torch import parallel as par
+    from huffman_tpu_torch.core.ils_ref import ILS_LANES, ils_n_win
+    from huffman_tpu_torch.parallel import dryrun as tdr
+    from huffman_tpu_torch.ops.tables import (dec_spec, device_dec_table,
+                                              device_enc_table)
+
+    t_phase = time.perf_counter()
+    p0 = main_sec.params
+    k, n_tiles, rot = p0.k, p0.n_tiles, p0.rot
+    table = codec.table
+    ml, mn = max(table.max_len_present, 1), max(table.min_len, 1)
+    chunk = data[: n_tiles * k * ILS_LANES]
+    words = chunk.view(torch.int32).view(-1, ILS_LANES)
+    avg = codec._avg_bits(chunk)
+    gb, gblocks = 1 << 22, 16
+    blocks = data[: gb * gblocks].view(gblocks, gb)
+    log(f"phase 15a: nccl world 1, {n_tiles} tiles at k={k} rot={rot} "
+        f"({chunk.numel()} B); HTC1 {gblocks} blocks of {gb} B ({card})")
+    mesh = par.data_mesh(device="cuda")
+    if ((mesh.backend, mesh.size, mesh.rank) != ("nccl", 1, 0)
+            or dist.is_initialized()):
+        raise AssertionError(f"world-1 mesh: {mesh.backend} {mesh}")
+    fb_cap = 2 * (-(-k * ml // 64) + 2)
+    gseg = 1024
+    max_words = -(-gb * 16 // 32)
+    n_segs = -(-max_words * 32 // gseg)
+
+    sync()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    sec = par.ils_sharded_certified_encode(
+        mesh, words, codec.enc, k=k, max_len=ml, avg_bits=avg,
+        tiles_per_device=n_tiles, rot=rot)
+    p = sec.params
+    boffs = torch.from_numpy(p.boffs).to(words.device)
+    dec_fn = par.make_ils_sharded_decode(
+        mesh, k=k, w_cap=p.w_cap, w_band=p.w_band, max_len=ml, min_len=mn,
+        tiles_per_device=n_tiles, rot=rot)
+    out = dec_fn(sec.payload_dev, sec.starts_dev, p.snum, boffs, codec.dec)
+    step = par.make_ils_sharded_roundtrip(mesh, k=k, max_len=ml,
+                                          tiles_per_device=n_tiles, rot=True)
+    fb_out, fb_ok = step(words, codec.enc, codec.dec)
+    hist = par.sharded_histogram(mesh, chunk.view(n_tiles, -1))
+    gtable = tdr.fit_table(par.sharded_histogram(mesh, blocks).cpu().numpy()
+                           .astype(np.int64))
+    spec = dec_spec(gtable)
+    genc, gdec = device_enc_table(gtable, "cuda"), device_dec_table(gtable, "cuda")
+    gstep = par.make_sharded_roundtrip(
+        mesh, spec=spec, seg_bits=gseg, max_words=max_words, n_segs=n_segs,
+        max_count=gseg // spec.min_len + 1, block_bytes=gb, method="lut")
+    gout, gok = gstep(blocks, genc, gdec)
+    sync()
+    drive_s = time.perf_counter() - t0
+    launches_a = tk.launch_counts()
+    log(f"  driven in {drive_s:.2f} s; launches {launches_a}")
+    missing = [n for n in ("ils_pack_certify", "ils_compact", "ils_decode",
+                           "ils_pack") if not launches_a[n]]
+    if missing:
+        raise AssertionError(f"phase 15a: kernels not launched: {missing}")
+
+    checks = {
+        "certified_decode_bit_exact": torch.equal(out, words),
+        "full_band_ok": int(fb_ok) == 1,
+        "full_band_bit_exact": torch.equal(fb_out, words),
+        "histogram_equals_bincount": torch.equal(
+            hist, torch.bincount(chunk, minlength=256).to(torch.int32)),
+        "gap_ok": int(gok) == 1,
+        "gap_bit_exact": torch.equal(gout, blocks),
+    }
+    rows1, _, p1 = tils.ils_encode_to_device(words, codec.enc, k=k,
+                                             avg_bits=avg, max_len=ml, rot=rot)
+    total = p1.total_rows
+
+    def same_section(q, rows):
+        return all(np.array_equal(getattr(p, f.name), getattr(q, f.name))
+                   for f in dataclasses.fields(p)) and torch.equal(
+            sec.payload_dev[:total], rows[:total])
+
+    checks["section_equals_ils_encode_to_device"] = same_section(p1, rows1)
+    checks["section_equals_codec_section"] = same_section(
+        p0, main_sec.payload)
+    checks["rows_past_payload_zero"] = not bool(
+        sec.payload_dev[total:].any())
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 15a failed: {checks}")
+    log(f"  section w_cap={p.w_cap} w_band={p.w_band} rows={total} "
+        f"payload {tuple(sec.payload_dev.shape)}; full band w_cap={fb_cap} "
+        f"W={fb_cap // 2} pairs")
+
+    # A5 and A1 at the full-band shape against their plain versions
+    fb_starts = torch.arange(n_tiles, dtype=torch.int32,
+                             device=words.device) * fb_cap
+    fb_boffs = torch.zeros((n_tiles, ils_n_win(k)), dtype=torch.int32,
+                           device=words.device)
+    kw5 = dict(k=k, w_cap=fb_cap, w_band=fb_cap // 2,
+               total_rows=n_tiles * fb_cap, rot=True)
+    # the plain versions take seconds here: each is called once, for its
+    # check and its time
+    call5 = lambda: tk.ils_pack(words, 0, fb_boffs, fb_starts, codec.enc, **kw5)
+    fb_rows = call5()
+    label = f"full band {n_tiles}x k={k} w_cap={fb_cap}"
+    ref, plain5 = time_plain_once(lambda: tk.ils_pack_plain(
+        words, 0, fb_boffs, fb_starts, codec.enc, **kw5))
+    stats.check("ils_pack", fb_rows, ref, label)
+    kw1 = dict(k=k, w_cap=fb_cap, n_tiles=n_tiles, max_len=ml, rot=True)
+    call1 = lambda: tk.ils_decode(fb_rows, fb_starts, codec.dec, **kw1)
+    ref, plain1 = time_plain_once(lambda: tk.ils_decode_plain(
+        fb_rows, fb_starts, codec.dec, **kw1))
+    stats.check("ils_decode", call1(), ref, label)
+    del ref
+    n_sym = words.numel() * 4
+    full_band = {
+        # the pairs A5 writes are the streams' own, as many as the
+        # certified section's rows hold; the bits kernel runs (no cbits)
+        "ils_pack": timed_kernel(
+            "ils_pack", call5, plain5, 5,
+            symbols=chunk_kernels(tk, k, A5_KERNELS),
+            bytes=n_sym + total * 4096, ops=11 * n_sym,
+            shape=list(fb_rows.shape)),
+        "ils_decode": timed_kernel(
+            "ils_decode", call1, plain1, 5, bytes=total * 4096 + n_sym,
+            ops=(2 * (ml - 1) + 10) * n_sym + 12 * (n_sym // 4),
+            shape=[n_tiles * k // 4, ILS_LANES]),
+    }
+    single_sec = tils.IlsSection(params=p1, payload=rows1[:total])
+    times_a = {}
+    for name, fn in (
+        ("certified_encode", lambda: par.ils_sharded_certified_encode(
+            mesh, words, codec.enc, k=k, max_len=ml, avg_bits=avg,
+            tiles_per_device=n_tiles, rot=rot)),
+        ("single_encode", lambda: tils.ils_encode_to_device(
+            words, codec.enc, k=k, avg_bits=avg, max_len=ml, rot=rot)),
+        ("sharded_decode", lambda: dec_fn(sec.payload_dev, sec.starts_dev,
+                                          p.snum, boffs, codec.dec)),
+        ("single_decode", lambda: tils.ils_decode_device(
+            single_sec, table, codec.dec, device=words.device)),
+        ("full_band_roundtrip", lambda: step(words, codec.enc, codec.dec)),
+    ):
+        med, ms = median_ms(fn)
+        times_a[name] = {"ms_median": med, "ms": ms,
+                         "gbps": chunk.numel() / med / 1e6}
+        log(f"  {name:20s} median {med:.3f} ms = "
+            f"{chunk.numel() / med / 1e6:.3f} GB/s {[round(x, 3) for x in ms]}")
+    log(f"  phase 4 (codec, {e2e_ms[2]} B with the tail): encode "
+        f"{e2e_ms[0]:.3f} ms, decode {e2e_ms[1]:.3f} ms ({card})")
+    del fb_rows, rows1, single_sec, sec, out, fb_out, gout
+    mesh.close()
+
+    # (b) two ranks over gloo, both on this card
+    sizes = dict(ils_k=4096, ils_tpd=8, cert_k=4096, cert_tpd=8,
+                 gap_blocks=4, gap_block_bytes=gb, gap_seg_bits=gseg)
+    log(f"phase 15b: gloo world 2 on this card, dryrun_multichip {sizes}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tdr.dryrun_multichip(2, backend="gloo", device="cuda", out_dir=tmp,
+                             timeout=300, **sizes)
+        dryrun_s = time.perf_counter() - t0
+        rk = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+              for r in range(2)]
+    s = {**tdr.DEFAULT_SIZES, **sizes}
+    cdata = tdr.certified_input(2, s["cert_k"], s["cert_tpd"], s["cert_seed"])
+    chist = np.bincount(cdata, minlength=256)
+    ctable = tdr.fit_table(chist)
+    cwords = torch.from_numpy(cdata.view(np.int32).reshape(-1, ILS_LANES)
+                              .copy()).cuda()
+    rows2, _, p2 = tils.ils_encode_to_device(
+        cwords, tk.ils_enc_tabs(ctable, "cuda"), k=s["cert_k"],
+        avg_bits=float(rk[0]["cert_rot0_avg_bits"]),
+        max_len=ctable.max_len_present, rot=False)
+    per_rank = p2.w_tiles.reshape(2, -1).sum(axis=1)
+    launches_b = [{n: int(r[f"launches_{n}"]) for n in tk.launch_counts()}
+                  for r in rk]
+    checks_b = {
+        "params_equal": all(
+            int(r["cert_rot0_w_cap"]) == p2.w_cap
+            and int(r["cert_rot0_w_band"]) == p2.w_band
+            and np.array_equal(r["cert_rot0_boffs"], p2.boffs)
+            and np.array_equal(r["cert_rot0_w_tiles"], p2.w_tiles)
+            for r in rk),
+        "payload_equal": np.array_equal(
+            np.concatenate([r["cert_rot0_payload"][:m]
+                            for r, m in zip(rk, per_rank)]),
+            rows2[: p2.total_rows].cpu().numpy()),
+        "decodes_bit_exact": all(
+            np.array_equal(r["cert_rot0_decoded"].view(np.uint8).reshape(-1),
+                           cdata[i * cdata.size // 2:(i + 1) * cdata.size // 2])
+            for i, r in enumerate(rk)),
+        "ils_ok": all(int(r["ils_ok"]) == 1 for r in rk),
+        "gap_ok": all(int(r["gap_lut_ok"]) == 1 for r in rk),
+        "wrong_table_ok_zero": all(int(r["wrong_table_ok"]) == 0 for r in rk),
+        "refusals_on_every_rank": all(
+            len({str(r[key]) for r in rk}) == 1
+            for key in ("refused_stride", "refused_band")),
+        "kernels_launched": all(
+            lb[n] > 0 for lb in launches_b for n in tdr.ILS_WRAPPERS),
+    }
+    log(f"  dry run {dryrun_s:.1f} s (2 spawned ranks); launches "
+        f"{launches_b}")
+    for name, ok in checks_b.items():
+        log(f"  {name}: {ok}")
+    if not all(checks_b.values()):
+        raise AssertionError(f"phase 15b failed: {checks_b}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 15 took {phase_s:.1f} s ({card})")
+    return {
+        "card": card,
+        "a": {"backend": "nccl", "world": 1, "k": k, "tiles": n_tiles,
+              "rot": rot, "bytes": chunk.numel(), "w_cap": p.w_cap,
+              "w_band": p.w_band, "full_band_w_cap": fb_cap,
+              "gap_blocks": gblocks, "gap_block_bytes": gb,
+              "launches": launches_a, "checks": checks, "drive_s": drive_s,
+              "times": times_a},
+        "b": {"backend": "gloo", "world": 2, "sizes": sizes,
+              "launches": launches_b, "checks": checks_b,
+              "dryrun_s": dryrun_s, "w_cap": p2.w_cap, "w_band": p2.w_band},
+        "phase_s": phase_s,
+    }, full_band, launches_a, launches_b
+
+
 def portable_block(stats, ns, bcodec, blocks, yblob, ydata):
     """Phase 12: the portability path at phase 7's block (and phase 9's
     Yamamoto container).  Returns (summary, B5's launches in the one
@@ -2118,7 +2400,11 @@ def main(argv=None) -> int:
                      "e2e_ms": (enc_med, dec_med, n)},
         card, (tk, gd, ge, sk), ref_bytes=fs)
 
-    # ---- 15. results
+    # ---- 15. the multi-device paths
+    par_summary, full_band, par_a, par_b = parallel_phase(
+        stats, tk, tils, codec, data, main_sec, card, (enc_med, dec_med, n))
+
+    # ---- 16. results
     def times(t):
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
         o_ms = t.get("ops", 0) / ALU_OPS_PER_S * 1e3
@@ -2147,10 +2433,13 @@ def main(argv=None) -> int:
     extra = {name: [("full_section", t), ("ratio_section", ratio_timing[name])]
              for name, t in section_timing.items()}
     extra["ils_lengths_pass"].append(("file_first_attempt", first_timing))
+    extra["ils_pack"].append(("full_band", full_band["ils_pack"]))
+    extra.setdefault("ils_decode", []).append(("full_band",
+                                               full_band["ils_decode"]))
     for name, t in tail_timing.items():
         extra.setdefault(name, []).append(("tail", t))
     if n % tile_bytes:
-        extra["ils_decode"] = [("tail", a1_tail)]
+        extra.setdefault("ils_decode", []).insert(0, ("tail", a1_tail))
     log(f"per kernel at the main path's shapes ({card}):")
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -2160,7 +2449,10 @@ def main(argv=None) -> int:
                "max_abs_err": stats.rows[name]["max_abs_err"],
                "checks": stats.rows[name]["checks"],
                **times(main_timing.get(name, {})),
-               **({"ptxas": ptxas[name]} if name in ptxas else {})}
+               **({"ptxas": ptxas[name]} if name in ptxas else {}),
+               **({"parallel_launches": {"nccl_world1": par_a[name],
+                                         "gloo_world2": [b[name] for b in par_b]}}
+                  if name in par_a else {})}
         show(name, "", row, launches[name])
         for key, t in extra.get(name, ()):
             row[key] = times(t)
@@ -2213,6 +2505,7 @@ def main(argv=None) -> int:
         "portable": portable,
         "file": file_summary,
         "cli": cli_summary,
+        "parallel": par_summary,
     }))
     log(f"chip_smoke took {time.perf_counter() - t_main:.1f} s")
     log(card)

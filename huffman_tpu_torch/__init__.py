@@ -14,8 +14,10 @@ Host helpers: ``native`` (a C++ histogram, package-merge, canonical
 assignment, bit packer and prefix-code walk, built by g++ at first use),
 ``io.refbin`` (the reference's `sequential.cpp` behind a file driver) and
 the command line, ``python -m huffman_tpu_torch.cli`` (script
-``huffman-tpu-torch``).  ``models``, ``ops``, ``io``, ``utils`` and
-``native`` are also reachable as attributes, loaded at first use.
+``huffman-tpu-torch``).  ``parallel`` runs the ILS and HTC1 codecs on
+several devices, one `torch.distributed` rank each.  ``models``, ``ops``,
+``io``, ``utils``, ``native`` and ``parallel`` are also reachable as
+attributes, loaded at first use.
 """
 
 __version__ = "0.1.0"
@@ -91,9 +93,10 @@ __all__ = [
     "io",
     "utils",
     "native",
+    "parallel",
 ]
 
-_LAZY = ("models", "ops", "io", "utils", "native")
+_LAZY = ("models", "ops", "io", "utils", "native", "parallel")
 
 
 def __getattr__(name):

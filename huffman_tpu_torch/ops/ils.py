@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core.canonical import CodeTable
-from ..core.ils_ref import ILS_LANES, IlsParams, ils_schedule_numer
+from ..core.ils_ref import ILS_LANES, IlsParams, ils_n_win, ils_schedule_numer
 from .ils_kernels import (
     CHUNK_I,
     FUSED_E_BAND,
@@ -50,6 +50,10 @@ __all__ = [
     "resolve_device",
     "stride_rows_for",
     "envelope_params",
+    "tile_meta",
+    "meta_params",
+    "fused_pass_for",
+    "fused_certify",
     "emission_band",
     "row_starts_of",
 ]
@@ -222,21 +226,96 @@ def stride_rows_for(k: int, max_len: int) -> int:
     return max(2 * (-(-k * max_len // 64)), 4)
 
 
+def tile_meta(bits, dn, dx, viol=None) -> torch.Tensor:
+    """A pass's outputs reduced on the device to one int32 row: [violated,
+    w_tiles (n_tiles), dec_min (n_tiles * n_win), dec_max (n_tiles *
+    n_win)], the only metadata that certification reads."""
+    # even word counts (pair granularity), >= 4 for the 128-bit register
+    # init; envelopes reduce over lanes
+    w_tiles = torch.clamp(2 * (-(-bits.amax(dim=1) // 64)), min=4)
+    violated = (torch.zeros(1, dtype=torch.int32, device=bits.device)
+                if viol is None else viol.amax().reshape(1))
+    return torch.cat([violated.to(torch.int32), w_tiles.to(torch.int32),
+                      dn.amin(dim=-1).reshape(-1).to(torch.int32),
+                      dx.amax(dim=-1).reshape(-1).to(torch.int32)])
+
+
+def meta_params(meta: np.ndarray, *, k: int, snum: int, rot: bool,
+                extra_band_pairs: int = 0) -> IlsParams:
+    """Certified params from the `tile_meta` rows of D devices, (D, L) in
+    device order, each device's tiles after the one before's."""
+    n_win = ils_n_win(k)
+    n_dev = meta.shape[0]
+    tpd = (meta.shape[1] - 1) // (1 + 2 * n_win)
+    env = meta[:, 1 + tpd:].reshape(n_dev, 2, tpd * n_win)
+    return certify_params(
+        k=k, snum=snum, n_tiles=n_dev * tpd,
+        w_tiles=meta[:, 1: 1 + tpd].reshape(-1).astype(np.int64),
+        dec_min=env[:, 0].reshape(-1, n_win),
+        dec_max=env[:, 1].reshape(-1, n_win),
+        extra_band_pairs=extra_band_pairs, rot=rot,
+    )
+
+
 def envelope_params(bits, dn, dx, *, k: int, snum: int, rot: bool,
                     extra_band_pairs: int = 0) -> IlsParams:
     """Certified params from a pass's per-stream bits and decode envelopes
     (`ils_pack_certify` or `ils_lengths_pass` outputs)."""
-    # even word counts (pair granularity), >= 4 for the 128-bit register
-    # init; envelopes reduce over lanes on the device
-    w_tiles = (
-        torch.clamp(2 * (-(-bits.amax(dim=1) // 64)), min=4)
-        .cpu().numpy().astype(np.int64)
-    )
-    return certify_params(
-        k=k, snum=snum, n_tiles=bits.shape[0], w_tiles=w_tiles,
-        dec_min=_lane_min(dn), dec_max=_lane_max(dx),
-        extra_band_pairs=extra_band_pairs, rot=rot,
-    )
+    return meta_params(tile_meta(bits, dn, dx)[None].cpu().numpy(), k=k,
+                       snum=snum, rot=rot, extra_band_pairs=extra_band_pairs)
+
+
+def fused_pass_for(k: int, stride_rows: int, e_band: int,
+                   stride_budget: int = FUSED_STRIDE_BUDGET):
+    """The fused certify+pack tier's pass for this stride, or None where
+    the section takes the two-pass tier.
+
+    As the JAX package: stride_rows < 8 can never pass the compact gate of
+    `fused_certify` (the certified cap is at least 16), so tiny tail
+    sections go straight to two-pass.  A stride over the budget takes the
+    streaming pack when PREFER_STREAM_PACK is on and its span is within
+    the same budget, else two-pass."""
+    if stride_rows < 8:
+        return None
+    if stride_rows <= stride_budget:
+        return ils_pack_certify
+    if PREFER_STREAM_PACK:
+        span = ils_stream_span_rows(k, stride_rows, e_band,
+                                    chunk_cap=_STREAM_CHUNK_CAP)
+        if span is not None and span <= stride_budget:
+            return functools.partial(ils_pack_certify_stream,
+                                     chunk_cap=_STREAM_CHUNK_CAP)
+    return None
+
+
+def fused_certify(fused, data_i32, snum: int, enc, *, k: int,
+                  stride_rows: int, e_band: int, rot: bool, gather=None):
+    """The fused tier's certification: ``fused`` (`fused_pass_for`) at
+    the "mu", then at the "laggard" window anchor, its outputs reduced to
+    one `tile_meta` row and certified.  ``gather`` maps this device's row
+    to the (D, L) rows of all devices in order (the sharded encode's
+    collective; by default this device alone), so every device decides on
+    the same values.  Returns (strided payload, params), or None where the
+    section needs the two-pass tier: the pass violated its emission band
+    at both anchors, or the envelope-widened cap exceeds the strided
+    slack."""
+    for anchor in ("mu", "laggard"):
+        pay_s, bits, dn, dx, viol = fused(
+            data_i32, snum, enc, k=k, stride_rows=stride_rows,
+            e_band=e_band, rot=rot, anchor=anchor,
+        )
+        row = tile_meta(bits, dn, dx, viol)
+        meta = (row[None] if gather is None else gather(row)).cpu().numpy()
+        if meta[:, 0].any():
+            continue
+        params = meta_params(meta, k=k, snum=snum, rot=rot)
+        # the compaction may read up to w_cap rows of the last tile's
+        # region; an envelope-widened cap beyond 2*stride_rows takes the
+        # two-pass tier (anchor-independent, so no retry)
+        if params.w_cap > 2 * stride_rows:
+            return None
+        return pay_s, params
+    return None
 
 
 def emission_band(en, ex) -> tuple[int, np.ndarray]:
@@ -301,42 +380,18 @@ def ils_encode_to_device(
     if max_len is None:
         max_len = int((enc >> 20).max())
     stride_rows = stride_rows_for(k, max_len)
-    # Tier gates, as the JAX package: stride_rows < 8 can never pass the
-    # compact gate below (the certified cap is at least 16), so tiny tail
-    # sections go straight to two-pass.  A stride over the budget takes the
-    # streaming pack when PREFER_STREAM_PACK is on and its span is within
-    # the same budget, else two-pass.
-    fused = None
-    if stride_rows < 8:
-        pass
-    elif stride_rows <= stride_budget:
-        fused = ils_pack_certify
-    elif PREFER_STREAM_PACK:
-        span = ils_stream_span_rows(k, stride_rows, e_band,
-                                    chunk_cap=_STREAM_CHUNK_CAP)
-        if span is not None and span <= stride_budget:
-            fused = functools.partial(ils_pack_certify_stream,
-                                      chunk_cap=_STREAM_CHUNK_CAP)
-    if fused is not None:
-        for anchor in ("mu", "laggard"):
-            pay_s, bits, dn, dx, viol = fused(
-                data_i32, snum, enc, k=k, stride_rows=stride_rows,
-                e_band=e_band, rot=rot, anchor=anchor,
-            )
-            if int(viol.max()):
-                continue
-            params = envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot)
-            # the compaction may read up to w_cap rows of the last tile's
-            # region; an envelope-widened cap beyond 2*stride_rows takes the
-            # two-pass tier (anchor-independent, so no retry)
-            if params.w_cap > 2 * stride_rows:
-                break
-            row_starts = row_starts_of(params, dev)
-            payload_rows = ils_compact(
-                pay_s, row_starts, stride_rows=stride_rows,
-                w_cap=params.w_cap, total_rows=params.total_rows,
-            )
-            return payload_rows, row_starts, params
+    fused = fused_pass_for(k, stride_rows, e_band, stride_budget)
+    res = None if fused is None else fused_certify(
+        fused, data_i32, snum, enc, k=k, stride_rows=stride_rows,
+        e_band=e_band, rot=rot)
+    if res is not None:
+        pay_s, params = res
+        row_starts = row_starts_of(params, dev)
+        payload_rows = ils_compact(
+            pay_s, row_starts, stride_rows=stride_rows,
+            w_cap=params.w_cap, total_rows=params.total_rows,
+        )
+        return payload_rows, row_starts, params
 
     # A5 takes A4's chunk bits rather than counting them again
     bits, dn, dx, en, ex, cbits = ils_lengths_pass(

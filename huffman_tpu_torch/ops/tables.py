@@ -7,8 +7,9 @@ uint32 arithmetic).  The canonical-limit form feeds the CUDA kernels
 (`ops/gap_decode_kernels.py::kernel_tabs`) and the "canonical" step
 decoder; the flat LUT and the two-level L1/L2 tables feed the "lut" and
 "twolevel" step decoders of `ops/decode.py`.  The encoder reads one (256,)
-table of ``(len << 20) | code`` (`ops/ils_kernels.py::ils_enc_tabs`) in
-place of the JAX package's `DeviceEncTable` pair.
+int32 table of ``(len << 20) | code`` (`device_enc_table`, the table of
+`ops/ils_kernels.py::ils_enc_tabs`) in place of the JAX package's
+``(codes, lengths)`` pair; `DeviceEncTable` names that form.
 """
 
 from __future__ import annotations
@@ -25,15 +26,27 @@ from ..core.canonical import (
     build_two_level_table,
     chain_spec,
 )
+from .ils_kernels import ils_enc_tabs
 
 __all__ = [
+    "DeviceEncTable",
     "DeviceDecTable",
     "DecSpec",
+    "device_enc_table",
     "device_dec_table",
     "dec_spec",
 ]
 
 _PAD1 = torch.zeros(1, dtype=torch.int32)
+
+# The encoder's device table: a (256,) int32 tensor of (len << 20) | code
+DeviceEncTable = torch.Tensor
+
+
+def device_enc_table(table: CodeTable, device="cpu") -> DeviceEncTable:
+    """The (256,) int32 ``(len << 20) | code`` table on ``device`` that
+    `ops/encode.py::encode_block` and the ILS and HTC1 kernels read."""
+    return ils_enc_tabs(table, device)
 
 
 class DeviceDecTable(NamedTuple):

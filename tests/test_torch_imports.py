@@ -65,6 +65,21 @@ def test_imports_with_jax_and_huffman_tpu_blocked(tmp_path):
         "assert huffman_tpu_torch.native.available() in (True, False)\n"
         "huffman_tpu_torch.cli.main(['roundtrip', '--device', 'cpu', "
         "'--format', 'seq', sys.argv[1]])\n"
+        "import huffman_tpu_torch.parallel, huffman_tpu_torch.utils.distributed\n"
+        "import huffman_tpu_torch.parallel.dryrun\n"
+        "from huffman_tpu_torch.ops import *\n"
+        "from huffman_tpu_torch.parallel import data_mesh, "
+        "make_ils_sharded_roundtrip\n"
+        "from huffman_tpu_torch.ops.ils_kernels import ils_dec_tabs, "
+        "ils_enc_tabs\n"
+        "import torch\n"
+        "mesh = data_mesh(device='cpu')\n"
+        "assert mesh.backend == 'gloo' and not torch.distributed.is_initialized()\n"
+        "step = make_ils_sharded_roundtrip(mesh, k=8, max_len=c.table.max_len_present, "
+        "tiles_per_device=1, rot=True)\n"
+        "x = torch.from_numpy(d[:8 * 1024].view(np.int32).reshape(-1, 1024).copy())\n"
+        "out, ok = step(x, ils_enc_tabs(c.table), ils_dec_tabs(c.table))\n"
+        "assert int(ok) == 1 and torch.equal(out, x)\n"
         "for name in huffman_tpu_torch.__all__:\n"
         "    getattr(huffman_tpu_torch, name)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
@@ -99,28 +114,82 @@ def test_sources_import_no_jax(path):
 
 
 def test_exported_names_match_the_jax_package():
-    # the JAX package's exports (but `parallel`, not ported yet) resolve
-    # in the port, eagerly or at first use
+    # the JAX package's exports resolve in the port, eagerly or at first
+    # use; `parallel` lacks only JAX's PartitionSpec `P`
     import huffman_tpu
     import huffman_tpu.core
+    import huffman_tpu.ops
+    import huffman_tpu.parallel
+    import huffman_tpu.utils.distributed
     import huffman_tpu_torch.core
+    import huffman_tpu_torch.utils.distributed
 
-    assert set(huffman_tpu.core.__all__) <= set(huffman_tpu_torch.core.__all__)
-    for name in huffman_tpu.core.__all__:
-        assert getattr(huffman_tpu_torch.core, name) is not None, name
-    want = set(huffman_tpu.__all__) - {"parallel"}
+    for jmod, tmod, less in (
+        (huffman_tpu.core, huffman_tpu_torch.core, set()),
+        (huffman_tpu.ops, huffman_tpu_torch.ops, set()),
+        (huffman_tpu.parallel, huffman_tpu_torch.parallel, {"P"}),
+        (huffman_tpu.utils.distributed, huffman_tpu_torch.utils.distributed,
+         set()),
+    ):
+        assert set(jmod.__all__) - less <= set(tmod.__all__), tmod.__name__
+        for name in set(jmod.__all__) - less:
+            assert getattr(tmod, name) is not None, name
+    assert "P" not in huffman_tpu_torch.parallel.__all__
+    want = set(huffman_tpu.__all__)
     assert want <= set(huffman_tpu_torch.__all__)
     for name in want:
         obj = getattr(huffman_tpu_torch, name)
-        if name in ("models", "ops", "io", "utils", "native", "constants"):
+        if name in ("models", "ops", "io", "utils", "native", "constants",
+                    "parallel"):
             assert obj.__name__ == f"huffman_tpu_torch.{name}", name
     assert huffman_tpu_torch.native.histogram is not None
     assert huffman_tpu_torch.build_two_level_table(
         huffman_tpu_torch.canonical_code_table(
             huffman_tpu_torch.huffman_lengths_unbounded(
                 np.arange(256, dtype=np.int64) + 1), 16), 10) is not None
-    with pytest.raises(AttributeError, match="no attribute 'parallel'"):
-        huffman_tpu_torch.parallel
+    with pytest.raises(AttributeError, match="no attribute 'mesh'"):
+        huffman_tpu_torch.mesh
+
+
+def test_ops_histogram_equals_npref():
+    from huffman_tpu_torch.core import npref
+    from huffman_tpu_torch.ops import histogram
+
+    data = np.random.default_rng(3).integers(0, 256, 70_000, dtype=np.uint8)
+    data[:1000] = 7
+    got = histogram(torch.from_numpy(data))
+    assert got.dtype == torch.int32 and got.shape == (256,)
+    assert np.array_equal(got.numpy(), npref.histogram(data))
+    with pytest.raises(TypeError, match="uint8"):
+        histogram(torch.zeros(4, dtype=torch.int32))
+
+
+def test_cuda_mesh_raises_without_a_card():
+    from huffman_tpu_torch.parallel import data_mesh, gather_shards
+
+    if torch.cuda.is_available():
+        # the mesh's own world-1 group: the default group stays unset, and
+        # nothing is left behind for the next test
+        mesh = data_mesh()
+        try:
+            assert (mesh.device.type, mesh.backend, mesh.size) == ("cuda", "nccl", 1)
+            x = torch.arange(6, dtype=torch.int32, device=mesh.device)
+            assert torch.equal(gather_shards(mesh, x), x)
+            assert not torch.distributed.is_initialized()
+        finally:
+            mesh.close()
+        # a CPU mesh after it runs over a gloo group of its own
+        cpu = data_mesh(device="cpu")
+        try:
+            assert cpu.backend == "gloo"
+            assert torch.equal(gather_shards(cpu, x.cpu()), x.cpu())
+        finally:
+            cpu.close()
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data_mesh(1, device="cuda")
 
 
 def test_default_device_is_cuda_and_never_quietly_cpu():
