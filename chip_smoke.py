@@ -59,15 +59,24 @@ failure raises and exits non-zero with the traceback):
    path's on those and on a ragged tail.
 6. HTC1 end to end on the input of phase 4: GapArrayCodec fit, encode
    (16 MiB blocks through the kernels as one device group, the tail
-   through encode_block), write_container, read_container, decode,
-   bit-exact, with the gap kernels' launch counters of that one run.  Then
-   every gap kernel is held against its plain version on the groups that
-   run gave it (the full blocks, the tail), at its shapes, and timed.
+   through them as a group of its own, with its byte count),
+   write_container, read_container, decode, bit-exact, with the gap
+   kernels' launch counters of that one run (B4b-B4d once a group, the
+   tail's included).  Then every gap kernel is held against its plain
+   version on the groups that run gave it (the full blocks, the tail), at
+   its shapes, and timed.
 7. The JAX package's HTC1 bench shape: one --gap-block byte block (default
    64 MiB, the first 64 MiB of phase 4's input) at seg_bits=1024 through
    one encode_device and decode_device with the launch counters of that
    call, medians by CUDA events, one profiled call each, and every gap
    kernel held against its plain version and timed at its shapes there.
+7b. Blocks that are no multiple of 128 bytes: the first 64 MiB as 67
+   blocks of 1,000,000 B through one encode_device (B4b-B4d once each,
+   with the byte counts), equal to the loop of encode_block over them (the
+   route before), decoded back; the kernels held against their plain
+   versions and timed there; that encode_device and that loop, and phase
+   6's tail through encode_device and encode_block, timed (medians of 5
+   by CUDA events), under "ragged" in the summary line.
 8. Foreign streams, small inputs: C1 (count_segments) and C2
    (sync_transitions) against their plain versions on the card, bit for
    bit, on generate_redundant(r=0.1, 0.5, 0.9), a one-symbol stream, the
@@ -152,7 +161,8 @@ failure raises and exits non-zero with the traceback):
    bit-exact), the full-band round trip (rot=True), the collective
    histogram (equal to torch.bincount) and the HTC1 block round trip on
    the first 64 MiB as 16 blocks of 4 MiB (seg_bits=1024, "lut"), with
-   the launch counts of those calls (A1, A2, A3, A5 must launch); A5 and
+   the launch counts of those calls (A1, A2, A3, A5 and the sharded
+   encode's B4b-B4d must launch); A5 and
    A1 at the full-band shape held against their plain versions and
    timed; the sharded encode, decode and round trip timed beside the
    single-device calls (medians of 5 by CUDA events).  (b) gloo, two
@@ -160,7 +170,7 @@ failure raises and exits non-zero with the traceback):
    ILS (8 tiles a rank at k=4096) and 2 x 4 blocks of 4 MiB, with its
    fault checks: the rank-ordered certified section equals
    ils_encode_to_device's on the same 64 MiB, every decode bit-exact,
-   each rank's launches of A1, A2, A3 and A5.
+   each rank's launches of A1, A2, A3, A5 and B4b-B4d.
 16. One JSON line per kernel list (name, route, source, replaces, launches,
    max_abs_err, ms, ms_by, wrapper_ms, plain_ms, bound_ms, bound_by,
    library_ms):
@@ -172,7 +182,8 @@ failure raises and exits non-zero with the traceback):
    "file_first_attempt" at phase 4b's one tile (the two-kernel form's
    own floor, where the bits kernel reads all chunks but the last a
    second time, is logged beside each A4 check, not listed), A1, B1
-   and B2 also under "tail" at the tail's; C1's launches are phase 9's,
+   and B2 also under "tail" at the tail's, B4b-B4d also under "tail" and
+   "ragged_blocks" (phase 7b's shape); C1's launches are phase 9's,
    C2's phase 10's, B5's phase 12's.  The TPU kernels whose function a
    kernel here computes are under its "also_replaces" (B3, B4a, D1, D3).
    The bench shape's rows, with phase 7's launches, go in the summary line
@@ -181,8 +192,8 @@ failure raises and exits non-zero with the traceback):
    paths' shapes under
    "yamamoto"."kernels" and "selfsync"."kernels", phase 13's under "file",
    phase 14's under "cli", phase 15's under "parallel".  A5 and A1 also
-   carry "full_band" (phase 15a's shape) and, with A2 and A3, their
-   phase-15 launches ("parallel_launches").  The rows of A1, A2,
+   carry "full_band" (phase 15a's shape) and, with A2, A3 and B4b-B4d,
+   their phase-15 launches ("parallel_launches").  The rows of A1, A2,
    A4, A5, B1, B2, B4b-B4d, C1 and C2 also carry their "ptxas" report.  Then the card
    line, then the device line last.
 
@@ -242,6 +253,7 @@ KERNELS = {
 }
 HTC1 = ("gap_decode_ranks", "gap_place_bytes", "gap_row_pack", "gap_row_meta",
         "gap_place_bits")
+GAP_ENCODE = ("gap_row_pack", "gap_row_meta", "gap_place_bits")
 # TPU kernels whose work a kernel here does: relayouts folded into its
 # addressing (B3, B4a), and VMEM-bound variants of its function (D1, the
 # streaming fused pack; D3, the chunk-shared placement)
@@ -671,16 +683,24 @@ def container_parity(tils, IlsCompressed, write, read, data, table, enc,
 
 def gap_encode_cases(stats, ge, codec, blocks, label, timing=None):
     """The HTC1 encode kernels and their plain versions on one (G, B)
-    group of blocks on the card (B a multiple of 128), at the shapes
-    `encode_device` gives them; returns its `DeviceCompressed`.
+    group of blocks on the card, at the shapes `encode_device` gives them
+    (B no multiple of 128: the blocks zero-padded to whole rows, B4b and
+    B4c with the byte counts); returns its `DeviceCompressed`.
 
     With `timing` (a dict), also times each kernel and plain version and
     records the bytes and operations of this input for the bound."""
     g, b = blocks.shape
     n = g * b
-    rows = blocks.view(torch.int32).view(-1, 32)
+    rows_b = -(-b // 128)
+    nb = None
+    if b % 128:
+        nb = torch.full((g,), b, dtype=torch.int32, device=blocks.device)
+        rows = torch.nn.functional.pad(blocks, (0, rows_b * 128 - b))
+    else:
+        rows = blocks
+    rows = rows.view(torch.int32).view(-1, 32)
     max_len = max(codec.table.max_len_present, 1)
-    pk = dict(cap_words=ge.row_cap_words(max_len))
+    pk = dict(cap_words=ge.row_cap_words(max_len), n_bytes=nb)
     got = ge.gap_row_pack(rows, codec.enc, **pk)
     stats.check("gap_row_pack", got,
                 ge.gap_row_pack_plain(rows, codec.enc, **pk), label)
@@ -688,15 +708,15 @@ def gap_encode_cases(stats, ge, codec, blocks, label, timing=None):
     bits_blk = bits.view(g, -1).to(torch.int64)
     s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
     dcomp = codec.encode_device(blocks)
-    mk = dict(rows_per_block=b // 128, n_segs=dcomp.counts.shape[1],
-              seg_bits=codec.seg_bits)
+    mk = dict(rows_per_block=rows_b, n_segs=dcomp.counts.shape[1],
+              seg_bits=codec.seg_bits, n_bytes=nb)
     got = ge.gap_row_meta(rows, codec.enc, s_local, max_len=max_len, **mk)
     stats.check("gap_row_meta", got,
                 ge.gap_row_meta_plain(rows, codec.enc, s_local, **mk), label)
     if not torch.equal(got[0], dcomp.counts):
         raise AssertionError(f"gap_row_meta counts of {label} differ from "
                              f"encode_device's")
-    bk = dict(rows_per_block=b // 128, out_words=dcomp.words.shape[1])
+    bk = dict(rows_per_block=rows_b, out_words=dcomp.words.shape[1])
     got = ge.gap_place_bits(pay, bits, s_local, **bk)
     stats.check("gap_place_bits", got,
                 ge.gap_place_bits_plain(pay, bits, s_local, **bk), label)
@@ -873,7 +893,7 @@ def portable_cases(stats, ns, data, table, label, dev, decodable=True):
     enc = tk.ils_enc_tabs(table, dev)
     stats.check("encode_map", em.encode_map(d, enc), em.encode_map_plain(d, enc),
                 label)
-    dec, spec = tt.device_dec_table(table, dev), tt.dec_spec(table)
+    dec, spec = tt.device_dec_table(table, device=dev), tt.dec_spec(table)
     total = int(table.lengths.astype(np.int64)[data].sum())
     for seg_bits in (128, 1024):
         kw = dict(seg_bits=seg_bits, max_words=-(-total // 32),
@@ -1450,6 +1470,86 @@ def median_ms(fn, runs=5) -> tuple[float, list]:
     return statistics.median(ms), ms
 
 
+def ragged_phase(stats, ge, tenc, GapArrayCodec, host, data, tail_codec,
+                 card, block=1_000_000):
+    """Phase 7b: HTC1 blocks that are no multiple of 128 bytes, on B4b-B4d
+    with their byte counts (before, they took the loop of encode_block).
+
+    (a) The first 64 MiB as whole blocks of `block` bytes (67 of 1,000,000)
+    through one encode_device, with the launch counts of that call, equal
+    to the loop of encode_block over the same blocks at encode_device's
+    sizing, and decoded back; each kernel held against its plain version
+    and timed at that shape.  (b) The ragged tail of phase 6 (`tail_codec`,
+    777 bytes by default) through encode_device and encode_block, equal.
+    Each route timed as the median of 5 single calls by CUDA events."""
+    g = min(64 << 20, data.numel()) // block
+    codec = GapArrayCodec.fit(host[: g * block], block_bytes=block,
+                              device="cuda")
+    blocks = data[: g * block].view(g, block)
+    log(f"phase 7b: {g} blocks of {block} B through encode_device, against "
+        f"the encode_block loop ({card})")
+    sync()
+    ge.reset_launch_counts()
+    dcomp = codec.encode_device(blocks)
+    sync()
+    run_launches = ge.launch_counts()
+    if any(c != 1 for c in run_launches.values()):
+        raise AssertionError(f"encode_device of {g}x{block} B launched "
+                             f"{run_launches}, not B4b-B4d once each")
+
+    def loop(c, bl, dc):
+        """The route before: encode_block block by block, at the sizing of
+        the DeviceCompressed `dc`."""
+        kw = dict(seg_bits=c.seg_bits, max_words=dc.words.shape[1] - 1,
+                  n_segs=dc.counts.shape[1])
+        parts = [tenc.encode_block(b, c.enc, **kw) for b in bl]
+        return tuple(torch.stack(x) for x in zip(*parts))
+
+    def same(dc, ref):
+        return all(torch.equal(a, b) for a, b in zip(
+            (dc.words, dc.total_bits, dc.gaps, dc.counts), ref))
+
+    checks = {
+        "equals_encode_block_loop": same(dcomp, loop(codec, blocks, dcomp)),
+        "round_trip_bit_exact": torch.equal(codec.decode_device(dcomp),
+                                            blocks),
+    }
+    timing = {}
+    gap_encode_cases(stats, ge, codec, blocks, f"ragged {g}x{block} B",
+                     timing)
+    blocks_ms = {"encode_device": median_ms(
+        lambda: codec.encode_device(blocks)),
+        "encode_block_loop": median_ms(lambda: loop(codec, blocks, dcomp))}
+
+    bb = tail_codec.block_bytes
+    tail = data[data.numel() // bb * bb:].view(1, -1)
+    tail_ms = {}
+    if tail.numel():
+        tdc = tail_codec.encode_device(tail)
+        checks["tail_equals_encode_block"] = same(
+            tdc, loop(tail_codec, tail, tdc))
+        tail_ms = {"encode_device": median_ms(
+            lambda: tail_codec.encode_device(tail)),
+            "encode_block": median_ms(lambda: loop(tail_codec, tail, tdc))}
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 7b failed: {checks}")
+    for label, t, nbytes in ((f"{g}x{block} B", blocks_ms, g * block),
+                             (f"tail {tail.numel()} B", tail_ms,
+                              tail.numel())):
+        for route, (med, ms) in t.items():
+            log(f"  {label} {route:18s} median {med:.4f} ms = "
+                f"{nbytes / med / 1e6:.3f} GB/s {[round(x, 4) for x in ms]}")
+    return {"card": card, "blocks": g, "block_bytes": block,
+            "tail_bytes": tail.numel(), "launches": run_launches,
+            "checks": checks,
+            "blocks_ms": {k: {"median": v[0], "ms": v[1]}
+                          for k, v in blocks_ms.items()},
+            "tail_ms": {k: {"median": v[0], "ms": v[1]}
+                        for k, v in tail_ms.items()}}, timing
+
+
 def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
     """Phase 15: the multi-device paths (`huffman_tpu_torch.parallel`).
 
@@ -1459,20 +1559,22 @@ def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
     `ils_encode_to_device`; the full-band round trip (rot=True); the
     collective histogram; the HTC1 block round trip on the first 64 MiB as
     16 blocks of 4 MiB (seg_bits=1024, "lut").  The launch counts are set
-    to 0 just before these calls and read just after.  Then A5 and A1 at
+    to 0 just before these calls and read just after (A1, A2, A3, A5 and
+    the sharded encode's B4b-B4d must launch).  Then A5 and A1 at
     the full-band shape are held against their plain versions and timed,
     and the sharded calls timed beside the single-device ones.  (b) gloo,
     world 2, both ranks on this card, through `dryrun_multichip` at 2 x 32
     MiB of ILS (8 tiles a rank at k=4096) and 2 x 4 blocks of 4 MiB, and
     its fault checks: the rank-ordered certified section equals
     `ils_encode_to_device`'s on the same 64 MiB, and each rank launched
-    A1, A2, A3 and A5."""
+    A1, A2, A3, A5 and B4b-B4d."""
     import dataclasses
 
     import torch.distributed as dist
 
     from huffman_tpu_torch import parallel as par
     from huffman_tpu_torch.core.ils_ref import ILS_LANES, ils_n_win
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
     from huffman_tpu_torch.parallel import dryrun as tdr
     from huffman_tpu_torch.ops.tables import (dec_spec, device_dec_table,
                                               device_enc_table)
@@ -1500,6 +1602,7 @@ def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
 
     sync()
     tk.reset_launch_counts()
+    ge.reset_launch_counts()
     t0 = time.perf_counter()
     sec = par.ils_sharded_certified_encode(
         mesh, words, codec.enc, k=k, max_len=ml, avg_bits=avg,
@@ -1517,17 +1620,19 @@ def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
     gtable = tdr.fit_table(par.sharded_histogram(mesh, blocks).cpu().numpy()
                            .astype(np.int64))
     spec = dec_spec(gtable)
-    genc, gdec = device_enc_table(gtable, "cuda"), device_dec_table(gtable, "cuda")
+    genc = device_enc_table(gtable, device="cuda")
+    gdec = device_dec_table(gtable, device="cuda")
     gstep = par.make_sharded_roundtrip(
         mesh, spec=spec, seg_bits=gseg, max_words=max_words, n_segs=n_segs,
         max_count=gseg // spec.min_len + 1, block_bytes=gb, method="lut")
     gout, gok = gstep(blocks, genc, gdec)
     sync()
     drive_s = time.perf_counter() - t0
-    launches_a = tk.launch_counts()
+    launches_a = {**tk.launch_counts(), **ge.launch_counts()}
     log(f"  driven in {drive_s:.2f} s; launches {launches_a}")
-    missing = [n for n in ("ils_pack_certify", "ils_compact", "ils_decode",
-                           "ils_pack") if not launches_a[n]]
+    # the sharded HTC1 encode runs B4b-B4d (once: one call on 16 blocks)
+    missing = [n for n in tdr.ILS_WRAPPERS + tdr.GAP_WRAPPERS
+               if not launches_a[n]]
     if missing:
         raise AssertionError(f"phase 15a: kernels not launched: {missing}")
 
@@ -1643,7 +1748,8 @@ def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
         avg_bits=float(rk[0]["cert_rot0_avg_bits"]),
         max_len=ctable.max_len_present, rot=False)
     per_rank = p2.w_tiles.reshape(2, -1).sum(axis=1)
-    launches_b = [{n: int(r[f"launches_{n}"]) for n in tk.launch_counts()}
+    launches_b = [{n: int(r[f"launches_{n}"])
+                   for n in {**tk.launch_counts(), **ge.launch_counts()}}
                   for r in rk]
     checks_b = {
         "params_equal": all(
@@ -1667,7 +1773,8 @@ def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
             len({str(r[key]) for r in rk}) == 1
             for key in ("refused_stride", "refused_band")),
         "kernels_launched": all(
-            lb[n] > 0 for lb in launches_b for n in tdr.ILS_WRAPPERS),
+            lb[n] > 0 for lb in launches_b
+            for n in tdr.ILS_WRAPPERS + tdr.GAP_WRAPPERS),
     }
     log(f"  dry run {dryrun_s:.1f} s (2 spawned ranks); launches "
         f"{launches_b}")
@@ -1897,12 +2004,14 @@ def main(argv=None) -> int:
     ):
         ptxas[name] = {}
         for symbol in SYMBOLS[name]:
-            hits = [r for key, r in resources.items() if symbol in key]
-            if len(hits) != 1:
-                raise AssertionError(f"ptxas reported {len(hits)} kernels "
-                                     f"named {symbol}")
-            ptxas[name][symbol] = hits[0]
-            log(f"  ptxas {symbol}: {hits[0]}")
+            # B4b and B4c: one instantiation without byte counts, one with
+            hits = {key: r for key, r in resources.items() if symbol in key}
+            if not hits:
+                raise AssertionError(f"ptxas reported no kernel {symbol}")
+            for key, r in hits.items():
+                label = symbol if len(hits) == 1 else key
+                ptxas[name][label] = r
+                log(f"  ptxas {label}: {r}")
         log(f"    {tile}")
     log(json.dumps({"ptxas": resources}))
 
@@ -2136,15 +2245,23 @@ def main(argv=None) -> int:
     missing = [name for name, c in gap_launches.items() if c == 0]
     if missing:
         raise AssertionError(f"HTC1 kernels not launched on its path: {missing}")
+    # B4b-B4d once a device group, the ragged tail's group included (no
+    # block takes another route)
+    bb = gcodec.block_bytes
+    n_groups = len(gcodec._groups(n // bb, bb)) + (n % bb > 0)
+    enc_launches = {name: gap_launches[name] for name in GAP_ENCODE}
+    if any(c != n_groups for c in enc_launches.values()):
+        raise AssertionError(f"HTC1 encode kernels launched {enc_launches} "
+                             f"for {n_groups} groups, the tail included")
+    log(f"  B4b-B4d launched once for each of the {n_groups} groups, the "
+        f"{n % bb}-byte tail included")
     launches.update(gap_launches)
     del gout, gcomp
 
     log("phase 6b: HTC1 kernels vs plain at that run's shapes, timed")
     # the groups that run gave the kernels: the full blocks' device groups,
-    # then the tail (encoded through the kernels only when its size is a
-    # multiple of 128, else through encode_block); the first group and the
-    # tail are timed
-    bb = gcodec.block_bytes
+    # then the tail, each encoded through B4b-B4d (the tail with its byte
+    # count); the first group and the tail are timed
     n_full = n // bb
     groups = [(grp, bb) for grp in gcodec._groups(n_full, bb)]
     if n % bb:
@@ -2155,8 +2272,7 @@ def main(argv=None) -> int:
         blocks = data[lo : lo + len(grp) * size].view(len(grp), size)
         t = htc1_timing if i == 0 else tail_timing if size != bb else None
         label = f"e2e {len(grp)}x{size} B"
-        if size % 128 == 0:
-            gap_encode_cases(stats, ge, gcodec, blocks, label, t)
+        gap_encode_cases(stats, ge, gcodec, blocks, label, t)
         gap_decode_cases(stats, gd, gcodec, gcodec.decode_plan(gcomp2, grp),
                          sum(gcomp2.block_total_bits[j] for j in grp), blocks,
                          label, t)
@@ -2205,6 +2321,11 @@ def main(argv=None) -> int:
     dcomp = gap_encode_cases(stats, ge, bcodec, blocks, label, bench_timing)
     gap_decode_cases(stats, gd, bcodec, bcodec.decode_device_plan(dcomp),
                      int(dcomp.total_bits.sum()), blocks, label, bench_timing)
+    del dcomp
+
+    # ---- 7b. blocks that are no multiple of 128 bytes, timed
+    ragged, ragged_timing = ragged_phase(stats, ge, tenc, GapArrayCodec, host,
+                                         data, gcodec, card)
 
     # ---- 8. foreign streams, small inputs
     log("phase 8: foreign streams, small inputs")
@@ -2228,7 +2349,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"device-built Yamamoto container of {label} "
                                  f"differs from write_yamamoto's")
         gaps = torch.from_numpy(read_yamamoto(yam)[2].astype(np.int32)).to(dev)
-        dec, spec = device_dec_table(table, dev), dec_spec(table)
+        dec, spec = device_dec_table(table, device=dev), dec_spec(table)
         counts = count_cases(stats, gd, dec, spec, words, gaps, label)
         ref = npref.segment_metadata(small, table, 128)[1]
         if not np.array_equal(counts[:-1].cpu().numpy(), ref[:-1]):
@@ -2277,7 +2398,7 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the Yamamoto path: "
                              f"{missing}")
-    ydec, yspec = device_dec_table(ytab2, dev), dec_spec(ytab2)
+    ydec, yspec = device_dec_table(ytab2, device=dev), dec_spec(ytab2)
     yw = torch.from_numpy(yw_h.view(np.int32)).to(dev)
     yg = torch.from_numpy(yg_h.astype(np.int32)).to(dev)
 
@@ -2334,7 +2455,7 @@ def main(argv=None) -> int:
         f"{s_med:.3f} = {fs / s_med / 1e6:.3f} GB/s")
     ss_timing = {}
     label = f"selfsync {fs} B"
-    sdec, sspec = device_dec_table(ytable, dev), dec_spec(ytable)
+    sdec, sspec = device_dec_table(ytable, device=dev), dec_spec(ytable)
     packed = transition_cases(stats, gd, sk, sdec, sspec, ywords, ytb, label,
                               ss_timing)
     exits = packed.T >> 16
@@ -2358,7 +2479,8 @@ def main(argv=None) -> int:
     uwords = ucomp.words[0, : -(-utb // 32)]
     del ucomp, udata
     u_timing = {}
-    transition_cases(stats, gd, sk, device_dec_table(ucodec.table, dev),
+    transition_cases(stats, gd, sk,
+                     device_dec_table(ucodec.table, device=dev),
                      dec_spec(ucodec.table), uwords, utb,
                      f"selfsync uniform {fs} B", u_timing)
     uniform_c2 = u_timing["sync_transitions"]
@@ -2438,6 +2560,8 @@ def main(argv=None) -> int:
                                                full_band["ils_decode"]))
     for name, t in tail_timing.items():
         extra.setdefault(name, []).append(("tail", t))
+    for name, t in ragged_timing.items():
+        extra.setdefault(name, []).append(("ragged_blocks", t))
     if n % tile_bytes:
         extra.setdefault("ils_decode", []).insert(0, ("tail", a1_tail))
     log(f"per kernel at the main path's shapes ({card}):")
@@ -2502,6 +2626,8 @@ def main(argv=None) -> int:
                  "encode_device_gbps": gb / genc_med / 1e6,
                  "decode_device_gbps": gb / gdec_med / 1e6,
                  "card": card, "profile": gprof, "kernels": bench_rows},
+        "ragged": {**ragged, "kernels": [
+            {"name": name, **times(t)} for name, t in ragged_timing.items()]},
         "portable": portable,
         "file": file_summary,
         "cli": cli_summary,

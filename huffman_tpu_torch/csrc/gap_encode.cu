@@ -1,7 +1,15 @@
 // HTC1 gap-array encode for Hopper: row pack (B4b), row metadata (B4c) and
 // bit placement (B4d).  Replaces the kernels of
 // huffman_tpu/ops/pallas/gap_encode_kernel.py (wrapper encode_blocks_pallas).
-// Blocks are cut into rows of ROW_BYTES = 128 input bytes.
+// Blocks are cut into rows of ROW_BYTES = 128 input bytes.  B4b and B4c
+// take an optional byte count per HTC1 block (a block of any size is
+// padded to whole rows): bytes at or past it are no symbols, so they add no
+// bits and no codeword start; the block's last row may be partial and rows
+// past the count give 0 bits.  (Padding alone cannot do it: every byte of
+// a row is a start, and a table may hold all 256 symbols.)  Each kernel is
+// instantiated twice and the launcher picks by whether counts are given:
+// blocks without them compare no byte against a count, which costs B4b
+// and B4c about 3% on full blocks (PERF.md).
 //
 // gap_row_pack_kernel replaces _row_pack_kernel (B4b), with the input
 // relayout _relayout_kernel (B4a) and the encode use of
@@ -87,10 +95,25 @@
 #define IN_PITCH (ROW_WORDS + 1)  // words of a row in the input tile
 #define PACK_MAX_ROWS 256
 
+// The bytes of row r that are symbols: its HTC1 block's count past the
+// row's first byte, clamped to [0, 128] (the block's last row may be
+// partial; rows past the count hold none).
+__device__ __forceinline__ int row_valid(const int* n_bytes, long long r,
+                                         int block_rows) {
+  const long long g = r / block_rows;
+  const long long rest =
+      (long long)n_bytes[g] - (r - g * block_rows) * ROW_BYTES;
+  return (int)min(max(rest, 0LL), (long long)ROW_BYTES);
+}
+
+// kCounts: the launch has byte counts (else every byte is a symbol, and
+// the instantiation without them keeps the full rows' code unchanged)
+template <bool kCounts>
 __global__ void __launch_bounds__(PACK_MAX_ROWS) gap_row_pack_kernel(
     const uint32_t* __restrict__ data, const int* __restrict__ enc,
-    uint32_t* __restrict__ pay, int* __restrict__ row_bits, long long n_rows,
-    int cap_words) {
+    const int* __restrict__ n_bytes, uint32_t* __restrict__ pay,
+    int* __restrict__ row_bits, long long n_rows, int cap_words,
+    int block_rows) {
   extern __shared__ uint4 smem[];
   __shared__ int s_enc[256];
   const int R = blockDim.x;
@@ -116,6 +139,8 @@ __global__ void __launch_bounds__(PACK_MAX_ROWS) gap_row_pack_kernel(
   __syncthreads();
 
   if (tid < nv) {
+    const int valid =
+        kCounts ? row_valid(n_bytes, row0 + tid, block_rows) : ROW_BYTES;
     const uint32_t* in = s_in + tid * IN_PITCH;
     uint32_t* out = s_pay + tid * pay_pitch;
     uint64_t acc = 0;  // top `nacc` bits pending, nacc < 32 between symbols
@@ -124,7 +149,10 @@ __global__ void __launch_bounds__(PACK_MAX_ROWS) gap_row_pack_kernel(
       const uint32_t w = in[q];
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int e = s_enc[(w >> (8 * b)) & 255];
+        // a byte past the block's count adds no bits
+        const int e = !kCounts || 4 * q + b < valid
+                          ? s_enc[(w >> (8 * b)) & 255]
+                          : 0;
         const int ln = e >> 20;
         tot += ln;
         // ln == 0 (a symbol absent from the table) adds nothing
@@ -199,11 +227,12 @@ __device__ __forceinline__ void meta_put(int* cnt_s, int* fst_s, int* cnt_g,
   }
 }
 
+template <bool kCounts>
 __global__ void __launch_bounds__(META_THREADS) gap_row_meta_kernel(
     const uint4* __restrict__ rows, const int* __restrict__ enc,
-    const long long* __restrict__ s_local, int* __restrict__ counts,
-    int* __restrict__ firsts, int rows_per_block, int tile_rows,
-    int tiles_per_g, int n_segs, int seg_shift, int window) {
+    const long long* __restrict__ s_local, const int* __restrict__ n_bytes,
+    int* __restrict__ counts, int* __restrict__ firsts, int rows_per_block,
+    int tile_rows, int tiles_per_g, int n_segs, int seg_shift, int window) {
   extern __shared__ int meta_smem[];
   __shared__ int s_len[256];
   __shared__ long long s_hi;  // segment of the tile's last start
@@ -213,8 +242,19 @@ __global__ void __launch_bounds__(META_THREADS) gap_row_meta_kernel(
   const int gl = tid & (META_LANES - 1);  // the lane's 16 bytes of its row
   const long long g = blockIdx.x / tiles_per_g;
   const int row_g0 = (int)(blockIdx.x - g * tiles_per_g) * tile_rows;
-  const int nv = min(tile_rows, rows_per_block - row_g0);
+  int nv = min(tile_rows, rows_per_block - row_g0);
   const long long r0 = g * rows_per_block + row_g0;
+  // with byte counts, the tile's rows that hold symbols (past the block's
+  // count none) and the bytes of the last of them (it may be partial)
+  int last_bytes = ROW_BYTES;
+  if (kCounts) {
+    const long long rest =
+        (long long)n_bytes[g] - (long long)row_g0 * ROW_BYTES;
+    nv = (int)min((long long)nv, rest <= 0 ? 0 : (rest - 1) / ROW_BYTES + 1);
+    if (nv > 0)
+      last_bytes = (int)min(rest - (long long)(nv - 1) * ROW_BYTES,
+                            (long long)ROW_BYTES);
+  }
   int* cnt_g = counts + g * n_segs;
   int* fst_g = firsts + g * n_segs;
   for (int j = tid; j < 256; j += META_THREADS) s_len[j] = enc[j] >> 20;
@@ -224,6 +264,8 @@ __global__ void __launch_bounds__(META_THREADS) gap_row_meta_kernel(
   }
   // the tile's first start is its first row's
   const long long base = s_local[r0] >> seg_shift;
+  // a tile without symbols keeps hi = base: no segment of its own
+  if (kCounts && tid == 0) s_hi = base;
   __syncthreads();
 
   // every lane of a warp runs every step (the shuffles); a lane past the
@@ -238,6 +280,10 @@ __global__ void __launch_bounds__(META_THREADS) gap_row_meta_kernel(
   for (int i0 = tid / 32 * 4; i0 < nv; i0 += META_ROWS_STEP) {
     const bool ok = i < nv;
     const bool last_row = i == nv - 1;
+    // the row's symbols end at row_end, the lane holds lim of them
+    const int row_end = kCounts && last_row ? last_bytes : ROW_BYTES;
+    const int lim =
+        kCounts ? min(max(row_end - gl * META_SYMS, 0), META_SYMS) : META_SYMS;
     const uint4 cur = v;
     const long long s_cur = s;
     i += META_ROWS_STEP;
@@ -256,6 +302,23 @@ __global__ void __launch_bounds__(META_THREADS) gap_row_meta_kernel(
       sum += l;
     }
 #define META_LEN(q) ((int)((lp[(q) >> 2] >> (8 * ((q) & 3))) & 255))
+    int l_last = META_LEN(META_SYMS - 1);  // the lane's last symbol's length
+    if (lim < META_SYMS) {
+      // the block's last row: bytes past its count are no symbols (length
+      // 0, so the starts before them stay; never a head)
+      uint32_t m[4] = {0, 0, 0, 0};
+      sum = 0;
+#pragma unroll
+      for (int q = 0; q < META_SYMS; ++q) {
+        if (q < lim) {
+          l_last = META_LEN(q);
+          m[q >> 2] |= (uint32_t)l_last << (8 * (q & 3));
+          sum += l_last;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lp[j] = m[j];
+    }
     // exclusive scan of the row's 8 lane sums: the lane's first start
     int incl = sum;
 #pragma unroll
@@ -265,8 +328,7 @@ __global__ void __launch_bounds__(META_THREADS) gap_row_meta_kernel(
     }
     const long long a0 = s_cur + incl - sum;
     const long long seg0 = a0 >> seg_shift;
-    const long long seg_last =
-        (a0 + sum - META_LEN(META_SYMS - 1)) >> seg_shift;
+    const long long seg_last = (a0 + sum - l_last) >> seg_shift;
     const long long prev = __shfl_up_sync(FULL_MASK, seg_last, 1, META_LANES);
     const bool head0 = gl == 0 || seg0 != prev;
     // at most one segment boundary inside the lane (always where seg_bits
@@ -302,16 +364,18 @@ __global__ void __launch_bounds__(META_THREADS) gap_row_meta_kernel(
       }
     }
     // the first head of the lanes above: where this lane's last run ends
-    int m = qfirst < META_SYMS ? gl * META_SYMS + qfirst : ROW_BYTES;
+    // (a lane without symbols has none)
+    int m =
+        lim > 0 && qfirst < META_SYMS ? gl * META_SYMS + qfirst : row_end;
 #pragma unroll
     for (int d = 1; d < META_LANES; d <<= 1) {
       const int y = __shfl_down_sync(FULL_MASK, m, d, META_LANES);
       if (gl + d < META_LANES) m = min(m, y);
     }
     int next = __shfl_down_sync(FULL_MASK, m, 1, META_LANES);
-    if (gl == META_LANES - 1) next = ROW_BYTES;
-    if (!ok) continue;
-    if (last_row && gl == META_LANES - 1) s_hi = seg_last;
+    if (gl == META_LANES - 1) next = row_end;
+    if (!ok || lim == 0) continue;
+    if (last_row && gl == (row_end - 1) / META_SYMS) s_hi = seg_last;
     const int p0 = gl * META_SYMS;
     if (one) {
       if (head0)
@@ -328,7 +392,7 @@ __global__ void __launch_bounds__(META_THREADS) gap_row_meta_kernel(
 #pragma unroll
     for (int q = 0; q < META_SYMS; ++q) {
       const long long sg = x >> seg_shift;
-      if (q == 0 ? head0 : sg != seg_prev) {
+      if (q < lim && (q == 0 ? head0 : sg != seg_prev)) {
         const int p = p0 + q;
         if (run_p >= 0)
           meta_put(cnt_s, fst_s, cnt_g, fst_g, run_seg, base, window, n_segs,
@@ -501,29 +565,34 @@ static long long row_pack_smem(int rows, int cap_words) {
   return 4LL * rows * (IN_PITCH + cap_words + 1);
 }
 
+// n_bytes: null (every row whole) or one int per HTC1 block of block_rows
+// rows
 extern "C" int gap_row_pack_launch(const void* data, const void* enc,
-                                   void* pay, void* row_bits,
-                                   long long n_rows, int cap_words,
+                                   const void* n_bytes, void* pay,
+                                   void* row_bits, long long n_rows,
+                                   int cap_words, int block_rows,
                                    int rows_per_block, int smem_bytes,
                                    void* stream) {
   if (rows_per_block < 32 || rows_per_block > PACK_MAX_ROWS ||
       rows_per_block % 32 || cap_words < 0 ||
-      smem_bytes != row_pack_smem(rows_per_block, cap_words))
+      smem_bytes != row_pack_smem(rows_per_block, cap_words) ||
+      (n_bytes && (block_rows < 1 || n_rows % block_rows)))
     return (int)cudaErrorInvalidValue;
   // above 48 KB only after this; a refusal is returned, and cleared so
   // that it does not surface at a later launch's check
+  const auto kernel =
+      n_bytes ? gap_row_pack_kernel<true> : gap_row_pack_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      gap_row_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
   const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  gap_row_pack_kernel<<<(unsigned)blocks, rows_per_block, smem_bytes,
-                        (cudaStream_t)stream>>>(
-      (const uint32_t*)data, (const int*)enc, (uint32_t*)pay, (int*)row_bits,
-      n_rows, cap_words);
+  kernel<<<(unsigned)blocks, rows_per_block, smem_bytes,
+           (cudaStream_t)stream>>>(
+      (const uint32_t*)data, (const int*)enc, (const int*)n_bytes,
+      (uint32_t*)pay, (int*)row_bits, n_rows, cap_words, block_rows);
   return (int)cudaGetLastError();
 }
 
@@ -534,8 +603,10 @@ static long long meta_window(int rows, int max_len, int seg_shift) {
   return ((span + (1LL << seg_shift) - 1) >> seg_shift) + 1;
 }
 
+// n_bytes: null (every row whole) or one int per HTC1 block
 extern "C" int gap_row_meta_launch(const void* rows, const void* enc,
-                                   const void* s_local, void* counts,
+                                   const void* s_local, const void* n_bytes,
+                                   void* counts,
                                    void* firsts, long long n_rows,
                                    int rows_per_block, int n_segs,
                                    int seg_shift, int max_len, int tile_rows,
@@ -550,10 +621,13 @@ extern "C" int gap_row_meta_launch(const void* rows, const void* enc,
   const int tiles_per_g = (rows_per_block + tile_rows - 1) / tile_rows;
   const long long blocks = n_rows / rows_per_block * tiles_per_g;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  gap_row_meta_kernel<<<(unsigned)blocks, META_THREADS, smem_bytes,
-                        (cudaStream_t)stream>>>(
+  const auto kernel =
+      n_bytes ? gap_row_meta_kernel<true> : gap_row_meta_kernel<false>;
+  kernel<<<(unsigned)blocks, META_THREADS, smem_bytes,
+           (cudaStream_t)stream>>>(
       (const uint4*)rows, (const int*)enc, (const long long*)s_local,
-      (int*)counts, (int*)firsts, rows_per_block, tile_rows, tiles_per_g,
+      (const int*)n_bytes, (int*)counts, (int*)firsts, rows_per_block,
+      tile_rows, tiles_per_g,
       n_segs, seg_shift, window);
   return (int)cudaGetLastError();
 }

@@ -211,7 +211,7 @@ def decode_yamamoto_device(words: torch.Tensor, gaps: torch.Tensor,
     ).view(-1)
 
 
-def decode_yamamoto(buf: bytes, *, method: str | None = None,
+def decode_yamamoto(buf: bytes, method: str | None = None, *,
                     device="cuda") -> torch.Tensor:
     """Decode a reference-format container on `device` (CUDA unless the
     caller asks for the CPU); returns the bytes as a uint8 tensor there.
@@ -223,7 +223,7 @@ def decode_yamamoto(buf: bytes, *, method: str | None = None,
     table, words, gaps, original_size = read_yamamoto(buf)
     if original_size == 0:
         return torch.zeros(0, dtype=torch.uint8, device=dev)
-    dec = device_dec_table(table, dev, two_level=False)
+    dec = device_dec_table(table, two_level=False, device=dev)
     spec = dec_spec(table)
     gaps_t = torch.from_numpy(gaps.astype(np.int32)).to(dev)
     if method in (None, "pallas"):

@@ -5,8 +5,9 @@ Counterpart of `huffman_tpu/models/gap_codec.py`.  ``fit`` is host NumPy
 into blocks of ``block_bytes`` encoded independently, each segmented into
 ``seg_bits``-bit segments that carry (gap, count) metadata, so decode is
 one pass.  Encode runs the kernels of `ops/gap_encode_kernels.py` for
-blocks whose size is a multiple of 128 bytes and `ops/encode.py::
-encode_block` for the others (a ragged tail always).  Decode runs, by the
+blocks of any size, the ragged tail included (the JAX package sends
+blocks that are not a multiple of 128 bytes through XLA's `encode_block`;
+the bytes are the same).  Decode runs, by the
 codec's ``method``, the kernels of `ops/gap_decode_kernels.py` for every
 table (None or "pallas") or a step decoder of `ops/decode.py` ("lut",
 "canonical", "twolevel").  Both run on the codec's device, CUDA by
@@ -30,9 +31,8 @@ from ..core import npref
 from ..core.canonical import CodeTable, canonical_code_table
 from ..core.package_merge import package_merge_lengths
 from ..ops import decode as step
-from ..ops.encode import encode_block
 from ..ops.gap_decode_kernels import decode_blocks
-from ..ops.gap_encode_kernels import ROW_BYTES, encode_blocks
+from ..ops.gap_encode_kernels import encode_blocks
 from ..ops.ils import _as_bytes, resolve_device
 from ..ops.ils_kernels import ils_enc_tabs
 from ..ops.tables import dec_spec, device_dec_table
@@ -128,8 +128,8 @@ class GapArrayCodec:
         self.block_bytes = int(block_bytes)
         self.method = "pallas" if method is None else method
         self.enc = ils_enc_tabs(table, self.device)  # (len << 20) | code
-        self.dec = device_dec_table(table, self.device,
-                                    two_level=self.method == "twolevel")
+        self.dec = device_dec_table(table, two_level=self.method == "twolevel",
+                                    device=self.device)
         self.spec = dec_spec(table)
 
     @classmethod
@@ -144,18 +144,12 @@ class GapArrayCodec:
 
     # ------------------------------------------------------------------
     def _encode_blocks(self, blocks: torch.Tensor, max_words: int, n_segs: int):
-        """(G, B) uint8 blocks on the codec's device -> (words, total_bits,
-        gaps, counts) with the JAX package's shapes."""
-        if blocks.shape[1] % ROW_BYTES == 0:
-            return encode_blocks(
-                blocks, self.enc, seg_bits=self.seg_bits,
-                max_words=max_words, n_segs=n_segs,
-                max_len=max(self.table.max_len_present, 1),
-            )
-        parts = [encode_block(blk, self.enc, seg_bits=self.seg_bits,
-                              max_words=max_words, n_segs=n_segs)
-                 for blk in blocks]
-        return tuple(torch.stack(x) for x in zip(*parts))
+        """(G, B) uint8 blocks on the codec's device, any B >= 1 -> (words,
+        total_bits, gaps, counts) with the JAX package's shapes, from the
+        kernels B4b-B4d."""
+        return encode_blocks(blocks, self.enc, seg_bits=self.seg_bits,
+                             max_words=max_words, n_segs=n_segs,
+                             max_len=max(self.table.max_len_present, 1))
 
     def encode_device(self, blocks) -> DeviceCompressed:
         """Encode a (G, B) stack of equal-size blocks (or one (B,) block),
@@ -243,7 +237,7 @@ class GapArrayCodec:
     def encode(self, data) -> Compressed:
         """Encode a uint8 array or tensor into a host `Compressed`: the
         full blocks in device groups of at most GROUP_BYTES, then the tail
-        as one block.  (The JAX package sizes its groups by their exact bit
+        as one block of its own size, each through the kernels.  (The JAX package sizes its groups by their exact bit
         count; the bytes do not depend on the grouping or the sizing.)"""
         data = _as_bytes(data, self.device)
         n = data.numel()

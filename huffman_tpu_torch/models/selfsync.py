@@ -78,7 +78,7 @@ def selfsync_decode_device(words: torch.Tensor, total_bits: int,
     max_len = max(table.max_len_present, 1)
     if max_len > SYNC_STATES:
         raise ValueError("self-sync decode requires max codeword length <= 16")
-    dec = device_dec_table(table, dev, two_level=False)
+    dec = device_dec_table(table, two_level=False, device=dev)
     spec = dec_spec(table)
     lim, _ = kernel_tabs(dec)
     n_subseq = _cdiv(total_bits, _SEG_BITS)

@@ -76,9 +76,9 @@ _SIGNATURES = {
         ],
     },
     "gap_encode": {
-        "gap_row_pack_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+        "gap_row_pack_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
         "gap_row_meta_launch": [
-            _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
         "gap_place_bits_launch": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
     },

@@ -5,9 +5,10 @@ Counterpart of `huffman_tpu/ops/encode.py`, bit-identical to it.
 - `encode_block`: gather the code lengths, one cumsum for the start bits,
   a scatter-add of each codeword's two u32 pieces (their bit ranges are
   disjoint, so the sum is the OR) and a ``searchsorted`` of the segment
-  bounds for the (gap, count) metadata.  The codec takes this route for
-  blocks whose size is not a multiple of 128 bytes;
-  `ops/gap_encode_kernels.py` encodes the others.
+  bounds for the (gap, count) metadata.  The port of the JAX package's
+  public function and the tests' oracle: no codec path calls it, since
+  `ops/gap_encode_kernels.py::encode_blocks` encodes blocks of any size
+  (a ragged tail too) with the kernels B4b-B4d.
 - `encode_block_fast`: the same outputs from the encode map kernel B5
   (`ops/encode_map_kernels.py`), which packs each 4-byte group into 64
   bits, so the placement and the metadata run once per group;
@@ -79,10 +80,12 @@ def encode_block(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,
             gaps.to(torch.int32), (first_next - first).to(torch.int32))
 
 
-def encode_block_fast(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,
-                      max_words: int, n_segs: int):
+def encode_block_fast(data: torch.Tensor, enc_tabs: torch.Tensor, *,
+                      seg_bits: int, max_words: int, n_segs: int):
     """`encode_block` through the encode map kernel, with its outputs bit
-    for bit; ``data`` is (B,) uint8 with B a multiple of 4096.
+    for bit; ``data`` is (B,) uint8 with B a multiple of 4096, ``enc_tabs``
+    the (256,) int32 ``(len << 20) | code`` table (the JAX function's
+    parameter name; its value there is an `IlsEncTabs`).
 
     Each 4-byte group is one left-justified 64-bit item: an int64 cumsum of
     the group lengths places it, its three u32 pieces at words w0, w0+1
@@ -104,7 +107,7 @@ def encode_block_fast(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,
     if data.data_ptr() % 16:  # the kernel loads whole words
         data = data.clone()
     dev = data.device
-    hi, lo, l4, lens_p = encode_map(data, enc)
+    hi, lo, l4, lens_p = encode_map(data, enc_tabs)
     hi, lo, l4 = _u32(hi), _u32(lo), l4.to(torch.int64)
     ends4 = torch.cumsum(l4, 0)
     total_bits = ends4[-1]

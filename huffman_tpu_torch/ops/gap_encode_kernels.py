@@ -21,11 +21,19 @@ tensor runs the plain version.  A block is cut into rows of
   gap formula between them as plain tensor code (the JAX package's XLA
   glue).  The TPU's VMEM geometry (`_geometry`, `_flush_window`, chunk
   plans) and its int32 global bit offsets are not carried over.
+
+B4b and B4c take an optional ``n_bytes``, a (G,) int32 byte count per HTC1
+block: bytes at or past a block's count are no symbols (no bits, no
+codeword start), its last row may be partial and rows past it give 0
+bits.  With it `encode_blocks` encodes blocks of any size B >= 1 (the rows
+are the blocks zero-padded to whole rows), where the JAX package sends
+blocks that are not a multiple of 128 bytes through XLA's `encode_block`.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .ils_kernels import (
     _M32,
@@ -95,6 +103,11 @@ def meta_tile(seg_bits: int, max_len: int) -> tuple[int, int, int]:
         rows //= 2
 
 
+def _ptr(x):
+    """A tensor's device address for a launcher, NULL for None."""
+    return None if x is None else x.data_ptr()
+
+
 def _low_bits(x, n):
     """The low n bits of x (n in [0, 32])."""
     return x & ((1 << n) - 1)
@@ -113,12 +126,39 @@ def row_starts(rows, enc):
     return torch.cumsum(ln, 1) - ln
 
 
+def _row_symbols(n_rows, n_bytes, device):
+    """(n_rows, 128) bool, the bytes that are symbols: every byte without
+    byte counts, else those before their HTC1 block's count (the G blocks
+    of n_rows / G rows each)."""
+    pos = torch.arange(ROW_BYTES, device=device)[None, :]
+    if n_bytes is None:
+        return pos < ROW_BYTES
+    rows_b = n_rows // max(n_bytes.numel(), 1)
+    r = torch.arange(n_rows, device=device)
+    rest = n_bytes.to(torch.int64)[r // rows_b] - (r % rows_b) * ROW_BYTES
+    return pos < rest[:, None]
+
+
+def _check_n_bytes(n_bytes, n_rows, rows_per_block, ref):
+    """n_bytes: None, or (G,) int32 on ref's device, G = n_rows /
+    rows_per_block."""
+    if n_bytes is None:
+        return
+    _check("n_bytes", n_bytes, torch.int32)
+    if n_bytes.dim() != 1 or n_bytes.numel() * rows_per_block != n_rows:
+        raise ValueError(f"n_bytes must be (G,) for G blocks of "
+                         f"{rows_per_block} rows, got {tuple(n_bytes.shape)} "
+                         f"for {n_rows} rows")
+    _same_device(ref, n_bytes)
+
+
 # ----------------------------------------------------------------------
 # B4b: row pack
 # ----------------------------------------------------------------------
-def gap_row_pack_plain(rows, enc, *, cap_words):
+def gap_row_pack_plain(rows, enc, *, cap_words, n_bytes=None):
     n_rows = rows.shape[0]
     e = _row_codes(rows, enc)
+    e = torch.where(_row_symbols(n_rows, n_bytes, rows.device), e, 0)
     ln = e >> 20
     left = ((e & 0xFFFF) << (32 - ln)) & _M32  # ln == 0 gives 0
     ends = torch.cumsum(ln, 1)
@@ -134,10 +174,13 @@ def gap_row_pack_plain(rows, enc, *, cap_words):
     return _to_i32(pay[:, :cap_words]), ends[:, -1].to(torch.int32)
 
 
-def gap_row_pack(rows, enc, *, cap_words):
+def gap_row_pack(rows, enc, *, cap_words, n_bytes=None):
     """Pack each row of (n_rows, 32) int32 input words (128 bytes,
     little-endian within a word) with the (256,) int32 table of
-    ``(len << 20) | code`` (`ils_kernels.ils_enc_tabs`).
+    ``(len << 20) | code`` (`ils_kernels.ils_enc_tabs`).  n_bytes: None
+    (every byte a symbol) or a (G,) int32 byte count for the rows taken as
+    G blocks of n_rows / G rows; a byte at or past its block's count adds
+    no bits.
 
     Returns (pay (n_rows, cap_words) int32 — MSB-first u32 words, zero past
     the row's bits —, bits (n_rows,) int32)."""
@@ -147,12 +190,17 @@ def gap_row_pack(rows, enc, *, cap_words):
                          f"{tuple(rows.shape)}")
     _check("enc", enc, torch.int32, (256,))
     _same_device(rows, enc)
+    n_rows = rows.shape[0]
+    block_rows = 0
+    if n_bytes is not None:
+        block_rows = n_rows // n_bytes.numel() if n_bytes.numel() else 0
+        _check_n_bytes(n_bytes, n_rows, block_rows, rows)
     if not _use_kernel(rows):
-        return gap_row_pack_plain(rows, enc, cap_words=cap_words)
+        return gap_row_pack_plain(rows, enc, cap_words=cap_words,
+                                  n_bytes=n_bytes)
     if not rows.is_contiguous() or rows.data_ptr() % 16:
         # the kernel reads each row with 16-byte loads
         raise ValueError("rows must be contiguous and 16-byte aligned")
-    n_rows = rows.shape[0]
     dev = rows.device
     pay = torch.empty((n_rows, cap_words), dtype=torch.int32, device=dev)
     bits = torch.empty(n_rows, dtype=torch.int32, device=dev)
@@ -160,8 +208,9 @@ def gap_row_pack(rows, enc, *, cap_words):
         return pay, bits
     tile_rows, smem = row_pack_tile(cap_words)
     rc = _lib("gap_encode").gap_row_pack_launch(
-        rows.data_ptr(), enc.data_ptr(), pay.data_ptr(), bits.data_ptr(),
-        n_rows, cap_words, tile_rows, smem, _stream(rows),
+        rows.data_ptr(), enc.data_ptr(), _ptr(n_bytes), pay.data_ptr(),
+        bits.data_ptr(), n_rows, cap_words, block_rows, tile_rows, smem,
+        _stream(rows),
     )
     _launched(gap_row_pack, rc)
     return pay, bits
@@ -171,14 +220,14 @@ def gap_row_pack(rows, enc, *, cap_words):
 # B4c: segment metadata
 # ----------------------------------------------------------------------
 def gap_row_meta_plain(rows, enc, s_local, *, rows_per_block, n_segs,
-                       seg_bits):
+                       seg_bits, n_bytes=None):
     dev = rows.device
     n_rows = rows.shape[0]
     g_n = n_rows // rows_per_block
     a = s_local[:, None] + row_starts(rows, enc)
     seg = a >> (seg_bits.bit_length() - 1)
     g = torch.arange(n_rows, device=dev)[:, None] // rows_per_block
-    ok = (seg >= 0) & (seg < n_segs)
+    ok = (seg >= 0) & (seg < n_segs) & _row_symbols(n_rows, n_bytes, dev)
     idx = torch.where(ok, g * n_segs + seg, g_n * n_segs).reshape(-1)
     counts = torch.zeros(g_n * n_segs + 1, dtype=torch.int64, device=dev)
     counts.index_add_(0, idx, torch.ones_like(idx))
@@ -190,7 +239,7 @@ def gap_row_meta_plain(rows, enc, s_local, *, rows_per_block, n_segs,
 
 
 def gap_row_meta(rows, enc, s_local, *, rows_per_block, n_segs, seg_bits,
-                 max_len=16):
+                 max_len=16, n_bytes=None):
     """Per-segment metadata of G blocks of rows_per_block rows each.
 
     rows: (n_rows, 32) int32 input words, as `gap_row_pack` takes them;
@@ -204,7 +253,9 @@ def gap_row_meta(rows, enc, s_local, *, rows_per_block, n_segs, seg_bits,
     gives the plain version's result for such an s_local, and stays inside
     its buffers for any other.  max_len (at least the table's longest
     code, at most 16) sizes the kernel's window of segments (`meta_tile`)
-    only."""
+    only.  n_bytes: None, or a (G,) int32 byte count per block, as
+    `gap_row_pack` takes it: a byte at or past it is no start (s_local
+    then comes from the bits `gap_row_pack` gave with the same counts)."""
     _check("rows", rows, torch.int32)
     n_rows = rows.shape[0]
     if rows.dim() != 2 or rows.shape[1] != ROW_WORDS or rows_per_block <= 0 \
@@ -218,7 +269,9 @@ def gap_row_meta(rows, enc, s_local, *, rows_per_block, n_segs, seg_bits,
     _check("enc", enc, torch.int32, (256,))
     _check("s_local", s_local, torch.int64, (n_rows,))
     _same_device(rows, enc, s_local)
-    kw = dict(rows_per_block=rows_per_block, n_segs=n_segs, seg_bits=seg_bits)
+    _check_n_bytes(n_bytes, n_rows, rows_per_block, rows)
+    kw = dict(rows_per_block=rows_per_block, n_segs=n_segs, seg_bits=seg_bits,
+              n_bytes=n_bytes)
     if not _use_kernel(rows):
         return gap_row_meta_plain(rows, enc, s_local, **kw)
     if rows.data_ptr() % 16:
@@ -232,8 +285,8 @@ def gap_row_meta(rows, enc, s_local, *, rows_per_block, n_segs, seg_bits,
         return counts, firsts
     tile_rows, window, smem = meta_tile(seg_bits, max_len)
     rc = _lib("gap_encode").gap_row_meta_launch(
-        rows.data_ptr(), enc.data_ptr(), s_local.data_ptr(), counts.data_ptr(),
-        firsts.data_ptr(), n_rows, rows_per_block, n_segs,
+        rows.data_ptr(), enc.data_ptr(), s_local.data_ptr(), _ptr(n_bytes),
+        counts.data_ptr(), firsts.data_ptr(), n_rows, rows_per_block, n_segs,
         seg_bits.bit_length() - 1, max_len, tile_rows, window, smem,
         _stream(rows),
     )
@@ -302,26 +355,42 @@ def gap_place_bits(pay, bits, s_local, *, rows_per_block, out_words):
 # ----------------------------------------------------------------------
 # Orchestration
 # ----------------------------------------------------------------------
-def encode_blocks(blocks, enc, *, seg_bits, max_words, n_segs, max_len):
-    """Encode (G, B) uint8 blocks, B a positive multiple of 128.
+def encode_blocks(blocks, enc, *, seg_bits, max_words, n_segs, max_len,
+                  n_bytes=None):
+    """Encode (G, B) uint8 blocks, any B >= 1.
 
     Bit-identical to `ops.encode.encode_block` per block: returns (words
     (G, max_words+1) int32 u32 bits, total_bits (G,) int32, gaps and
     counts (G, n_segs) int32).  enc: (256,) int32 ``(len << 20) | code``;
-    max_len bounds the table's code lengths; max_words >= ceil(total_bits
-    / 32) and n_segs >= ceil(total_bits / seg_bits) per block.  (The JAX
-    function's min_len argument sized its VMEM windows only.)"""
+    max_len (at most 16) bounds the table's code lengths.  Words past
+    max_words + 1 are dropped, and codeword starts past n_segs segments
+    are counted in the last one, as `encode_block` does.  (The JAX
+    function's min_len argument sized its VMEM windows only; its gaps
+    differ from encode_block's where seg_bits is below the longest code,
+    ROADMAP F13.)
+
+    n_bytes: None (each block's B bytes), or a (G,) int32 count per block,
+    each at most B: block g is its first n_bytes[g] bytes.  The rows are
+    the blocks zero-padded to a multiple of 128 bytes, B4b and B4c take
+    the counts where B is no such multiple or n_bytes is given."""
     g_n, b = blocks.shape
-    if b == 0 or b % ROW_BYTES:
-        raise ValueError(f"block size {b} is not a positive multiple of "
-                         f"{ROW_BYTES}")
-    rows_b = b // ROW_BYTES
-    if not blocks.is_contiguous() or blocks.data_ptr() % 16:
+    if b == 0:
+        raise ValueError("blocks must hold at least one byte")
+    rows_b = -(-b // ROW_BYTES)
+    pad = rows_b * ROW_BYTES - b
+    if pad:
+        if n_bytes is None:
+            n_bytes = torch.full((g_n,), b, dtype=torch.int32,
+                                 device=blocks.device)
+        # a fresh copy: aligned for the int32 view and the 16-byte loads
+        blocks = F.pad(blocks, (0, pad))
+    elif not blocks.is_contiguous() or blocks.data_ptr() % 16:
         # a slice at any byte offset (a tail, a user's view): a copy is
         # aligned for the int32 view and the kernel's 16-byte row loads
         blocks = blocks.clone(memory_format=torch.contiguous_format)
     rows = blocks.view(torch.int32).view(g_n * rows_b, ROW_WORDS)
-    pay, bits = gap_row_pack(rows, enc, cap_words=row_cap_words(max_len))
+    pay, bits = gap_row_pack(rows, enc, cap_words=row_cap_words(max_len),
+                             n_bytes=n_bytes)
 
     # XLA glue of the JAX package: per-block cumsum of the row bits
     bits_blk = bits.view(g_n, rows_b).to(torch.int64)
@@ -331,7 +400,18 @@ def encode_blocks(blocks, enc, *, seg_bits, max_words, n_segs, max_len):
 
     counts, firsts = gap_row_meta(rows, enc, s_local, rows_per_block=rows_b,
                                   n_segs=n_segs, seg_bits=seg_bits,
-                                  max_len=max_len)
+                                  max_len=max_len, n_bytes=n_bytes)
+    if n_segs:
+        # the starts past the last segment, which B4c drops, counted in it
+        n_sym = b if n_bytes is None else n_bytes.to(torch.int64)
+        counts[:, -1] += (n_sym - counts.sum(1, dtype=torch.int64)).to(
+            torch.int32)
+    if seg_bits < max_len:
+        # a segment inside one codeword has no start: its gap points at the
+        # next start, as encode_block's searchsorted does (from seg_bits =
+        # max_len on, only segments past the last start lack one)
+        firsts = torch.flip(torch.cummin(torch.flip(firsts, [1]), 1).values,
+                            [1])
     bounds = torch.arange(n_segs, dtype=torch.int64,
                           device=blocks.device)[None] * seg_bits
     # a start-less segment below total_bits (the last codeword straddles

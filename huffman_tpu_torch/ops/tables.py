@@ -26,6 +26,7 @@ from ..core.canonical import (
     build_two_level_table,
     chain_spec,
 )
+from .ils import resolve_device
 from .ils_kernels import ils_enc_tabs
 
 __all__ = [
@@ -43,10 +44,11 @@ _PAD1 = torch.zeros(1, dtype=torch.int32)
 DeviceEncTable = torch.Tensor
 
 
-def device_enc_table(table: CodeTable, device="cpu") -> DeviceEncTable:
-    """The (256,) int32 ``(len << 20) | code`` table on ``device`` that
-    `ops/encode.py::encode_block` and the ILS and HTC1 kernels read."""
-    return ils_enc_tabs(table, device)
+def device_enc_table(table: CodeTable, *, device="cuda") -> DeviceEncTable:
+    """The (256,) int32 ``(len << 20) | code`` table on ``device`` (CUDA
+    unless the caller asks for the CPU) that `ops/encode.py::encode_block`
+    and the ILS and HTC1 kernels read."""
+    return ils_enc_tabs(table, resolve_device(device))
 
 
 class DeviceDecTable(NamedTuple):
@@ -79,12 +81,14 @@ class DecSpec:
     chain: tuple | None = None  # grouped compare chain (`chain_spec`)
 
 
-def device_dec_table(table: CodeTable, device="cpu", lut_bits: int | None = None,
-                     *, two_level: bool = True) -> DeviceDecTable:
-    """The decoder tables on ``device``.  ``two_level=False`` skips the
-    L1/L2 build and stores 1-element pads, as the JAX package does on the
-    paths that never select the "twolevel" method; the twolevel step
-    raises on such a table."""
+def device_dec_table(table: CodeTable, lut_bits: int | None = None, *,
+                     two_level: bool = True, device="cuda") -> DeviceDecTable:
+    """The decoder tables on ``device`` (CUDA unless the caller asks for
+    the CPU), with the JAX function's arguments in its order.
+    ``two_level=False`` skips the L1/L2 build and stores 1-element pads, as
+    the JAX package does on the paths that never select the "twolevel"
+    method; the twolevel step raises on such a table."""
+    device = resolve_device(device)
     b = int(lut_bits if lut_bits is not None else max(table.max_len_present, 1))
     lut_sym, lut_len = build_flat_lut(table, b)
     symtab = np.zeros(256, np.int32)

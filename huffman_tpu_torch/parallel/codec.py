@@ -5,10 +5,12 @@ into independent fixed-size blocks at encode time, each rank holds its
 contiguous ``(n_local, B)`` range of them, the code tables are replicated,
 and the global histogram is a local histogram plus an ``all_reduce``.
 Each function here takes and returns the rank's local blocks; the ordered
-gather is `mesh.gather_shards`.  The per-block encode and decode are the
-port's `ops/encode.py::encode_block` and `ops/decode.py::decode_block`
-(XLA code in the JAX package, which ``vmap``s them; a loop over the local
-blocks here), run on the mesh's device.
+gather is `mesh.gather_shards`.  The encode runs the rank's blocks through
+the HTC1 encode kernels B4b-B4d (`ops/gap_encode_kernels.py::
+encode_blocks`, the same function as the JAX package's ``vmap`` of XLA's
+`encode_block`); the decode is `ops/decode.py::decode_block` (a step
+decoder, the JAX package's ``method``) over the local blocks, on the
+mesh's device.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ from __future__ import annotations
 import torch
 
 from .mesh import DataMesh, all_reduce, on_mesh
+from ..constants import MAX_CODEWORD_LENGTH
 from ..ops.decode import decode_block
-from ..ops.encode import encode_block, histogram
+from ..ops.encode import histogram
+from ..ops.gap_encode_kernels import encode_blocks
 from ..ops.tables import DecSpec, DeviceDecTable
 
 __all__ = [
@@ -41,13 +45,15 @@ def make_sharded_encode(mesh: DataMesh, *, seg_bits: int, max_words: int,
     (words (n_local, max_words+1) int32 (the u32 bits), total_bits
     (n_local,), gaps (n_local, n_segs), counts (n_local, n_segs)), int32,
     each the rank's own blocks.  ``enc`` is the (256,) int32 table of
-    `ops.device_enc_table`."""
+    `ops.device_enc_table`.  The kernels size their rows for 16-bit codes
+    (`MAX_CODEWORD_LENGTH`), which fits every table, without reading the
+    table's longest code back to the host."""
 
     def enc_fn(blocks: torch.Tensor, enc: torch.Tensor):
         on_mesh(mesh, blocks, enc)
-        outs = [encode_block(b, enc, seg_bits=seg_bits, max_words=max_words,
-                             n_segs=n_segs) for b in blocks]
-        return tuple(torch.stack(x) for x in zip(*outs))
+        return encode_blocks(blocks, enc, seg_bits=seg_bits,
+                             max_words=max_words, n_segs=n_segs,
+                             max_len=MAX_CODEWORD_LENGTH)
 
     return enc_fn
 

@@ -52,6 +52,7 @@ from . import (
 from .mesh import DataMesh, all_reduce
 from ..core import canonical_code_table, npref, package_merge_lengths
 from ..core.ils_ref import ILS_LANES, ils_n_win
+from ..ops import gap_encode_kernels as ge
 from ..ops import ils_kernels as tk
 from ..ops.tables import dec_spec, device_dec_table, device_enc_table
 from ..utils import generate_redundant
@@ -69,6 +70,8 @@ DEFAULT_SIZES = dict(
 )
 # the ILS kernels the paths must launch on a CUDA mesh
 ILS_WRAPPERS = ("ils_pack", "ils_decode", "ils_pack_certify", "ils_compact")
+# and the HTC1 encode kernels (the sharded encode)
+GAP_WRAPPERS = ("gap_row_pack", "gap_row_meta", "gap_place_bits")
 
 
 def fit_table(hist: np.ndarray):
@@ -183,7 +186,8 @@ def _gap(mesh, out, s):
            "sharded histogram differs from the whole input's")
     table = fit_table(hist.astype(np.int64))
     spec = dec_spec(table)
-    enc, dec = device_enc_table(table, dev), device_dec_table(table, dev)
+    enc = device_enc_table(table, device=dev)
+    dec = device_dec_table(table, device=dev)
     max_words = _cdiv(bb * 16, 32)
     n_segs = _cdiv(max_words * 32, seg_bits)
     words, total_bits, gaps, counts = make_sharded_encode(
@@ -234,8 +238,8 @@ def _faults(mesh, out, s):
         n_segs=_cdiv(max_words * 32, seg_bits),
         max_count=seg_bits // spec.min_len + 1, block_bytes=bb)
     local = torch.from_numpy(data[mesh.rank * nb: (mesh.rank + 1) * nb]).to(dev)
-    dec = device_dec_table(wrong if mesh.rank == 0 else table, dev)
-    _, ok = step(local, device_enc_table(table, dev), dec)
+    dec = device_dec_table(wrong if mesh.rank == 0 else table, device=dev)
+    _, ok = step(local, device_enc_table(table, device=dev), dec)
     _check(int(ok) == 0, "a wrong table on rank 0 still gave ok == 1")
     out["wrong_table_ok"] = int(ok)
 
@@ -279,16 +283,18 @@ def run_paths(mesh: DataMesh, sizes: dict | None = None) -> dict:
     """Every path of the dry run on this rank of ``mesh``, then the fault
     checks; returns its local outputs and the paths' launch counts (a dict
     of arrays and numbers).  Raises on any mismatch; on a CUDA mesh, also
-    where the paths launched none of A1, A2, A3 or A5."""
+    where the paths launched none of A1, A2, A3 or A5, or of B4b-B4d."""
     s = {**DEFAULT_SIZES, **(sizes or {})}
     tk.reset_launch_counts()
+    ge.reset_launch_counts()
     out: dict = {"rank": mesh.rank, "size": mesh.size}
     _ils_roundtrip(mesh, out, s)
     _certified(mesh, out, s)
     _gap(mesh, out, s)
-    launches = tk.launch_counts()
+    launches = {**tk.launch_counts(), **ge.launch_counts()}
     if mesh.device.type == "cuda":
-        missing = [name for name in ILS_WRAPPERS if not launches[name]]
+        missing = [name for name in ILS_WRAPPERS + GAP_WRAPPERS
+                   if not launches[name]]
         _check(not missing, f"kernels not launched: {missing}")
     out.update({f"launches_{name}": c for name, c in launches.items()})
     _faults(mesh, out, s)

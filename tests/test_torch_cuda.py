@@ -219,6 +219,8 @@ def test_gap_kernels_match_plain(cuda, kind, g, b, seg_bits):
     (3 * 65536 + 777, 65536, 1024), (100000, 30000, 128), (1, 4096, 1024),
     # a 128-byte tail at byte offset 1000 (8 mod 16) and 1001 (odd)
     (1128, 1000, 1024), (1129, 1001, 1024),
+    # odd block sizes and ragged tails, every block on the kernels
+    (3 * 1000 + 7, 1000, 128), (2 * 129 + 5, 129, 1024),
 ])
 def test_gap_codec_container_matches_cpu(cuda, n, block_bytes, seg_bits):
     from huffman_tpu_torch import GapArrayCodec, read_container, write_container
@@ -387,7 +389,7 @@ def test_foreign_kernels_match_plain(cuda, kind, n):
     from huffman_tpu_torch.ops.tables import device_dec_table
 
     data, table, words, total_bits = _foreign(kind, n)
-    lim = gd.kernel_tabs(device_dec_table(table, cuda))[0]
+    lim = gd.kernel_tabs(device_dec_table(table, device=cuda))[0]
     w = torch.from_numpy(words.view(np.int32)).to(cuda)
     lens = dict(min_len=table.min_len, max_len=table.max_len_present)
     gd.reset_launch_counts()
@@ -438,7 +440,7 @@ def test_count_segments_redesign_matches_plain(cuda, kind, seg_bits):
     words = words[:-1]
     gaps, counts, _ = npref.segment_metadata(data, table, seg_bits)
     w = torch.from_numpy(words.view(np.int32)).to(cuda)
-    lim = gd.kernel_tabs(device_dec_table(table, cuda))[0]
+    lim = gd.kernel_tabs(device_dec_table(table, device=cuda))[0]
     lens = dict(min_len=table.min_len, max_len=table.max_len_present)
     rng = np.random.default_rng(seg_bits)
     bad = gaps.astype(np.int64) + np.where(
@@ -635,7 +637,7 @@ def test_sync_transitions_redesign_match_plain(cuda, kind, seg_bits):
     words, total_bits, table = _sync_case(kind, max(300_000, 3 * seg_bits))
     if total_bits % seg_bits == 0:
         total_bits -= 5
-    lim = gd.kernel_tabs(device_dec_table(table, cuda))[0]
+    lim = gd.kernel_tabs(device_dec_table(table, device=cuda))[0]
     w = torch.from_numpy(words.view(np.int32)).to(cuda)
     lens = dict(min_len=table.min_len, max_len=table.max_len_present)
     sk.reset_launch_counts()
@@ -663,7 +665,7 @@ def test_sync_transitions_tile_edges(cuda, n_words):
     words = rng.integers(0, 1 << 32, n_words, dtype=np.uint64)
     w = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(cuda)
     table = GapArrayCodec.fit(_gap_data("0.9", 4096), device="cpu").table
-    lim = gd.kernel_tabs(device_dec_table(table, cuda))[0]
+    lim = gd.kernel_tabs(device_dec_table(table, device=cuda))[0]
     for tb in (n_words * 32, n_words * 32 - 1000):
         kw = dict(total_bits=tb, seg_bits=1024, n_subseq=-(-tb // 1024),
                   min_len=table.min_len, max_len=table.max_len_present)
@@ -919,3 +921,109 @@ def test_lengths_chunked_matches_plain(cuda, k, n_tiles, kind, rot):
     with_bits = tk.ils_pack(*args, cbits=cbits, **kw)
     assert torch.equal(with_bits, tk.ils_pack(*args, **kw))
     assert torch.equal(with_bits, tk.ils_pack_plain(*args, **kw))
+
+
+# ----------------------------------------------------------------------
+# B4b and B4c with byte counts: blocks of any size on the kernels
+# ----------------------------------------------------------------------
+def _byte_count_case(cuda, kind, counts, b, seed):
+    """(rows, enc, n_bytes, max_len) on the card: len(counts) blocks of
+    b bytes (b a multiple of 128) of `kind` (`_map_case`'s tables) and
+    their byte counts."""
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
+
+    sample, table = _map_case(kind)
+    data = np.random.default_rng(seed).choice(sample, len(counts) * b)
+    rows = torch.from_numpy(data.view(np.int32).reshape(-1, ge.ROW_WORDS)
+                            .copy()).to(cuda)
+    nb = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    return rows, tk.ils_enc_tabs(table, cuda), nb, max(table.max_len_present, 1)
+
+
+@pytest.mark.parametrize("kind", ["max_len=16", "lacks", "single", "uniform"])
+def test_gap_byte_counts_kernels_match_plain(cuda, kind):
+    # partial last rows, rows past the count and counts of 0, 1 and
+    # 128k+1 inside a group of full blocks, at tile edges of B4b (128
+    # rows) and B4c (up to 512 rows, 16 at seg_bits 8); B4d after them
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
+
+    ge.reset_launch_counts()
+    calls = 0
+    for rpb, counts in (
+        (1, [128, 0, 1, 127, 65, 128]),
+        (8, [1024, 0, 1, 129, 1000, 1023, 513]),
+        (600, [600 * 128, 512 * 128 + 1, 512 * 128, 128 * 128 + 1, 1,
+               0, 77777]),
+    ):
+        rows, enc, nb, max_len = _byte_count_case(cuda, kind, counts,
+                                                  128 * rpb, rpb)
+        cap = ge.row_cap_words(max_len)
+        for c in (cap, 6):
+            got = ge.gap_row_pack(rows, enc, cap_words=c, n_bytes=nb)
+            assert _equal(got, ge.gap_row_pack_plain(rows, enc, cap_words=c,
+                                                     n_bytes=nb)), (rpb, c)
+        pay, bits = got if c == cap else ge.gap_row_pack(
+            rows, enc, cap_words=cap, n_bytes=nb)
+        bits_blk = bits.view(-1, rpb).to(torch.int64)
+        assert not bits_blk[torch.tensor(counts) == 0].any()
+        s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+        top = int(bits_blk.sum(1).max())
+        for seg_bits in (8, 128, 1024):
+            for n_segs in (-(-top // seg_bits) + 1,
+                           max(top // seg_bits // 2, 1)):
+                kw = dict(rows_per_block=rpb, n_segs=n_segs, seg_bits=seg_bits,
+                          n_bytes=nb)
+                assert _equal(
+                    ge.gap_row_meta(rows, enc, s_local, max_len=max_len, **kw),
+                    ge.gap_row_meta_plain(rows, enc, s_local, **kw)), \
+                    (rpb, seg_bits, n_segs)
+                calls += 1
+        kw = dict(rows_per_block=rpb, out_words=top // 32 + 2)
+        assert _equal(ge.gap_place_bits(pay, bits, s_local, **kw),
+                      ge.gap_place_bits_plain(pay, bits, s_local, **kw))
+    counts = ge.launch_counts()
+    assert counts["gap_row_pack"] == 3 * 3
+    assert counts["gap_row_meta"] == calls
+    assert counts["gap_place_bits"] == 3
+
+
+@pytest.mark.parametrize("b", [1, 127, 129, 1000, 1001, 4095])
+def test_encode_blocks_any_size_on_card(cuda, b):
+    # encode_blocks on the card equals its CPU run and encode_block per
+    # block, from a slice at an odd byte offset (F6) and from an aligned
+    # copy, with and without byte counts shorter than B
+    from huffman_tpu_torch.ops import encode as tenc
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
+
+    for kind in ("uniform", "single", "max_len=16"):
+        sample, table = _map_case(kind)
+        g = 3
+        flat = np.random.default_rng(b).choice(sample, g * b + 1)
+        ml = max(table.max_len_present, 1)
+        max_words = -(-(-(-b * ml // 32)) // 512) * 512
+        for seg_bits in (128, 1024):
+            n_segs = -(-max_words * 32 // seg_bits)
+            kw = dict(seg_bits=seg_bits, max_words=max_words, n_segs=n_segs,
+                      max_len=ml)
+            src = torch.from_numpy(flat).to(cuda)
+            for blocks in (src[1:].view(g, b), src[:-1].view(g, b).clone()):
+                for counts in (None, [b, max(b // 2, 1), 1]):
+                    nb = (None if counts is None else
+                          torch.tensor(counts, dtype=torch.int32, device=cuda))
+                    ge.reset_launch_counts()
+                    got = ge.encode_blocks(blocks, tk.ils_enc_tabs(table, cuda),
+                                           n_bytes=nb, **kw)
+                    assert all(ge.launch_counts().values())
+                    ref = ge.encode_blocks(
+                        blocks.cpu(), tk.ils_enc_tabs(table), **kw,
+                        n_bytes=None if nb is None else nb.cpu())
+                    assert _equal(tuple(x.cpu() for x in got), ref), \
+                        (kind, seg_bits, counts)
+                    for i in range(g):
+                        n_i = b if counts is None else counts[i]
+                        one = tenc.encode_block(
+                            blocks[i, :n_i].cpu(), tk.ils_enc_tabs(table),
+                            seg_bits=seg_bits, max_words=max_words,
+                            n_segs=n_segs)
+                        assert _equal(tuple(x[i] for x in ref), one), \
+                            (kind, seg_bits, counts, i)

@@ -54,6 +54,12 @@ CASES = [
     # kernel route gets a slice its int32 view and 16-byte loads cannot take
     ("0.5", 1128, 1000, 1024),
     ("0.5", 1129, 1001, 1024),
+    # odd block sizes with ragged tails: every block through the kernels'
+    # plain versions with its byte count (the JAX package: encode_block)
+    ("0.5", 3 * 1000 + 7, 1000, 128),
+    ("0.9", 2 * 129 + 5, 129, 1024),
+    ("single", 3 * 127 + 1, 127, 128),
+    ("0.1", 2 * 4095 + 4094, 4095, 1024),
     ("0.5", 0, 2048, 1024),  # empty
     ("0.5", 1, 2048, 1024),
     ("single", 5000, 4096, 1024),
@@ -168,8 +174,10 @@ def test_codec_arguments_match_jax():
 
 @pytest.mark.parametrize("kind,g,b,seg_bits", [
     ("0.5", 3, 2048, 1024),
-    ("0.9", 2, 1000, 128),  # not a multiple of 128: the encode_block route
+    # not a multiple of 128 (the JAX package's encode_block route)
+    ("0.9", 2, 1000, 128),
     ("single", 1, 2048, 128),
+    ("0.5", 3, 777, 1024),
 ])
 def test_device_resident_matches_jax(kind, g, b, seg_bits):
     data = _data(kind, g * b)
@@ -233,3 +241,101 @@ def test_large_counts_decode_on_the_device_path():
     dcomp = pc.encode_device(data.reshape(3, 4096))
     assert int(dcomp.counts.max()) == 4096
     assert np.array_equal(pc.decode_device(dcomp).numpy().reshape(-1), data)
+
+
+def test_codec_paths_run_the_encode_kernels_not_encode_block(monkeypatch):
+    # GapArrayCodec.encode (ragged tail), encode_device (odd block size)
+    # and the sharded encode go through encode_blocks' B4b-B4d; the
+    # second encoder, ops/encode.py::encode_block, is never called
+    import huffman_tpu_torch.ops as tops
+    from huffman_tpu_torch import parallel as par
+    from huffman_tpu_torch.models import gap_codec
+    from huffman_tpu_torch.ops import encode as tenc
+    from huffman_tpu_torch.ops import gap_encode_kernels as ge
+    from huffman_tpu_torch.parallel import codec as pcodec
+
+    def refuse(*a, **k):
+        raise AssertionError("encode_block called on a codec path")
+
+    monkeypatch.setattr(tenc, "encode_block", refuse)
+    monkeypatch.setattr(tops, "encode_block", refuse)
+    assert not hasattr(gap_codec, "encode_block")
+    assert not hasattr(pcodec, "encode_block")
+    calls = []
+    for name in ("gap_row_pack", "gap_row_meta", "gap_place_bits"):
+        fn = getattr(ge, name)
+        monkeypatch.setattr(ge, name, lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+
+    data = _data("0.5", 2 * 1000 + 7)
+    pc = GapArrayCodec.fit(data, block_bytes=1000, device="cpu")
+    blob = write_container(pc.encode(data))
+    jc = JCodec.fit(data, block_bytes=1000)
+    assert blob == jwrite(jc.encode(data))
+    # one group of two blocks, then the tail
+    assert calls == ["gap_row_pack", "gap_row_meta", "gap_place_bits"] * 2
+    calls.clear()
+    blocks = data[:2000].reshape(2, 1000)
+    pd = pc.encode_device(torch.from_numpy(blocks.copy()))
+    assert np.array_equal(pc.decode_device(pd).numpy(), blocks)
+    assert len(calls) == 3
+    calls.clear()
+    mesh = par.data_mesh(device="cpu")
+    try:
+        words, total_bits, gaps, counts = par.make_sharded_encode(
+            mesh, seg_bits=pc.seg_bits, max_words=pd.words.shape[1] - 1,
+            n_segs=pd.counts.shape[1])(torch.from_numpy(blocks.copy()), pc.enc)
+    finally:
+        mesh.close()
+    assert len(calls) == 3
+    for a, b in ((words, pd.words), (total_bits, pd.total_bits),
+                 (gaps, pd.gaps), (counts, pd.counts)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("block_bytes", [1024, 1000])
+def test_f13_segments_shorter_than_codes_round_trip(block_bytes):
+    # seg_bits 8 under 16-bit codes: a segment can lie inside one codeword.
+    # encode_block points its gap at the next start; the JAX package's
+    # Pallas route (blocks of a multiple of 128 bytes) points it at
+    # total_bits, which the container's 4-bit gap field cannot hold
+    # (ROADMAP F13).  The port writes encode_block's gaps for every block:
+    # its bytes equal the JAX package's where the JAX package takes
+    # encode_block (1000-byte blocks), and both packages decode them
+    import jax
+    import jax.numpy as jnp
+
+    import huffman_tpu.io.yamamoto as jyam
+    from huffman_tpu.ops import device_enc_table as jdevice_enc_table
+    from huffman_tpu.ops.encode import encode_block as jencode_block
+
+    from huffman_tpu_torch.io import table_from_length_sequence
+
+    syms = np.r_[np.arange(40, 55), 56, 55].astype(np.uint8)
+    lens = np.r_[np.arange(1, 16), 16, 16]
+    rng = np.random.default_rng(0)
+    data = syms[rng.choice(17, size=2 * block_bytes + 300,
+                           p=np.r_[[0.01] * 15, 0.4, 0.45])]
+    jt = jyam.table_from_length_sequence(syms, lens)
+    kw = dict(seg_bits=8, block_bytes=block_bytes)
+    jc = JCodec(jt, **kw)
+    pc = GapArrayCodec(table_from_length_sequence(syms, lens), device="cpu",
+                       **kw)
+    blob = write_container(pc.encode(data))
+    assert np.array_equal(pc.decode(read_container(blob)).numpy(), data)
+    assert np.array_equal(jc.decode(jread(blob)), data)
+    if block_bytes % 128:
+        assert blob == jwrite(jc.encode(data))
+        return
+    # the JAX Pallas route takes about a minute in interpret mode here:
+    # the blocks are held to the JAX encode_block instead
+    blocks = data[: 2 * block_bytes].reshape(2, block_bytes)
+    pd = pc.encode_device(torch.from_numpy(blocks.copy()))
+    max_words, n_segs = pd.words.shape[1] - 1, pd.gaps.shape[1]
+    ref = jax.vmap(lambda d: jencode_block(
+        d, jdevice_enc_table(jt), seg_bits=8, max_words=max_words,
+        n_segs=n_segs))(jnp.asarray(blocks))
+    for name, r in zip(("words", "total_bits", "gaps", "counts"), ref):
+        a = getattr(pd, name).numpy()
+        assert np.array_equal(a.view(np.uint32) if name == "words" else a,
+                              np.asarray(r)), name

@@ -73,7 +73,8 @@ def test_tables_and_spec_match(kind):
     jenc, penc = jdevice_enc_table(jt), ils_enc_tabs(pt).numpy()
     assert np.array_equal(penc >> 20, np.asarray(jenc.lengths))
     assert np.array_equal(penc & 0xFFFF, np.asarray(jenc.codes))
-    jdec, pdec = jdevice_dec_table(jt, two_level=False), tt.device_dec_table(pt)
+    jdec = jdevice_dec_table(jt, two_level=False)
+    pdec = tt.device_dec_table(pt, device="cpu")
     for f in ("lim_left", "offsets", "first_code", "symtab"):
         assert np.array_equal(getattr(pdec, f).numpy(),
                               np.asarray(getattr(jdec, f))), f
@@ -115,7 +116,7 @@ def _ranks_case(data, pt, seg_bits):
 
 def _port_ranks(words, gaps, counts, pt, seg_bits, max_count):
     spec = tt.dec_spec(pt)
-    lim, bias = gd.kernel_tabs(tt.device_dec_table(pt))
+    lim, bias = gd.kernel_tabs(tt.device_dec_table(pt, device="cpu"))
     return gd.gap_decode_ranks(
         _t(words.view(np.int32))[None], _t(gaps)[None], _t(counts)[None], lim,
         bias, seg_bits=seg_bits, max_count=max_count, min_len=spec.min_len,
@@ -170,7 +171,7 @@ def test_decode_ranks_blocks_read_zeros_past_words():
         counts[g, : c.size] = c
     words[1, cases[1][0].size:] = 0xFFFFFFFF  # past block 1's payload
     spec = tt.dec_spec(pt)
-    lim, bias = gd.kernel_tabs(tt.device_dec_table(pt))
+    lim, bias = gd.kernel_tabs(tt.device_dec_table(pt, device="cpu"))
     mc = int(counts.max())
     kw = dict(seg_bits=256, max_count=mc, min_len=spec.min_len,
               max_len=spec.max_len)
@@ -426,7 +427,7 @@ _I32_MAX = 2**31 - 1
 
 
 def _b4c_tiles(data_rows, lens, s_local, rows_per_block, n_segs, seg_bits,
-               max_len, tile_rows=None, seed=0):
+               max_len, tile_rows=None, seed=0, n_bytes=None):
     """A NumPy model of csrc/gap_encode.cu's B4c: tiles of `meta_tile`'s R
     rows (or `tile_rows`) of one HTC1 block each, taken in a random order;
     8 lanes a row, 16 symbols a lane, a lane's head past one segment
@@ -436,7 +437,12 @@ def _b4c_tiles(data_rows, lens, s_local, rows_per_block, n_segs, seg_bits,
     tile's window of segments, or straight to the block's metadata outside
     it, or are dropped outside [0, n_segs).  Then segments strictly inside
     (base, hi) are assigned (a plain store: a neighbour's count there would
-    be lost) and the rest of the window is added (the atomics)."""
+    be lost) and the rest of the window is added (the atomics).  With byte
+    counts (`n_bytes`, one a block) a tile takes only its rows that hold
+    symbols, the last of them ending at its block's count: a lane holds
+    the symbols before that end, a lane without any has no head, the last
+    run of a row ends there and hi is the segment of the tile's last
+    symbol (base where the tile has none)."""
     n_rows = data_rows.shape[0]
     g_n = n_rows // rows_per_block
     shift = seg_bits.bit_length() - 1
@@ -450,8 +456,15 @@ def _b4c_tiles(data_rows, lens, s_local, rows_per_block, n_segs, seg_bits,
     np.random.default_rng(seed).shuffle(tiles)
     for g, t0 in tiles:
         nv = min(rows, rows_per_block - t0)
+        last_bytes = 128
+        if n_bytes is not None:
+            rest = int(n_bytes[g]) - t0 * 128
+            nv = min(nv, -(-rest // 128) if rest > 0 else 0)
+            if nv:
+                last_bytes = min(rest - (nv - 1) * 128, 128)
         r0 = g * rows_per_block + t0
         base = int(s_local[r0]) >> shift
+        hi = base
         cnt_s = np.zeros(window, np.int64)
         fst_s = np.full(window, _I32_MAX, np.int64)
 
@@ -465,12 +478,16 @@ def _b4c_tiles(data_rows, lens, s_local, rows_per_block, n_segs, seg_bits,
                 firsts[g, seg] = min(firsts[g, seg], first)
 
         for r in range(r0, r0 + nv):
-            ln = lens[data_rows[r]]
+            row_end = last_bytes if r == r0 + nv - 1 else 128
+            ln = np.where(np.arange(128) < row_end, lens[data_rows[r]], 0)
             a = int(s_local[r]) + np.cumsum(ln) - ln
             seg = a >> shift
             heads = []  # per lane: its head positions
             for lane in range(8):
-                q = np.arange(16 * lane, 16 * lane + 16)
+                q = np.arange(16 * lane, min(16 * lane + 16, row_end))
+                if q.size == 0:
+                    heads.append([])
+                    continue
                 seg0, seg_last = int(seg[q[0]]), int(seg[q[-1]])
                 head0 = lane == 0 or seg0 != seg[q[0] - 1]
                 if seg_last - seg0 <= 1:
@@ -484,14 +501,14 @@ def _b4c_tiles(data_rows, lens, s_local, rows_per_block, n_segs, seg_bits,
                     h = [p for p in q if (p == q[0] and head0)
                          or (p != q[0] and seg[p] != seg[p - 1])]
                 heads.append(h)
-            first_head = [h[0] if h else 128 for h in heads]
+            first_head = [h[0] if h else row_end for h in heads]
             for lane in range(8):
-                nxt = min(first_head[lane + 1:], default=128)
+                nxt = min(first_head[lane + 1:], default=row_end)
                 ends = heads[lane][1:] + [nxt]
                 for p, e in zip(heads[lane], ends):
                     put(int(seg[p]), e - p, int(a[p]))
             if r == r0 + nv - 1:
-                hi = int(seg[-1])
+                hi = int(seg[row_end - 1])
         for j in range(window):
             sg = base + j
             if not 0 <= sg < n_segs:
@@ -805,7 +822,7 @@ def _c1_case(kind, n, seed=1):
 
 
 def _c1_lim(pt):
-    lim = gd.kernel_tabs(tt.device_dec_table(pt))[0]
+    lim = gd.kernel_tabs(tt.device_dec_table(pt, device="cpu"))[0]
     return lim, lim.numpy().astype(np.int64) & _M32
 
 
@@ -934,10 +951,26 @@ def test_wrappers_reject_bad_input():
                         torch.zeros(256, dtype=torch.int32),
                         torch.zeros(2, dtype=torch.int64), rows_per_block=2,
                         n_segs=4, seg_bits=128, max_len=17)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        ge.encode_blocks(torch.zeros((1, 100), dtype=torch.uint8),
+    # blocks of any size but 0 bytes; byte counts one a block, int32
+    with pytest.raises(ValueError, match="at least one byte"):
+        ge.encode_blocks(torch.zeros((1, 0), dtype=torch.uint8),
                          torch.zeros(256, dtype=torch.int32), seg_bits=128,
                          max_words=512, n_segs=128, max_len=8)
+    with pytest.raises(ValueError, match="n_bytes must be"):
+        ge.encode_blocks(torch.zeros((2, 100), dtype=torch.uint8),
+                         torch.zeros(256, dtype=torch.int32), seg_bits=128,
+                         max_words=512, n_segs=128, max_len=8,
+                         n_bytes=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        ge.gap_row_pack(torch.zeros((2, 32), dtype=torch.int32),
+                        torch.zeros(256, dtype=torch.int32), cap_words=4,
+                        n_bytes=torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="n_bytes must be"):
+        ge.gap_row_meta(torch.zeros((4, 32), dtype=torch.int32),
+                        torch.zeros(256, dtype=torch.int32),
+                        torch.zeros(4, dtype=torch.int64), rows_per_block=2,
+                        n_segs=4, seg_bits=128,
+                        n_bytes=torch.zeros(1, dtype=torch.int32))
     z = torch.zeros(32, dtype=torch.int32)
     with pytest.raises(ValueError, match="invalid decode shape"):
         gd.gap_decode_ranks(torch.zeros((1, 4), dtype=torch.int32),
@@ -950,3 +983,165 @@ def test_wrappers_reject_bad_input():
                            torch.zeros(1, dtype=torch.int64, device="meta"),
                            torch.zeros(256, dtype=torch.int32, device="meta"),
                            n_out=4)
+
+
+# ----------------------------------------------------------------------
+# Blocks of any size: B4b and B4c with byte counts, encode_blocks
+# ----------------------------------------------------------------------
+def _any_size_tables(kind):
+    """(jax table, port table, sample): a one-symbol table, or one holding
+    all 256 symbols at lengths up to 16."""
+    if kind == "single":
+        sample = np.full(4096, 7, np.uint8)
+    else:
+        sample = np.concatenate([np.arange(256, dtype=np.uint8),
+                                 generate_redundant(8192, 0.7, seed=12)])
+    jt, pt = _tables(sample)
+    return jt, pt, sample
+
+
+def _sizing(pt, b, seg_bits):
+    """encode_device's max_words and n_segs for blocks of b bytes."""
+    max_words = -(-(-(-b * pt.max_len_present // 32)) // 512) * 512
+    return max_words, -(-max_words * 32 // seg_bits)
+
+
+def _equal_outputs(got, ref, what):
+    names = ("words", "total_bits", "gaps", "counts")
+    for name, a, r in zip(names, got, ref):
+        a, r = np.asarray(a), np.asarray(r)
+        if name == "words":
+            a, r = a.view(np.uint32), r.view(np.uint32)
+        assert a.shape == r.shape and np.array_equal(a, r), (what, name)
+
+
+@pytest.mark.parametrize("kind", ["single", "all256"])
+@pytest.mark.parametrize("seg_bits", [128, 1024])
+@pytest.mark.parametrize("b", [1, 127, 129, 1000, 1001, 4095])
+def test_encode_blocks_any_size_match_jax(b, seg_bits, kind):
+    # blocks of B bytes, B no multiple of 128 but 1: B4b and B4c take each
+    # block's byte count, the rows are the blocks zero-padded; block for
+    # block the JAX package's encode_block (its route for such blocks)
+    jt, pt, sample = _any_size_tables(kind)
+    g = 3
+    blocks = np.random.default_rng(b + seg_bits).choice(sample, (g, b))
+    max_words, n_segs = _sizing(pt, b, seg_bits)
+    enc = ils_enc_tabs(pt)
+    got = ge.encode_blocks(torch.from_numpy(blocks), enc, seg_bits=seg_bits,
+                           max_words=max_words, n_segs=n_segs,
+                           max_len=pt.max_len_present)
+    jenc = jdevice_enc_table(jt)
+    ref = jax.vmap(lambda d: jencode_block(
+        d, jenc, seg_bits=seg_bits, max_words=max_words, n_segs=n_segs))(
+        jnp.asarray(blocks))
+    _equal_outputs(got, ref, "encode_blocks")
+    # B4b's bits and B4c's counts with the byte counts, at their shapes
+    rows_b = -(-b // 128)
+    padded = np.zeros((g, rows_b * 128), np.uint8)
+    padded[:, :b] = blocks
+    rows = torch.from_numpy(padded).view(torch.int32).view(-1, 32)
+    nb = torch.full((g,), b, dtype=torch.int32)
+    cap = ge.row_cap_words(pt.max_len_present)
+    pay, bits = ge.gap_row_pack_plain(rows, enc, cap_words=cap, n_bytes=nb)
+    bits_blk = bits.view(g, rows_b).to(torch.int64)
+    assert np.array_equal(bits_blk.sum(1).numpy(), np.asarray(ref[1]))
+    s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+    counts, _ = ge.gap_row_meta_plain(rows, enc, s_local, rows_per_block=rows_b,
+                                      n_segs=n_segs, seg_bits=seg_bits,
+                                      n_bytes=nb)
+    assert np.array_equal(counts.numpy(), np.asarray(ref[3]))
+    # without the counts the padding would be symbols
+    if b % 128 and kind == "all256":
+        _, bits0 = ge.gap_row_pack_plain(rows, enc, cap_words=cap)
+        assert int(bits0.sum()) > int(bits.sum())
+
+
+@pytest.mark.parametrize("case", [
+    # (kind, B, byte counts, seg_bits, cut): a tail sharing a group with
+    # full blocks; counts of 0, 1 and 128k+1; payload words and segments
+    # cut short (the spare word, the starts past the last segment)
+    ("all256", 4096, [4096, 0, 1, 128 * 5 + 1], 1024, False),
+    ("all256", 1000, [1000, 999, 129, 128], 128, False),
+    ("single", 4096, [4096, 4095, 1], 128, False),
+    ("all256", 4096, [4096, 3000], 128, True),
+    ("all256", 1001, [1001, 1], 1024, True),
+    ("single", 777, [777], 128, True),
+])
+def test_encode_blocks_byte_counts_match_encode_block(case):
+    # encode_blocks with explicit byte counts against the port's
+    # encode_block (held to the JAX one above) on each block's own bytes
+    kind, b, counts, seg_bits, cut = case
+    _, pt, sample = _any_size_tables(kind)
+    g = len(counts)
+    blocks = np.random.default_rng(b + g).choice(sample, (g, b))
+    max_words, n_segs = _sizing(pt, b, seg_bits)
+    if cut:
+        bits = pt.lengths.astype(np.int64)[blocks[0]].sum()
+        max_words, n_segs = int(bits // 64), max(int(bits // seg_bits // 2), 1)
+    enc = ils_enc_tabs(pt)
+    kw = dict(seg_bits=seg_bits, max_words=max_words, n_segs=n_segs)
+    got = ge.encode_blocks(torch.from_numpy(blocks), enc,
+                           max_len=pt.max_len_present,
+                           n_bytes=torch.tensor(counts, dtype=torch.int32), **kw)
+    for i, nb in enumerate(counts):
+        if nb == 0:
+            # no symbol: no bits, no start
+            assert int(got[1][i]) == 0 and not got[0][i].any()
+            assert not got[2][i].any() and not got[3][i].any()
+            continue
+        ref = tenc.encode_block(torch.from_numpy(blocks[i, :nb].copy()), enc,
+                                **kw)
+        _equal_outputs([x[i] for x in got], ref, (case, i))
+
+
+@pytest.mark.parametrize("case", [
+    # (kind, blocks, bytes a block, byte counts, seg_bits, tile rows)
+    ("0.5", 4, 4096, [4096, 0, 1, 128 * 5 + 1], 1024, None),
+    ("0.5", 3, 4096, [1000, 4096, 2177], 8, None),  # several boundaries a lane
+    ("lacks", 2, 4096, [3000, 129], 128, 3),        # length-0 bytes
+    ("single", 2, 2048, [2047, 1], 8, 1),           # a tile a row
+    ("uniform", 3, 1024, [1024, 127, 513], 64, 5),
+    ("0.9", 2, 4096, [4095, 2000], 16, 2),
+])
+def test_b4c_tile_model_with_byte_counts_matches_plain(case):
+    # the kernel's handling of byte counts (partial last rows, rows past
+    # the count, a lane without symbols, hi from the last symbol) in the
+    # NumPy model of its tiles, against the plain version, whose counts
+    # and firsts give encode_block's metadata
+    kind, g, b, counts, seg_bits, tile_rows = case
+    data = _input("0.5" if kind == "lacks" else kind, g * b, 10)
+    if kind == "lacks":
+        data[::37] = 200 + np.arange(data[::37].size) % 56
+        _, pt = _lacking_table(data)
+    else:
+        _, pt = _tables(data)
+    lens = pt.lengths.astype(np.int64)
+    enc = ils_enc_tabs(pt)
+    nb = torch.tensor(counts, dtype=torch.int32)
+    rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
+    max_len = max(pt.max_len_present, 1)
+    _, bits = ge.gap_row_pack(rows, enc, cap_words=ge.row_cap_words(max_len),
+                              n_bytes=nb)
+    bits_blk = bits.view(g, -1).to(torch.int64)
+    s_local = (torch.cumsum(bits_blk, 1) - bits_blk).reshape(-1)
+    n_segs = -(-int(bits_blk.sum(1).max()) // seg_bits) + 1
+    kw = dict(rows_per_block=b // 128, n_segs=n_segs, seg_bits=seg_bits)
+    ref = ge.gap_row_meta_plain(rows, enc, s_local, n_bytes=nb, **kw)
+    for ml, seed in ((max_len, 0), (1, 1)):
+        model = _b4c_tiles(data.reshape(-1, 128), lens, s_local.numpy(),
+                           max_len=ml, tile_rows=tile_rows, seed=seed,
+                           n_bytes=counts, **kw)
+        for a, r in zip(model, ref):
+            assert np.array_equal(a, r.numpy()), ml
+    # the plain version with counts is encode_block's metadata of each
+    # block's own bytes
+    for i, c in enumerate(counts):
+        if c == 0:
+            assert not ref[0][i].any()
+            continue
+        blk = torch.from_numpy(data[i * b : i * b + c].copy())
+        _, tb, gaps, cnt = tenc.encode_block(
+            blk, enc, seg_bits=seg_bits, max_words=n_segs * seg_bits // 32,
+            n_segs=n_segs)
+        assert int(tb) == int(bits_blk[i].sum())
+        assert np.array_equal(ref[0][i].numpy(), cnt.numpy())

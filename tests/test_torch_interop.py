@@ -93,7 +93,7 @@ def _encoded(kind, n, seed=1):
 
 
 def _lim(pt):
-    return gd.kernel_tabs(tt.device_dec_table(pt))[0]
+    return gd.kernel_tabs(tt.device_dec_table(pt, device="cpu"))[0]
 
 
 def _t32(x):

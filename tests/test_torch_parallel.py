@@ -25,6 +25,7 @@ from huffman_tpu.ops.pallas.ils_kernels import ils_enc_tabs as jenc_tabs
 from huffman_tpu_torch import IlsCodec
 from huffman_tpu_torch import parallel as tpar
 from huffman_tpu_torch.core.ils_ref import ILS_LANES, ils_n_win
+from huffman_tpu_torch.ops import gap_encode_kernels as ge
 from huffman_tpu_torch.ops import ils as tils
 from huffman_tpu_torch.ops import ils_kernels as tk
 from huffman_tpu_torch.parallel import dryrun as tdr
@@ -293,7 +294,8 @@ def test_band_fault_input_violates_on_rank_zero_only():
 def test_plain_versions_count_no_launch(ranks, world):
     for r in ranks(world):
         counts = {k: int(v) for k, v in r.items() if k.startswith("launches_")}
-        assert set(counts) == {f"launches_{n}" for n in tk.launch_counts()}
+        assert set(counts) == {f"launches_{n}" for n in
+                               {**tk.launch_counts(), **ge.launch_counts()}}
         assert not any(counts.values())
 
 

@@ -95,7 +95,7 @@ def test_decode_tables_match(kind):
     assert tt.dec_spec(pt).__dict__ == jdec_spec(jt).__dict__
     for two_level in (True, False):
         jdec = jdevice_dec_table(jt, two_level=two_level)
-        pdec = tt.device_dec_table(pt, "cpu", two_level=two_level)
+        pdec = tt.device_dec_table(pt, two_level=two_level, device="cpu")
         # the JAX package's eleven fields, the kernels' four first
         assert set(pdec._fields) == set(jdec._fields)
         assert pdec._fields[:4] == ("lim_left", "offsets", "first_code",
@@ -124,7 +124,7 @@ def test_step_decoders_match(stream, method, seg_bits):
     gaps = gaps.astype(np.int32)
     mc = int(counts.max())
     jdec, jspec = jdevice_dec_table(jt), jdec_spec(jt)
-    pdec, pspec = tt.device_dec_table(pt), tt.dec_spec(pt)
+    pdec, pspec = tt.device_dec_table(pt, device="cpu"), tt.dec_spec(pt)
     jw, jg = jnp.asarray(words), jnp.asarray(gaps)
     pw, pg = torch.from_numpy(words.view(np.int32)), torch.from_numpy(gaps)
     ref = jdecode_block(jw, jg, jnp.asarray(counts), jdec, spec=jspec,
@@ -157,12 +157,14 @@ def test_step_decoder_errors_match(stream):
             jdecode_block(*jargs, jdevice_dec_table(jt, two_level=two_level),
                           spec=jdec_spec(jt), method=method, **kw)
         with pytest.raises(ValueError) as perr:
-            td.decode_block(*pargs, tt.device_dec_table(pt, two_level=two_level),
+            td.decode_block(*pargs, tt.device_dec_table(
+                pt, two_level=two_level, device="cpu"),
                             spec=tt.dec_spec(pt), method=method, **kw)
         assert str(perr.value) == str(jerr.value)
         with pytest.raises(ValueError, match=str(jerr.value)[:30]):
             td.count_segments(pargs[0], pargs[1], 32 * words.size,
-                              tt.device_dec_table(pt, two_level=two_level),
+                              tt.device_dec_table(pt, two_level=two_level,
+                                                  device="cpu"),
                               spec=tt.dec_spec(pt), seg_bits=1024, max_count=4,
                               method=method)
 
@@ -205,7 +207,7 @@ def test_encode_block_fast_matches_encode_block(gen, seg_bits):
     assert np.array_equal(got[0].numpy().view(np.uint32), np.asarray(ref[0]))
     for g, r in zip(got[2:], ref[2:]):
         assert np.array_equal(g.numpy(), np.asarray(r))
-    # and the port's own encode_block, the codec's ragged route
+    # and the port's own encode_block, the tests' oracle
     for g, r in zip(got, tenc.encode_block(torch.from_numpy(data), enc, **kw)):
         assert torch.equal(g, r)
 
