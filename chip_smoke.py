@@ -4,7 +4,7 @@ file path, the foreign-stream (Yamamoto, self-sync) decoders, the
 command line and the multi-device paths end to end on one GPU.
 
     python3 chip_smoke.py [--size BYTES] [--tail BYTES] [--redundancy R]
-                          [--gap-block BYTES]
+                          [--gap-block BYTES] [--fuzz-seed S] [--fuzz-iters N]
 
 Needs one CUDA card and ``nvcc``; builds the kernels from ``huffman_tpu_torch/
 csrc`` itself.  Imports no JAX and nothing of `huffman_tpu`.  Phases (any
@@ -171,6 +171,17 @@ failure raises and exits non-zero with the traceback):
    fault checks: the rank-ordered certified section equals
    ils_encode_to_device's on the same 64 MiB, every decode bit-exact,
    each rank's launches of A1, A2, A3, A5 and B4b-B4d.
+15c. The differential fuzz soak (`tools/fuzz_torch.py`, `fuzz_phase`):
+   --fuzz-iters cases (default FUZZ_ITERS) of --fuzz-seed (default 0) at
+   the tool's defaults (up to 8 MiB a case, the 15th of every 16 up to 64
+   MiB; a secondary case every fourth, its five kinds in turn).  Every
+   case is bit-exact on the card, its container bytes equal the CPU's
+   (the plain versions), and the ILS section and HTC1 blocks equal the
+   NumPy oracles; a divergence raises the tool's reproducer line.  The
+   launch counts are set to 0 first; each wrapper's launches, the cases
+   it ran in and the distinct case shapes (the tool's `SHAPE_KEYS`) are
+   logged, and a wrapper of KERNELS that ran in fewer than FUZZ_MIN_CASES
+   cases fails the phase.
 16. One JSON line per kernel list (name, route, source, replaces, launches,
    max_abs_err, ms, ms_by, wrapper_ms, plain_ms, bound_ms, bound_by,
    library_ms):
@@ -191,7 +202,8 @@ failure raises and exits non-zero with the traceback):
    "portable", phase 4c's under "ratio", and B1/B2/C1/C2 at the foreign
    paths' shapes under
    "yamamoto"."kernels" and "selfsync"."kernels", phase 13's under "file",
-   phase 14's under "cli", phase 15's under "parallel".  A5 and A1 also
+   phase 14's under "cli", phase 15's under "parallel", phase 15c's
+   under "fuzz" (and each kernel's row its own "fuzz").  A5 and A1 also
    carry "full_band" (phase 15a's shape) and, with A2, A3 and B4b-B4d,
    their phase-15 launches ("parallel_launches").  The rows of A1, A2,
    A4, A5, B1, B2, B4b-B4d, C1 and C2 also carry their "ptxas" report.  Then the card
@@ -222,6 +234,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# phase 15c's default count of fuzz cases
+FUZZ_ITERS = 64
 KERNELS = {
     # wrapper name -> (source, TPU kernel it replaces)
     "ils_decode": ("huffman_tpu_torch/csrc/ils_decode.cu",
@@ -890,7 +904,7 @@ def portable_cases(stats, ns, data, table, label, dev, decodable=True):
     counts at seg_bits=128)."""
     em, tenc, step, tk, tt = ns.em, ns.tenc, ns.step, ns.tk, ns.tt
     d = torch.from_numpy(data).to(dev)
-    enc = tk.ils_enc_tabs(table, dev)
+    enc = tk.ils_enc_tabs(table, device=dev)
     stats.check("encode_map", em.encode_map(d, enc), em.encode_map_plain(d, enc),
                 label)
     dec, spec = tt.device_dec_table(table, device=dev), tt.dec_spec(table)
@@ -1744,7 +1758,7 @@ def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
     cwords = torch.from_numpy(cdata.view(np.int32).reshape(-1, ILS_LANES)
                               .copy()).cuda()
     rows2, _, p2 = tils.ils_encode_to_device(
-        cwords, tk.ils_enc_tabs(ctable, "cuda"), k=s["cert_k"],
+        cwords, tk.ils_enc_tabs(ctable, device="cuda"), k=s["cert_k"],
         avg_bits=float(rk[0]["cert_rot0_avg_bits"]),
         max_len=ctable.max_len_present, rot=False)
     per_rank = p2.w_tiles.reshape(2, -1).sum(axis=1)
@@ -1798,6 +1812,46 @@ def parallel_phase(stats, tk, tils, codec, data, main_sec, card, e2e_ms):
         "phase_s": phase_s,
     }, full_band, launches_a, launches_b
 
+
+# the cases in which each kernel of KERNELS must have launched
+FUZZ_MIN_CASES = 3
+
+
+def fuzz_phase(seed, iters, card):
+    """Phase 15c: the differential fuzz soak (`tools/fuzz_torch.py`) on
+    the card, cases 0..iters-1 of ``seed`` at the tool's defaults.  Each
+    case holds its kernels to the data, to their plain versions (card ==
+    CPU container bytes) and to the NumPy oracles; a divergence raises the
+    tool's reproducer line.  The launch counts are set to 0 first; each
+    wrapper of KERNELS must launch in at least FUZZ_MIN_CASES cases."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "fuzz_torch.py")
+    spec = importlib.util.spec_from_file_location("fuzz_torch", path)
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    log(f"phase 15c: the fuzz soak, seed {seed}, {iters} cases, at most "
+        f"{fuzz.MAX_BYTES} B a case ({card})")
+    for m in (fuzz.ils_kernels, fuzz.gap_decode_kernels,
+              fuzz.gap_encode_kernels, fuzz.selfsync_kernels,
+              fuzz.encode_map_kernels):
+        m.reset_launch_counts()
+    r = fuzz.soak(seed, 0, iters, torch.device("cuda"),
+                  log=lambda line: log("  " + line))
+    per_kernel = {name: r["kernels"][name] for name in KERNELS}
+    for name, k in per_kernel.items():
+        log(f"  {name:18s} launches={k['launches']} cases={k['cases']} "
+            f"shapes={k['shapes']}")
+    log(f"  phase 15c took {r['seconds']:.1f} s: {iters} cases, seed {seed}, "
+        f"legs {r['legs']} ({card})")
+    short = [name for name, k in per_kernel.items()
+             if k["cases"] < FUZZ_MIN_CASES]
+    if short:
+        raise AssertionError(f"phase 15c: kernels launched in fewer than "
+                             f"{FUZZ_MIN_CASES} cases: {short} {per_kernel}")
+    return {"seed": seed, "cases": iters, "legs": r["legs"],
+            "phase_s": r["seconds"], "card": card, "kernels": per_kernel}
 
 def portable_block(stats, ns, bcodec, blocks, yblob, ydata):
     """Phase 12: the portability path at phase 7's block (and phase 9's
@@ -1909,6 +1963,10 @@ def main(argv=None) -> int:
                     help="share of the end-to-end input drawn from 'A'..'D'")
     ap.add_argument("--gap-block", type=int, default=1 << 26,
                     help="bytes of the timed HTC1 block (at most --size)")
+    ap.add_argument("--fuzz-seed", type=int, default=0,
+                    help="seed of phase 15c's fuzz cases")
+    ap.add_argument("--fuzz-iters", type=int, default=FUZZ_ITERS,
+                    help="phase 15c's fuzz cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2526,6 +2584,9 @@ def main(argv=None) -> int:
     par_summary, full_band, par_a, par_b = parallel_phase(
         stats, tk, tils, codec, data, main_sec, card, (enc_med, dec_med, n))
 
+    # ---- 15c. the fuzz soak
+    fuzz_summary = fuzz_phase(args.fuzz_seed, args.fuzz_iters, card)
+
     # ---- 16. results
     def times(t):
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
@@ -2574,6 +2635,7 @@ def main(argv=None) -> int:
                "checks": stats.rows[name]["checks"],
                **times(main_timing.get(name, {})),
                **({"ptxas": ptxas[name]} if name in ptxas else {}),
+               "fuzz": fuzz_summary["kernels"][name],
                **({"parallel_launches": {"nccl_world1": par_a[name],
                                          "gloo_world2": [b[name] for b in par_b]}}
                   if name in par_a else {})}
@@ -2632,6 +2694,7 @@ def main(argv=None) -> int:
         "file": file_summary,
         "cli": cli_summary,
         "parallel": par_summary,
+        "fuzz": {key: v for key, v in fuzz_summary.items() if key != "kernels"},
     }))
     log(f"chip_smoke took {time.perf_counter() - t_main:.1f} s")
     log(card)

@@ -12,7 +12,9 @@ UNIT_BITS = 32
 SEG_BITS = 1024
 REF_SEG_BITS = 128
 GAP_BITS = 4  # bits per gap element (max_len <= 16 keeps gaps in [0, 15])
-COUNT_BITS = 12  # bits per segment symbol count; SEG_BITS <= 4096 fits
+# bits per segment symbol count: a segment holds up to seg_bits / min_len
+# codewords, so 4096 bits of 1-bit codes already overflow (ROADMAP.md F16)
+COUNT_BITS = 12
 
 # Uncompressed bytes per HTC1 block; blocks are encoded independently.
 DEFAULT_BLOCK_BYTES = 1 << 24  # 16 MiB

@@ -52,7 +52,7 @@ import zlib
 import numpy as np
 import torch
 
-from ..constants import GAP_BITS
+from ..constants import COUNT_BITS, GAP_BITS
 from ..core.canonical import CodeTable, canonical_code_table
 from ..core.ils_ref import (
     ILS_LANES,
@@ -114,6 +114,14 @@ def container_kind(buf: bytes) -> str:
 def _htc_block_parts(comp):
     for words, gaps, counts in zip(comp.block_words, comp.block_gaps,
                                    comp.block_counts):
+        # the u16 holds a count of COUNT_BITS bits; a larger one would wrap
+        # into a container that no reader decodes (ROADMAP.md F16), which
+        # the JAX package writes without a word
+        if counts.size and int(counts.max()) >= 1 << COUNT_BITS:
+            raise ValueError(
+                f"an HTC1 segment holds {int(counts.max())} codewords, over "
+                f"the container's {COUNT_BITS}-bit count; use a smaller "
+                f"seg_bits than {comp.seg_bits}")
         meta = (counts.astype(np.uint16) << GAP_BITS) | gaps.astype(np.uint16)
         yield meta.tobytes()
         yield words.astype(np.uint32).tobytes()

@@ -156,7 +156,11 @@ def decode_seq(buf: bytes, *, selfsync: bool = True, device="cuda") -> torch.Ten
     ``selfsync=True`` finds the codeword boundaries with the
     self-synchronising decoder (no encoder-side metadata needed);
     ``selfsync=False`` runs the host LUT walk (for small inputs).  The JAX
-    package calls this switch ``device``."""
+    package calls this switch ``device``, and a bool ``device`` means what
+    it means there: ``True`` the self-synchronising decoder on the card,
+    ``False`` the host walk, its bytes on the CPU."""
+    if isinstance(device, bool):
+        selfsync, device = device, "cuda" if device else "cpu"
     dev = resolve_device(device)
     if len(buf) == 0:
         return torch.zeros(0, dtype=torch.uint8, device=dev)

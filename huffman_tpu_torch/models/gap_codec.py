@@ -127,7 +127,7 @@ class GapArrayCodec:
         self.seg_bits = int(seg_bits)
         self.block_bytes = int(block_bytes)
         self.method = "pallas" if method is None else method
-        self.enc = ils_enc_tabs(table, self.device)  # (len << 20) | code
+        self.enc = ils_enc_tabs(table, device=self.device)  # (len << 20) | code
         self.dec = device_dec_table(table, two_level=self.method == "twolevel",
                                     device=self.device)
         self.spec = dec_spec(table)

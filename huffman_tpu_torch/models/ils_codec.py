@@ -74,8 +74,8 @@ class IlsCodec:
                  rotate: bool | str = "auto"):
         self.device = resolve_device(device)
         self.table = table
-        self.enc = ils_enc_tabs(table, self.device)
-        self.dec = ils_dec_tabs(table, self.device)
+        self.enc = ils_enc_tabs(table, device=self.device)
+        self.dec = ils_dec_tabs(table, device=self.device)
         self.k = int(k) if k else pick_k(8.0, optimize)
         # "auto" decides per section from the certified band; decode always
         # follows the container

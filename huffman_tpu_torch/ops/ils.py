@@ -35,6 +35,7 @@ from .ils_kernels import (
     ils_pack_certify,
     ils_pack_certify_stream,
     ils_stream_span_rows,
+    resolve_device,
 )
 
 __all__ = [
@@ -86,24 +87,6 @@ PREFER_STREAM_PACK = False
 # bodies per grid chunk of the streaming pack; it sets that pack's flush
 # cadence (`flush_group`) and its span
 _STREAM_CHUNK_CAP = CHUNK_I
-
-
-def resolve_device(device) -> torch.device:
-    """The entry points' device: CUDA unless the caller asks for the CPU.
-
-    A CUDA device without a usable card raises here rather than running the
-    plain versions quietly on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "huffman_tpu_torch runs on a CUDA device by default, but "
-                "torch.cuda.is_available() is False; pass device='cpu' to "
-                "run the plain PyTorch versions"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def fused_e_band(k: int) -> int:
@@ -452,10 +435,13 @@ def ils_decode_device(
     table: CodeTable,
     dec: IlsDecTabs,
     *,
+    probe: bool | None = None,
     device="cuda",
 ) -> torch.Tensor:
     """Decode one section back to flat uint8 bytes (n_tiles * k * 1024 of
-    them) on ``device``."""
+    them) on ``device``.  ``probe`` (the JAX package's choice of a TPU
+    symbol step) is accepted and changes nothing: the kernel always takes
+    lengths from its table."""
     dev = resolve_device(device)
     p = section.params
     if not (1 <= p.w_band <= p.w_cap // 2):

@@ -35,6 +35,7 @@ __all__ = [
     "IlsDecTabs",
     "ils_enc_tabs",
     "ils_dec_tabs",
+    "resolve_device",
     "ils_lengths_pass",
     "ils_pack_certify",
     "ils_pack_certify_stream",
@@ -115,13 +116,35 @@ class IlsDecTabs(NamedTuple):
     symtab: torch.Tensor  # (256,) int32 canonical rank -> symbol
 
 
-def ils_enc_tabs(table: CodeTable, device="cpu") -> torch.Tensor:
-    """(256,) int32 ``(len << 20) | code`` per symbol."""
+def resolve_device(device) -> torch.device:
+    """The entry points' device: CUDA unless the caller asks for the CPU.
+
+    A CUDA device without a usable card raises here rather than running the
+    plain versions quietly on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "huffman_tpu_torch runs on a CUDA device by default, but "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run the plain PyTorch versions"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def ils_enc_tabs(table: CodeTable, *, device="cuda") -> torch.Tensor:
+    """(256,) int32 ``(len << 20) | code`` per symbol, on ``device`` (CUDA
+    unless the caller asks for the CPU)."""
     packed = (table.lengths.astype(np.int32) << 20) | table.codes.astype(np.int32)
-    return torch.from_numpy(packed.astype(np.int32)).to(device)
+    return torch.from_numpy(packed.astype(np.int32)).to(resolve_device(device))
 
 
-def ils_dec_tabs(table: CodeTable, device="cpu") -> IlsDecTabs:
+def ils_dec_tabs(table: CodeTable, *, device="cuda") -> IlsDecTabs:
+    """The decoder's tables of ``table`` on ``device`` (CUDA unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     lim = np.zeros(32, np.uint32)
     lim[: table.lim_left.shape[0]] = table.lim_left
     bias = np.zeros(32, np.int32)

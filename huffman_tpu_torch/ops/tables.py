@@ -48,7 +48,7 @@ def device_enc_table(table: CodeTable, *, device="cuda") -> DeviceEncTable:
     """The (256,) int32 ``(len << 20) | code`` table on ``device`` (CUDA
     unless the caller asks for the CPU) that `ops/encode.py::encode_block`
     and the ILS and HTC1 kernels read."""
-    return ils_enc_tabs(table, resolve_device(device))
+    return ils_enc_tabs(table, device=device)
 
 
 class DeviceDecTable(NamedTuple):

@@ -139,7 +139,8 @@ def _ils_roundtrip(mesh, out, s):
         tiles_per_device=tpd, rot=s["ils_rot"])
     dev = mesh.device
     local = _local_words(mesh, data, k, tpd)
-    got, ok = step(local, tk.ils_enc_tabs(table, dev), tk.ils_dec_tabs(table, dev))
+    got, ok = step(local, tk.ils_enc_tabs(table, device=dev),
+                   tk.ils_dec_tabs(table, device=dev))
     _check(int(ok) == 1, "sharded ILS round trip verification failed")
     _check(np.array_equal(_gathered_bytes(mesh, got), data),
            "sharded ILS round trip: ordered gather mismatch")
@@ -155,7 +156,7 @@ def _certified(mesh, out, s):
     avg_bits = float((hist * table.lengths.astype(np.int64)).sum()) / data.size
     dev = mesh.device
     local = _local_words(mesh, data, k, tpd)
-    enc, dec = tk.ils_enc_tabs(table, dev), tk.ils_dec_tabs(table, dev)
+    enc, dec = tk.ils_enc_tabs(table, device=dev), tk.ils_dec_tabs(table, device=dev)
     for rot in s["cert_rots"]:
         sec = ils_sharded_certified_encode(
             mesh, local, enc, k=k, max_len=ml, avg_bits=avg_bits,
@@ -246,7 +247,7 @@ def _faults(mesh, out, s):
     # refused before any launch: the stride over the fused budget
     k = 8192
     zeros = torch.zeros((k // 4, ILS_LANES), dtype=torch.int32, device=dev)
-    enc = tk.ils_enc_tabs(table, dev)
+    enc = tk.ils_enc_tabs(table, device=dev)
     _refused(mesh, out, "refused_stride", zeros, enc, k=k, max_len=16,
              avg_bits=8.0, tiles_per_device=1)
     # refused on rank 0's data alone (`band_fault_input`); the other
@@ -254,7 +255,7 @@ def _faults(mesh, out, s):
     tile, table, k = band_fault_input(mesh.rank, s["gap_seed"])
     words = torch.from_numpy(tile.view(np.int32).reshape(-1, ILS_LANES)
                              .copy()).to(dev)
-    _refused(mesh, out, "refused_band", words, tk.ils_enc_tabs(table, dev),
+    _refused(mesh, out, "refused_band", words, tk.ils_enc_tabs(table, device=dev),
              k=k, max_len=max(table.max_len_present, 1), avg_bits=4.5,
              tiles_per_device=1)
 

@@ -4,8 +4,9 @@ A call written for the JAX package means the same in the port: the same
 positional slots and keyword names, with the port's ``device`` keyword-only
 and last.  Each function is called in the JAX package's form in both
 packages, on the same seeded NumPy input, and the results compared exactly
-(integers only).  The two exported table builders put their tables on the
-card unless the caller asks for the CPU, as every entry point does.
+(integers only).  The table builders (the two exported ones and the ILS
+kernels' `ils_enc_tabs` / `ils_dec_tabs`) put their tables on the card
+unless the caller asks for the CPU, as every entry point does.
 """
 
 import inspect
@@ -18,16 +19,24 @@ import torch
 from huffman_tpu.core import canonical_code_table as jcct
 from huffman_tpu.core import npref as jnpref
 from huffman_tpu.core import package_merge_lengths as jpml
+from huffman_tpu.io import read_ils_container as jread_ils
+from huffman_tpu.io import seqfmt as jseq
 from huffman_tpu.io import yamamoto as jyam
 from huffman_tpu.ops import device_dec_table as jdevice_dec_table
 from huffman_tpu.ops import device_enc_table as jdevice_enc_table
 from huffman_tpu.ops import encode as jenc
+from huffman_tpu.ops import ils as jils
+from huffman_tpu.ops.pallas import ils_kernels as jk
 from huffman_tpu.ops.pallas.ils_kernels import ils_enc_tabs as jils_enc_tabs
 from huffman_tpu.utils import generate_redundant
+from huffman_tpu_torch import IlsCodec, write_ils_container
 from huffman_tpu_torch import ops as tops
 from huffman_tpu_torch.core import canonical_code_table
+from huffman_tpu_torch.io import seqfmt as tseq
 from huffman_tpu_torch.io import yamamoto as tyam
 from huffman_tpu_torch.ops import encode as tenc
+from huffman_tpu_torch.ops import ils as tils
+from huffman_tpu_torch.ops import ils_kernels as tk
 
 FUNCTIONS = [
     # (JAX function, port function, JAX parameters the port leaves out)
@@ -36,6 +45,9 @@ FUNCTIONS = [
     (jyam.decode_yamamoto, tyam.decode_yamamoto, ()),
     # interpret= runs Pallas in interpret mode, a TPU matter
     (jenc.encode_block_fast, tenc.encode_block_fast, ("interpret",)),
+    (jk.ils_enc_tabs, tk.ils_enc_tabs, ()),
+    (jk.ils_dec_tabs, tk.ils_dec_tabs, ()),
+    (jils.ils_decode_device, tils.ils_decode_device, ("interpret",)),
 ]
 
 
@@ -116,11 +128,65 @@ def test_encode_block_fast_enc_tabs_keyword():
         assert np.array_equal(a.numpy(), np.asarray(r))
 
 
+def test_ils_table_builders_hold_the_jax_tables():
+    data = generate_redundant(20000, 0.5, seed=9)
+    jt, pt = _tables(data)
+    je, pe = jk.ils_enc_tabs(jt), tk.ils_enc_tabs(pt, device="cpu")
+    assert pe.dtype == torch.int32 and pe.shape == (256,)
+    assert np.array_equal(pe.numpy(), np.concatenate(
+        [np.asarray(je.lo)[0], np.asarray(je.hi)[0]]))
+    jd, pd = jk.ils_dec_tabs(jt), tk.ils_dec_tabs(pt, device="cpu")
+    assert np.array_equal(pd.lim.numpy().view(np.uint32), np.asarray(jd.lim)[0])
+    assert np.array_equal(pd.bias.numpy(), np.asarray(jd.bias)[0, :32])
+    assert np.array_equal(pd.symtab.numpy(), np.concatenate(
+        [np.asarray(jd.sym_lo)[0], np.asarray(jd.sym_hi)[0]]))
+
+
+def test_decode_seq_bool_device():
+    # decode_seq(blob, device=False): the host walk, the JAX bytes on the
+    # CPU; device=True asks for the card's self-synchronising decoder
+    data = generate_redundant(3000, 0.5, seed=10)
+    _, pt = _tables(data)
+    blob = tseq.write_seq(data, pt)
+    got = tseq.decode_seq(blob, device=False)
+    assert got.device.type == "cpu"
+    assert np.array_equal(got.numpy(), jseq.decode_seq(blob, device=False))
+    assert np.array_equal(got.numpy(), data)
+    if torch.cuda.is_available():
+        got = tseq.decode_seq(blob, device=True)
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(), data)
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tseq.decode_seq(blob, device=True)
+
+
+def test_ils_decode_device_probe_keyword():
+    # probe= picks a TPU symbol step in the JAX package; the port accepts
+    # it and gives the same bytes (k=12, 2 tiles: the JAX suite's shape)
+    k = 12
+    data = generate_redundant(2 * k * 1024, 0.5, seed=11)
+    codec = IlsCodec.fit(data, k=k, device="cpu")
+    psec = codec.encode(data).sections[0]
+    jcomp = jread_ils(write_ils_container(codec.encode(data)))
+    jsec = jcomp.sections[0]
+    ref = np.asarray(jils.ils_decode_device(
+        jsec, jcomp.table, jk.ils_dec_tabs(jcomp.table), probe=False,
+        interpret=True))
+    for probe in (False, True, None):
+        got = tils.ils_decode_device(psec, codec.table, codec.dec, probe=probe,
+                                     device="cpu")
+        assert np.array_equal(got.numpy(), ref), probe
+    assert np.array_equal(ref, data)
+
+
 def test_table_builders_default_to_the_card():
     _, pt = _tables(generate_redundant(4000, 0.5, seed=8))
     if torch.cuda.is_available():
         assert tops.device_enc_table(pt).device.type == "cuda"
         assert tops.device_dec_table(pt).lim_left.device.type == "cuda"
+        assert tk.ils_enc_tabs(pt).device.type == "cuda"
+        assert tk.ils_dec_tabs(pt).lim.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tops.device_enc_table(pt)
@@ -128,5 +194,11 @@ def test_table_builders_default_to_the_card():
         tops.device_dec_table(pt)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tops.device_dec_table(pt, 11, two_level=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tk.ils_enc_tabs(pt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tk.ils_dec_tabs(pt)
     with pytest.raises(ValueError, match="unsupported device"):
         tops.device_enc_table(pt, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.ils_dec_tabs(pt, device="meta")

@@ -261,7 +261,7 @@ def test_gap_row_pack_tile_edges(cuda, n_rows):
         sample, table = _map_case(kind)
         data = rng.choice(sample, n_rows * 128)
         data[-128:] = deep
-        enc = tk.ils_enc_tabs(table, cuda)
+        enc = tk.ils_enc_tabs(table, device=cuda)
         rows = torch.from_numpy(data.view(np.int32).reshape(n_rows, 32)
                                 .copy()).to(cuda)
         for cap in (ge.row_cap_words(table.max_len_present), 6):
@@ -289,7 +289,7 @@ def test_gap_row_meta_place_bits_edges(cuda, n_rows):
     calls = 0
     for kind, deep in (("max_len=16", 55), ("lacks", 200)):
         sample, table = _map_case(kind)
-        enc = tk.ils_enc_tabs(table, cuda)
+        enc = tk.ils_enc_tabs(table, device=cuda)
         max_len = max(table.max_len_present, 1)
         cap = ge.row_cap_words(max_len)
         for rpb in (1, 32, 512, n_rows):
@@ -522,7 +522,7 @@ def test_encode_map_and_encode_block_fast_match(cuda, kind):
 
     data, table = _map_case(kind)
     d = torch.from_numpy(data).to(cuda)
-    enc = tk.ils_enc_tabs(table, cuda)
+    enc = tk.ils_enc_tabs(table, device=cuda)
     em.reset_launch_counts()
     assert _equal(em.encode_map(d, enc), em.encode_map_plain(d, enc))
     assert em.launch_counts() == {"encode_map": 1}
@@ -937,7 +937,8 @@ def _byte_count_case(cuda, kind, counts, b, seed):
     rows = torch.from_numpy(data.view(np.int32).reshape(-1, ge.ROW_WORDS)
                             .copy()).to(cuda)
     nb = torch.tensor(counts, dtype=torch.int32, device=cuda)
-    return rows, tk.ils_enc_tabs(table, cuda), nb, max(table.max_len_present, 1)
+    return (rows, tk.ils_enc_tabs(table, device=cuda), nb,
+            max(table.max_len_present, 1))
 
 
 @pytest.mark.parametrize("kind", ["max_len=16", "lacks", "single", "uniform"])
@@ -1011,18 +1012,20 @@ def test_encode_blocks_any_size_on_card(cuda, b):
                     nb = (None if counts is None else
                           torch.tensor(counts, dtype=torch.int32, device=cuda))
                     ge.reset_launch_counts()
-                    got = ge.encode_blocks(blocks, tk.ils_enc_tabs(table, cuda),
-                                           n_bytes=nb, **kw)
+                    got = ge.encode_blocks(
+                        blocks, tk.ils_enc_tabs(table, device=cuda),
+                        n_bytes=nb, **kw)
                     assert all(ge.launch_counts().values())
                     ref = ge.encode_blocks(
-                        blocks.cpu(), tk.ils_enc_tabs(table), **kw,
+                        blocks.cpu(), tk.ils_enc_tabs(table, device="cpu"), **kw,
                         n_bytes=None if nb is None else nb.cpu())
                     assert _equal(tuple(x.cpu() for x in got), ref), \
                         (kind, seg_bits, counts)
                     for i in range(g):
                         n_i = b if counts is None else counts[i]
                         one = tenc.encode_block(
-                            blocks[i, :n_i].cpu(), tk.ils_enc_tabs(table),
+                            blocks[i, :n_i].cpu(),
+                            tk.ils_enc_tabs(table, device="cpu"),
                             seg_bits=seg_bits, max_words=max_words,
                             n_segs=n_segs)
                         assert _equal(tuple(x[i] for x in ref), one), \

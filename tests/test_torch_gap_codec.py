@@ -339,3 +339,30 @@ def test_f13_segments_shorter_than_codes_round_trip(block_bytes):
         a = getattr(pd, name).numpy()
         assert np.array_equal(a.view(np.uint32) if name == "words" else a,
                               np.asarray(r)), name
+
+
+@pytest.mark.parametrize("seg_bits", [4096, 8192])
+def test_f16_counts_over_the_container_field_are_refused(seg_bits):
+    # two symbols, 1-bit codes: a segment of seg_bits bits holds seg_bits
+    # codewords, over the container's 12-bit count (ROADMAP F16).  The JAX
+    # package writes the wrapped counts and its container decodes wrong;
+    # the port refuses to write it, and the blocks round-trip in memory
+    data = np.random.default_rng(0).choice(
+        np.array([8, 75], np.uint8), 2 * seg_bits + 9, p=[0.01, 0.99])
+    kw = dict(max_len=16, seg_bits=seg_bits, block_bytes=1 << 24)
+    jc = JCodec.fit(data, method="lut", **kw)
+    jcomp = jc.encode(data)
+    assert not np.array_equal(np.asarray(jc.decode(jread(jwrite(jcomp)))),
+                              data)
+    pc = GapArrayCodec.fit(data, device="cpu", **kw)
+    comp = pc.encode(data)
+    assert max(int(c.max()) for c in comp.block_counts) >= 4096
+    with pytest.raises(ValueError, match="12-bit count"):
+        write_container(comp)
+    assert np.array_equal(pc.decode(comp).numpy(), data)
+    # a seg_bits whose counts fit: both packages' bytes, and both decode
+    kw["seg_bits"] = 2048
+    blob = write_container(GapArrayCodec.fit(data, device="cpu", **kw)
+                           .encode(data))
+    assert blob == jwrite(JCodec.fit(data, method="lut", **kw).encode(data))
+    assert np.array_equal(pc.decode(read_container(blob)).numpy(), data)

@@ -70,7 +70,7 @@ def test_tables_and_spec_match(kind):
     jt, pt = _tables(data)
     assert tt.dec_spec(pt).__dict__ == jdec_spec(jt).__dict__
     # the encoder's one table holds the JAX package's (code, length) pair
-    jenc, penc = jdevice_enc_table(jt), ils_enc_tabs(pt).numpy()
+    jenc, penc = jdevice_enc_table(jt), ils_enc_tabs(pt, device="cpu").numpy()
     assert np.array_equal(penc >> 20, np.asarray(jenc.lengths))
     assert np.array_equal(penc & 0xFFFF, np.asarray(jenc.codes))
     jdec = jdevice_dec_table(jt, two_level=False)
@@ -335,7 +335,8 @@ def test_encode_blocks_match_jax(kind, n, g, seg_bits, max_len):
     max_words = -(-(-(-max_bits // 32)) // 512) * 512
     n_segs = -(-max_words * 32 // seg_bits)
     ref, pallas = _jax_encode(blocks, jt, seg_bits, max_words, n_segs)
-    out = ge.encode_blocks(torch.from_numpy(blocks.copy()), ils_enc_tabs(pt),
+    out = ge.encode_blocks(torch.from_numpy(blocks.copy()),
+                           ils_enc_tabs(pt, device="cpu"),
                            seg_bits=seg_bits, max_words=max_words,
                            n_segs=n_segs, max_len=pt.max_len_present)
     names = ("words", "total_bits", "gaps", "counts")
@@ -349,7 +350,7 @@ def test_encode_blocks_match_jax(kind, n, g, seg_bits, max_len):
     # the port's encode_block, one block at a time, gives the same
     for i in range(g):
         single = tenc.encode_block(torch.from_numpy(blocks[i].copy()),
-                                   ils_enc_tabs(pt),
+                                   ils_enc_tabs(pt, device="cpu"),
                                    seg_bits=seg_bits, max_words=max_words,
                                    n_segs=n_segs)
         for name, a, r in zip(names, single, ref):
@@ -370,7 +371,8 @@ def test_encode_block_matches_jax(kind, n, seg_bits):
     n_segs = max_words * 32 // seg_bits
     ref = jencode_block(jnp.asarray(data), jdevice_enc_table(jt),
                         seg_bits=seg_bits, max_words=max_words, n_segs=n_segs)
-    out = tenc.encode_block(torch.from_numpy(data.copy()), ils_enc_tabs(pt),
+    out = tenc.encode_block(torch.from_numpy(data.copy()),
+                            ils_enc_tabs(pt, device="cpu"),
                             seg_bits=seg_bits, max_words=max_words,
                             n_segs=n_segs)
     assert out[0].dtype == torch.int32
@@ -385,7 +387,7 @@ def test_row_pack_meta_place_match_oracle(kind):
     _, pt = _tables(data)
     rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
     cap = ge.row_cap_words(pt.max_len_present)
-    enc = ils_enc_tabs(pt)
+    enc = ils_enc_tabs(pt, device="cpu")
     pay, bits = ge.gap_row_pack(rows, enc, cap_words=cap)
     # the starts B4c derives (not stored since B4b stopped writing them)
     starts = ge.row_starts(rows, enc)
@@ -549,7 +551,7 @@ def test_b4c_tile_model_matches_plain_and_jax(case):
     else:
         jt, pt = _tables(data)
     lens = pt.lengths.astype(np.int64)
-    enc = ils_enc_tabs(pt)
+    enc = ils_enc_tabs(pt, device="cpu")
     rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
     max_len = max(pt.max_len_present, 1)
     pay, bits = ge.gap_row_pack(rows, enc, cap_words=ge.row_cap_words(max_len))
@@ -649,7 +651,7 @@ def test_b4d_quad_model_matches_plain(kind, max_len, out_cut):
         _, pt = _lacking_table(data)
     else:
         _, pt = _tables(data, max_len)
-    enc = ils_enc_tabs(pt)
+    enc = ils_enc_tabs(pt, device="cpu")
     rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
     # cap_words 64 (rows of up to 17 quads, three steps) and 6 (rows cut
     # short, bits clamped to 192)
@@ -1026,7 +1028,7 @@ def test_encode_blocks_any_size_match_jax(b, seg_bits, kind):
     g = 3
     blocks = np.random.default_rng(b + seg_bits).choice(sample, (g, b))
     max_words, n_segs = _sizing(pt, b, seg_bits)
-    enc = ils_enc_tabs(pt)
+    enc = ils_enc_tabs(pt, device="cpu")
     got = ge.encode_blocks(torch.from_numpy(blocks), enc, seg_bits=seg_bits,
                            max_words=max_words, n_segs=n_segs,
                            max_len=pt.max_len_present)
@@ -1078,7 +1080,7 @@ def test_encode_blocks_byte_counts_match_encode_block(case):
     if cut:
         bits = pt.lengths.astype(np.int64)[blocks[0]].sum()
         max_words, n_segs = int(bits // 64), max(int(bits // seg_bits // 2), 1)
-    enc = ils_enc_tabs(pt)
+    enc = ils_enc_tabs(pt, device="cpu")
     kw = dict(seg_bits=seg_bits, max_words=max_words, n_segs=n_segs)
     got = ge.encode_blocks(torch.from_numpy(blocks), enc,
                            max_len=pt.max_len_present,
@@ -1116,7 +1118,7 @@ def test_b4c_tile_model_with_byte_counts_matches_plain(case):
     else:
         _, pt = _tables(data)
     lens = pt.lengths.astype(np.int64)
-    enc = ils_enc_tabs(pt)
+    enc = ils_enc_tabs(pt, device="cpu")
     nb = torch.tensor(counts, dtype=torch.int32)
     rows = torch.from_numpy(data.copy()).view(torch.int32).view(-1, 32)
     max_len = max(pt.max_len_present, 1)

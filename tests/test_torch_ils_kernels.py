@@ -78,8 +78,8 @@ def test_tables_match():
     jt = _fit(data)
     pt = code_table_from_numpy(jt.lengths, jt.max_len)
     je, jd = jk.ils_enc_tabs(jt), jk.ils_dec_tabs(jt)
-    enc = tk.ils_enc_tabs(pt)
-    dec = tk.ils_dec_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
+    dec = tk.ils_dec_tabs(pt, device="cpu")
     assert np.array_equal(enc.numpy()[:128], np.asarray(je.lo)[0])
     assert np.array_equal(enc.numpy()[128:], np.asarray(je.hi)[0])
     assert np.array_equal(dec.lim.numpy().view(np.uint32), np.asarray(jd.lim)[0])
@@ -99,7 +99,7 @@ def test_lengths_pass_matches(r, rot):
     jt, pt, snum, jd, td, _ = _case(data, k)
     ref = jk.ils_lengths_pass(jd, _jparams(snum), jk.ils_enc_tabs(jt), k=k,
                               rot=rot, interpret=True)
-    got = tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt), k=k, rot=rot)
+    got = tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt, device="cpu"), k=k, rot=rot)
     assert _eq(ref[0], got[0])
     for name, a, b in zip(("dn", "dx", "en", "ex"), ref[1:], got[1:]):
         assert _eq_env(a, b), name
@@ -119,7 +119,7 @@ def test_pack_certify_matches(k, r, rot, anchor):
     kw = dict(k=k, stride_rows=stride_rows, rot=rot, anchor=anchor)
     ref = jk.ils_pack_certify(jd, _jparams(snum), jk.ils_enc_tabs(jt),
                               interpret=True, **kw)
-    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt), **kw)
+    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt, device="cpu"), **kw)
     for name, a, b in zip(("pay", "bits", "dn", "dx", "viol"), ref, got):
         assert _eq_env(a, b) if name in ("dn", "dx") else _eq(a, b), name
 
@@ -152,7 +152,7 @@ def test_pack_matches(k, r, rot):
                       jnp.asarray(starts), jk.ils_enc_tabs(jt),
                       interpret=True, **kw)
     got = tk.ils_pack(td, snum, torch.from_numpy(boffs),
-                      torch.from_numpy(starts), tk.ils_enc_tabs(pt), **kw)
+                      torch.from_numpy(starts), tk.ils_enc_tabs(pt, device="cpu"), **kw)
     assert _eq(np.asarray(ref)[: p.total_rows], got[: p.total_rows])
     assert not got[p.total_rows:].any()
 
@@ -172,7 +172,7 @@ def test_violation_flag_matches_skewed_stream():
     kw = dict(k=k, stride_rows=max(2 * (-(-k * ml // 64)), 4), e_band=2)
     ref = jk.ils_pack_certify(jd, _jparams(snum), jk.ils_enc_tabs(jt),
                               interpret=True, **kw)
-    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt), **kw)
+    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt, device="cpu"), **kw)
     assert int(got[4].max()) == 1
     for name, a, b in zip(("pay", "bits", "dn", "dx", "viol"), ref, got):
         assert _eq(a, b), name
@@ -189,7 +189,7 @@ def test_anchor_flags_match_heterogeneous(anchor, want):
               anchor=anchor)
     ref = jk.ils_pack_certify(jd, _jparams(snum), jk.ils_enc_tabs(jt),
                               interpret=True, **kw)
-    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt), **kw)
+    got = tk.ils_pack_certify(td, snum, tk.ils_enc_tabs(pt, device="cpu"), **kw)
     assert int(got[4].max()) == want
     for name, a, b in zip(("pay", "bits", "dn", "dx", "viol"), ref, got):
         assert _eq(a, b), name
@@ -424,7 +424,7 @@ def _a2_reference(case, anchor):
               e_band=e_band, anchor=anchor)
     ref = jk.ils_pack_certify(jd, _jparams(snum), jk.ils_enc_tabs(jt),
                               interpret=True, **kw)
-    enc = tk.ils_enc_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
     plain = tk.ils_pack_certify(td, snum, enc, **kw)
     return td, enc, snum, kw, ref, plain
 
@@ -459,7 +459,7 @@ def test_a2_chunk_model_whole_windows(anchor):
     pt = code_table_from_numpy(jt.lengths, jt.max_len)
     snum = ils_schedule_numer(float(jt.lengths.astype(np.int64)[data].mean()))
     td = torch.from_numpy(data.view(np.int32).reshape(-1, ILS_LANES).copy())
-    enc = tk.ils_enc_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
     for rot, e_band in ((False, 32), (True, 8)):
         kw = dict(k=k, stride_rows=max(2 * (-(-k * jt.max_len_present // 64)),
                                        4), rot=rot, e_band=e_band,
@@ -516,7 +516,7 @@ def test_a5_chunk_model_matches_plain_and_jax(k, r, rot, fall):
     ref = np.asarray(jk.ils_pack(jd, _jparams(snum), jnp.asarray(boffs),
                                  jnp.asarray(starts), jk.ils_enc_tabs(jt),
                                  interpret=True, **kw))
-    enc = tk.ils_enc_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
     plain = tk.ils_pack(td, snum, torch.from_numpy(boffs),
                         torch.from_numpy(starts), enc, **kw).numpy()
     G = tk.flush_group(k, w_band)
@@ -550,7 +550,7 @@ def _a5_reference(case):
     pt = code_table_from_numpy(jt.lengths, jt.max_len)
     snum = ils_schedule_numer(float(jt.lengths.astype(np.int64)[data].mean()))
     td = torch.from_numpy(data.view(np.int32).reshape(-1, ILS_LANES).copy())
-    enc = tk.ils_enc_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
     bits, dn, dx, en, ex = tk.ils_lengths_pass(td, snum, enc, k=k, rot=rot)
     band, boffs = tils.emission_band(en, ex)
     p = tils.envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
@@ -686,7 +686,7 @@ def test_a4_chunk_model_matches_plain_and_jax(k, rot, win):
     pt = code_table_from_numpy(jt.lengths, jt.max_len)
     snum = ils_schedule_numer(float(jt.lengths.astype(np.int64)[data].mean()))
     words = data.view(np.int32).reshape(-1, ILS_LANES).copy()
-    enc = tk.ils_enc_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
     ref = jk.ils_lengths_pass(jnp.asarray(words.reshape(-1, 8, 128)),
                               _jparams(snum), jk.ils_enc_tabs(jt), k=k,
                               rot=rot, interpret=True)
@@ -720,7 +720,7 @@ def test_a4_chunk_model_kernel_geometry(k, rot):
     pt = code_table_from_numpy(jt.lengths, jt.max_len)
     snum = ils_schedule_numer(float(jt.lengths.astype(np.int64)[data].mean()))
     td = torch.from_numpy(data.view(np.int32).reshape(-1, ILS_LANES).copy())
-    enc = tk.ils_enc_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
     out = tk.ils_lengths_pass(td, snum, enc, k=k, rot=rot, chunk_bits=True)
     C, win = tk.certify_chunks(k)
     nb = k // 4
@@ -793,10 +793,10 @@ def test_decode_matches_jax_sections(r, rot):
               max_len=pt.max_len_present, min_len=pt.min_len, rot=p.rot)
     # rows past the payload read as zeros: no slack rows are needed, and
     # appending the JAX decoder's w_cap zero rows changes nothing
-    got = tk.ils_decode(ps.payload, starts, tk.ils_dec_tabs(pt), **kw)
+    got = tk.ils_decode(ps.payload, starts, tk.ils_dec_tabs(pt, device="cpu"), **kw)
     slack = torch.zeros(p.w_cap, ILS_LANES, dtype=torch.int32)
     padded = tk.ils_decode(torch.cat([ps.payload, slack]), starts,
-                           tk.ils_dec_tabs(pt), **kw)
+                           tk.ils_dec_tabs(pt, device="cpu"), **kw)
     assert np.array_equal(got.numpy().view(np.uint8).reshape(-1), ref)
     assert torch.equal(got, padded)
     assert np.array_equal(ref, data)
@@ -821,7 +821,7 @@ def _lut_table(kind):
 def _chain(table, win):
     """The compare chain of the plain decode (`canon_len` -> bias ->
     symtab) on u32 windows (int64): (length, symbol)."""
-    dec = tk.ils_dec_tabs(table)
+    dec = tk.ils_dec_tabs(table, device="cpu")
     lim = dec.lim.numpy().astype(np.int64) & 0xFFFFFFFF
     bias, symtab = dec.bias.numpy().astype(np.int64), dec.symtab.numpy()
     lo, hi = max(table.min_len, 1), max(table.max_len_present, 1)
@@ -838,7 +838,7 @@ def test_decode_lut_matches_compare_chain(kind, bits):
     # 16 random ones); an empty entry is a prefix the chain does not decide
     # within B bits
     table = _lut_table(kind)
-    lut = tk.ils_decode_lut(tk.ils_dec_tabs(table),
+    lut = tk.ils_decode_lut(tk.ils_dec_tabs(table, device="cpu"),
                             max_len=max(table.max_len_present, 1),
                             min_len=table.min_len, bits=bits).numpy()
     assert lut.shape == (1 << bits,)
@@ -868,12 +868,12 @@ def test_wrappers_route_cpu_to_plain_and_check_inputs():
     data = generate_redundant(2 * k * ILS_LANES, 0.5, seed=4)
     _, pt, snum, _, td, _ = _case(data, k)
     tk.reset_launch_counts()
-    tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt), k=k)
+    tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt, device="cpu"), k=k)
     assert tk.launch_counts() == dict.fromkeys(tk.launch_counts(), 0)
     with pytest.raises(ValueError, match="tensors on"):
-        tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt, "meta"), k=k)
+        tk.ils_lengths_pass(td, snum, tk.ils_enc_tabs(pt, device="cpu").to("meta"), k=k)
     with pytest.raises(ValueError, match="data must be"):
-        tk.ils_lengths_pass(td[:5], snum, tk.ils_enc_tabs(pt), k=k)
+        tk.ils_lengths_pass(td[:5], snum, tk.ils_enc_tabs(pt, device="cpu"), k=k)
     # row offsets of the wrong type or count are refused; their values are
     # taken on trust (no device-to-host sync), and the kernels keep every
     # row they address inside their buffers
@@ -881,11 +881,11 @@ def test_wrappers_route_cpu_to_plain_and_check_inputs():
     for starts, err in ((torch.tensor([0, 8]), TypeError),
                         (torch.tensor([0], dtype=torch.int32), ValueError)):
         with pytest.raises(err, match="row_starts"):
-            tk.ils_pack(td, snum, boffs, starts, tk.ils_enc_tabs(pt), k=k,
+            tk.ils_pack(td, snum, boffs, starts, tk.ils_enc_tabs(pt, device="cpu"), k=k,
                         w_cap=16, w_band=8, total_rows=8)
         with pytest.raises(err, match="row_starts"):
             tk.ils_decode(torch.zeros((24, ILS_LANES), dtype=torch.int32),
-                          starts, tk.ils_dec_tabs(pt), k=k, w_cap=16,
+                          starts, tk.ils_dec_tabs(pt, device="cpu"), k=k, w_cap=16,
                           n_tiles=2, max_len=pt.max_len_present)
     with pytest.raises(TypeError, match="row_starts"):
         tk.ils_compact(torch.zeros((18, ILS_LANES), dtype=torch.int32),
@@ -893,6 +893,6 @@ def test_wrappers_route_cpu_to_plain_and_check_inputs():
                        total_rows=12)
     # a pair the compact payload cannot hold is skipped, as in the kernel
     starts = torch.tensor([0, 40], dtype=torch.int32)
-    got = tk.ils_pack(td, snum, boffs, starts, tk.ils_enc_tabs(pt), k=k,
+    got = tk.ils_pack(td, snum, boffs, starts, tk.ils_enc_tabs(pt, device="cpu"), k=k,
                       w_cap=16, w_band=8, total_rows=8)
     assert got.shape == (24, ILS_LANES)

@@ -78,7 +78,8 @@ def test_imports_with_jax_and_huffman_tpu_blocked(tmp_path):
         "step = make_ils_sharded_roundtrip(mesh, k=8, max_len=c.table.max_len_present, "
         "tiles_per_device=1, rot=True)\n"
         "x = torch.from_numpy(d[:8 * 1024].view(np.int32).reshape(-1, 1024).copy())\n"
-        "out, ok = step(x, ils_enc_tabs(c.table), ils_dec_tabs(c.table))\n"
+        "out, ok = step(x, ils_enc_tabs(c.table, device='cpu'), "
+        "ils_dec_tabs(c.table, device='cpu'))\n"
         "assert int(ok) == 1 and torch.equal(out, x)\n"
         "for name in huffman_tpu_torch.__all__:\n"
         "    getattr(huffman_tpu_torch, name)\n"
@@ -98,7 +99,8 @@ def test_imports_with_jax_and_huffman_tpu_blocked(tmp_path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+                                       ROOT / "tools" / "fuzz_torch.py"]
 ))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -111,6 +113,35 @@ def test_sources_import_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: {name}"
+
+
+def test_fuzz_tool_runs_without_jax():
+    # the soak's tool loads no JAX and nothing of huffman_tpu; it runs on
+    # the card by default and raises without one
+    code = (
+        "import importlib.util, sys, torch\n"
+        "spec = importlib.util.spec_from_file_location('fuzz_torch', "
+        "'tools/fuzz_torch.py')\n"
+        "fuzz = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(fuzz)\n"
+        "assert fuzz.main(['--device', 'cpu', '--iters', '2', "
+        "'--max-bytes', '4096']) == 0\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        fuzz.main([])\n"
+        "    except RuntimeError as e:\n"
+        "        assert \"device='cpu'\" in str(e)\n"
+        "    else:\n"
+        "        raise AssertionError('ran without a card')\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "fuzz: 2 cases PASS" in res.stdout
 
 
 def test_exported_names_match_the_jax_package():
@@ -209,7 +240,7 @@ def test_default_device_is_cuda_and_never_quietly_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         IlsCodec(table)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tils.ils_encode_device(data, table, tk.ils_enc_tabs(table), k=8,
+        tils.ils_encode_device(data, table, tk.ils_enc_tabs(table, device="cpu"), k=8,
                                avg_bits=1.0)
     with pytest.raises(ValueError, match="unsupported device"):
         tils.resolve_device("meta")

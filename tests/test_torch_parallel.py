@@ -247,7 +247,8 @@ def test_certified_section_equals_single_device(ranks, world):
         key = f"cert_rot{int(rot)}_"
         rows, _, p = tils.ils_encode_to_device(
             torch.from_numpy(data.view(np.int32).reshape(-1, ILS_LANES).copy()),
-            tk.ils_enc_tabs(table), k=k, avg_bits=float(rs[0][key + "avg_bits"]),
+            tk.ils_enc_tabs(table, device="cpu"), k=k,
+            avg_bits=float(rs[0][key + "avg_bits"]),
             max_len=table.max_len_present, rot=rot)
         assert (p.w_cap, p.w_band, p.snum) == (
             int(rs[0][key + "w_cap"]), int(rs[0][key + "w_band"]),
@@ -283,7 +284,8 @@ def test_band_fault_input_violates_on_rank_zero_only():
         stride = tils.stride_rows_for(k, table.max_len_present)
         for anchor in ("mu", "laggard"):
             viol[rank, anchor] = int(tk.ils_pack_certify(
-                words, tils.ils_schedule_numer(4.5), tk.ils_enc_tabs(table),
+                words, tils.ils_schedule_numer(4.5),
+                tk.ils_enc_tabs(table, device="cpu"),
                 k=k, stride_rows=stride, e_band=tils.fused_e_band(k),
                 anchor=anchor)[4].max())
     assert viol == {(0, "mu"): 1, (0, "laggard"): 1, (1, "mu"): 1,

@@ -181,7 +181,7 @@ def test_encode_map_plain_matches_pallas():
     data[5000] = 230
     ref = encode_map_pallas(jnp.asarray(data), jk.ils_enc_tabs(jt),
                             interpret=True)
-    got = em.encode_map(torch.from_numpy(data), tk.ils_enc_tabs(pt))
+    got = em.encode_map(torch.from_numpy(data), tk.ils_enc_tabs(pt, device="cpu"))
     assert em.encode_map.launches == 0  # a CPU tensor runs the plain version
     for g, r in zip(got, ref):
         assert g.dtype == torch.int32
@@ -201,7 +201,7 @@ def test_encode_block_fast_matches_encode_block(gen, seg_bits):
     kw = dict(seg_bits=seg_bits, max_words=-(-total // 32),
               n_segs=max(-(-total // seg_bits), 1))
     ref = jencode_block(jnp.asarray(data), jdevice_enc_table(jt), **kw)
-    enc = tk.ils_enc_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
     got = tenc.encode_block_fast(torch.from_numpy(data), enc, **kw)
     assert int(got[1]) == int(ref[1]) == total
     assert np.array_equal(got[0].numpy().view(np.uint32), np.asarray(ref[0]))
@@ -216,10 +216,10 @@ def test_encode_block_fast_needs_whole_4096_byte_rows():
     data = torch.zeros(4096 + 128, dtype=torch.uint8)
     _, pt = _fit(np.arange(256, dtype=np.uint8))
     with pytest.raises(ValueError, match="multiple of 4096"):
-        tenc.encode_block_fast(data, tk.ils_enc_tabs(pt), seg_bits=1024,
+        tenc.encode_block_fast(data, tk.ils_enc_tabs(pt, device="cpu"), seg_bits=1024,
                                max_words=1024, n_segs=32)
     with pytest.raises(ValueError, match="multiple of 4096"):
-        em.encode_map(data, tk.ils_enc_tabs(pt))
+        em.encode_map(data, tk.ils_enc_tabs(pt, device="cpu"))
 
 
 # ----------------------------------------------------------------------
@@ -306,7 +306,7 @@ def test_stream_pack_matches_jax(anchor):
     kw = dict(k=k, stride_rows=stride_rows, chunk_cap=8, anchor=anchor)
     ref = jk.ils_pack_certify_stream(jwords, jnp.asarray([snum, 0], jnp.int32),
                                      jk.ils_enc_tabs(jt), interpret=True, **kw)
-    enc = tk.ils_enc_tabs(pt)
+    enc = tk.ils_enc_tabs(pt, device="cpu")
     got = tk.ils_pack_certify_stream(pwords, snum, enc, **kw)
     _stream_contract(ref, got, stride_rows, 2)
     plain = tk.ils_pack_certify_stream_plain(pwords, snum, enc, **kw)
@@ -327,7 +327,8 @@ def test_stream_pack_flush_cadence_follows_chunk_cap():
     kw = dict(k=k, stride_rows=stride_rows, chunk_cap=3, e_band=e_band)
     ref = jk.ils_pack_certify_stream(jwords, jnp.asarray([snum, 0], jnp.int32),
                                      jk.ils_enc_tabs(jt), interpret=True, **kw)
-    got = tk.ils_pack_certify_stream(pwords, snum, tk.ils_enc_tabs(pt), **kw)
+    got = tk.ils_pack_certify_stream(pwords, snum,
+                                     tk.ils_enc_tabs(pt, device="cpu"), **kw)
     _stream_contract(ref, got, stride_rows, 2)
 
 
@@ -340,10 +341,12 @@ def test_stream_pack_not_viable_raises():
             assert tk.ils_stream_span_rows(*span_args) \
                 == jk.ils_stream_span_rows(*span_args)
     with pytest.raises(ValueError, match="streaming pack not viable"):
-        tk.ils_pack_certify_stream(pwords, snum, tk.ils_enc_tabs(pt), k=64,
+        tk.ils_pack_certify_stream(pwords, snum,
+                                   tk.ils_enc_tabs(pt, device="cpu"), k=64,
                                    stride_rows=32)
     with pytest.raises(ValueError, match="flush_g must be 1 or 2"):
-        tk.ils_pack_certify_stream(pwords, snum, tk.ils_enc_tabs(pt), k=64,
+        tk.ils_pack_certify_stream(pwords, snum,
+                                   tk.ils_enc_tabs(pt, device="cpu"), k=64,
                                    stride_rows=32, flush_g=3)
 
 
@@ -364,7 +367,7 @@ def test_encode_streaming_tier_matches_jax(monkeypatch):
         monkeypatch.setattr(tils, name, lambda *a, name=name, **kw: pytest.fail(
             f"{name} must not run"))
     rows, _, p = tils.ils_encode_to_device(
-        pwords, tk.ils_enc_tabs(pt), k=k, avg_bits=avg, max_len=16,
+        pwords, tk.ils_enc_tabs(pt, device="cpu"), k=k, avg_bits=avg, max_len=16,
         stride_budget=100)
     for f in ("k", "snum", "w_band", "w_cap", "n_tiles", "rot"):
         assert getattr(p, f) == getattr(jp, f), f
