@@ -166,7 +166,8 @@ failure raises and exits non-zero with the traceback):
    A1 at the full-band shape held against their plain versions and
    timed; the sharded encode, decode and round trip timed beside the
    single-device calls (medians of 5 by CUDA events).  (b) gloo, two
-   spawned ranks on this card, through dryrun_multichip at 2 x 32 MiB of
+   spawned ranks on this card (each joining through init_multihost's JAX
+   call form, "127.0.0.1:port"), through dryrun_multichip at 2 x 32 MiB of
    ILS (8 tiles a rank at k=4096) and 2 x 4 blocks of 4 MiB, with its
    fault checks: the rank-ordered certified section equals
    ils_encode_to_device's on the same 64 MiB, every decode bit-exact,
@@ -182,6 +183,14 @@ failure raises and exits non-zero with the traceback):
    it ran in and the distinct case shapes (the tool's `SHAPE_KEYS`) are
    logged, and a wrapper of KERNELS that ran in fewer than FUZZ_MIN_CASES
    cases fails the phase.
+15d. The flagship entry point (`huffman_tpu_torch.graft_entry.entry()`,
+   `entry_phase`), the counterpart of the JAX package's
+   `__graft_entry__.entry()`: one ILS decode step, A1, on a section of
+   k=256 and 4 tiles of generate_redundant(r=0.5, seed=0), on the card.
+   Its words must equal the data's and the plain version's
+   (`entry(device="cpu")`'s step on the same arguments moved to the CPU);
+   A1's launch count must rise by one per call.  The step's median of 5
+   calls by CUDA events is logged beside the card's name and power limit.
 16. One JSON line per kernel list (name, route, source, replaces, launches,
    max_abs_err, ms, ms_by, wrapper_ms, plain_ms, bound_ms, bound_by,
    library_ms):
@@ -203,7 +212,9 @@ failure raises and exits non-zero with the traceback):
    paths' shapes under
    "yamamoto"."kernels" and "selfsync"."kernels", phase 13's under "file",
    phase 14's under "cli", phase 15's under "parallel", phase 15c's
-   under "fuzz" (and each kernel's row its own "fuzz").  A5 and A1 also
+   under "fuzz" (and each kernel's row its own "fuzz"), phase 15d's under
+   "entry" (and A1's row its own "entry": plain_ms there is the CPU's).
+   A5 and A1 also
    carry "full_band" (phase 15a's shape) and, with A2, A3 and B4b-B4d,
    their phase-15 launches ("parallel_launches").  The rows of A1, A2,
    A4, A5, B1, B2, B4b-B4d, C1 and C2 also carry their "ptxas" report.  Then the card
@@ -1853,6 +1864,80 @@ def fuzz_phase(seed, iters, card):
     return {"seed": seed, "cases": iters, "legs": r["legs"],
             "phase_s": r["seconds"], "card": card, "kernels": per_kernel}
 
+def entry_phase(stats, tk, generate_redundant, card):
+    """Phase 15d: the flagship entry point on the card.  `entry()`'s step
+    held to the data and to its plain version (the CPU's
+    `entry(device="cpu")` step on the same arguments); A1's launch count
+    must rise by one per call.  Returns (summary, A1's timing at the
+    step's shape: `ms` by the profiler, the step's median of 5 by CUDA
+    events, the CPU plain version's host ms)."""
+    from huffman_tpu_torch.graft_entry import ENTRY_K, ENTRY_TILES, entry
+    from huffman_tpu_torch.models import IlsCodec
+
+    log(f"phase 15d: the flagship entry point, graft_entry.entry() ({card})")
+    t0 = time.perf_counter()
+    fn, args = entry()
+    sync()
+    build_s = time.perf_counter() - t0
+    payload_rows, row_starts, params = args
+    data = generate_redundant(ENTRY_TILES * ENTRY_K * 1024, 0.5, seed=0)
+    words = torch.from_numpy(data.view(np.int32).copy())
+    # the section and table `entry()` decodes, for the bound: A1 reads the
+    # section's rows (not the slack rows, not `params`) and writes the words
+    codec = IlsCodec.fit(data, k=ENTRY_K)
+    (sec,) = codec.encode(data).sections
+    total_rows = sec.params.total_rows
+    levels = (max(codec.table.max_len_present, 1)
+              - max(codec.table.min_len, 1))
+    pfn, _ = entry(device="cpu")
+    plain, plain_ms = time_plain_once(lambda: pfn(*(a.cpu() for a in args)))
+    calls = [0]
+
+    def step():
+        calls[0] += 1
+        return fn(*args)
+
+    tk.reset_launch_counts()
+    per_call = []
+    for _ in range(3):
+        out = step()
+        sync()
+        per_call.append(tk.launch_counts()["ils_decode"])
+    stats.check("ils_decode", out, plain.cuda(), "entry step")
+    step_ms, runs = median_ms(step, 5)
+    ms, ms_by, _ = kernel_ms(step, SYMBOLS["ils_decode"], 5)
+    launches = tk.launch_counts()["ils_decode"]
+    checks = {
+        "a1_once_per_call": per_call == [1, 2, 3] and launches == calls[0],
+        "on_the_card": all(a.device.type == "cuda" for a in args)
+        and out.device.type == "cuda",
+        "equals_data": torch.equal(out.reshape(-1).cpu(), words),
+        "equals_plain": torch.equal(out.cpu(), plain),
+    }
+    log(f"  args {[tuple(a.shape) for a in args]}, out {tuple(out.shape)}; "
+        f"entry() {build_s:.2f} s; launches {per_call} in the first three "
+        f"calls, {launches} in {calls[0]}")
+    log(f"  step median of 5 {step_ms:.4f} ms by CUDA events {runs}; A1 "
+        f"{ms:.4f} ms ({ms_by}); the CPU's plain step {plain_ms:.1f} ms "
+        f"({card})")
+    for name, ok in checks.items():
+        log(f"  {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 15d failed: {checks}")
+    # A1's yardstick at the other shapes (`ils_chain`, `full_band`)
+    n_sym = words.numel() * 4
+    timing = {"shape": list(out.shape), "ms": ms, "ms_by": ms_by,
+              "wrapper_ms": step_ms, "plain_ms": plain_ms,
+              "bytes": total_rows * 4096 + out.numel() * 4,
+              "ops": (2 * levels + 10) * n_sym + 12 * (n_sym // 4)}
+    return {"k": ENTRY_K, "tiles": ENTRY_TILES,
+            "args": [list(a.shape) for a in args], "build_s": build_s,
+            "step_ms_median": step_ms, "step_ms": runs, "a1_ms": ms,
+            "a1_ms_by": ms_by, "plain_cpu_ms": plain_ms,
+            "launches": launches, "calls": calls[0], "checks": checks,
+            "card": card}, timing
+
+
 def portable_block(stats, ns, bcodec, blocks, yblob, ydata):
     """Phase 12: the portability path at phase 7's block (and phase 9's
     Yamamoto container).  Returns (summary, B5's launches in the one
@@ -2587,6 +2672,10 @@ def main(argv=None) -> int:
     # ---- 15c. the fuzz soak
     fuzz_summary = fuzz_phase(args.fuzz_seed, args.fuzz_iters, card)
 
+    # ---- 15d. the flagship entry point
+    entry_summary, entry_timing = entry_phase(stats, tk, generate_redundant,
+                                              card)
+
     # ---- 16. results
     def times(t):
         b_ms = t.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
@@ -2625,6 +2714,7 @@ def main(argv=None) -> int:
         extra.setdefault(name, []).append(("ragged_blocks", t))
     if n % tile_bytes:
         extra.setdefault("ils_decode", []).insert(0, ("tail", a1_tail))
+    extra["ils_decode"].append(("entry", entry_timing))
     log(f"per kernel at the main path's shapes ({card}):")
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -2695,6 +2785,7 @@ def main(argv=None) -> int:
         "cli": cli_summary,
         "parallel": par_summary,
         "fuzz": {key: v for key, v in fuzz_summary.items() if key != "kernels"},
+        "entry": entry_summary,
     }))
     log(f"chip_smoke took {time.perf_counter() - t_main:.1f} s")
     log(card)

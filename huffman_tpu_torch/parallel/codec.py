@@ -32,11 +32,12 @@ __all__ = [
 ]
 
 
-def sharded_histogram(mesh: DataMesh, local_blocks: torch.Tensor) -> torch.Tensor:
-    """Global (256,) int32 histogram of the blocks of every rank: each
-    rank counts its own, then one SUM over the mesh."""
-    on_mesh(mesh, local_blocks)
-    return all_reduce(mesh, histogram(local_blocks), "sum")
+def sharded_histogram(mesh: DataMesh, blocks: torch.Tensor) -> torch.Tensor:
+    """Global (256,) int32 histogram of the blocks of every rank.
+    ``blocks`` are this rank's local blocks: each rank counts its own,
+    then one SUM over the mesh."""
+    on_mesh(mesh, blocks)
+    return all_reduce(mesh, histogram(blocks), "sum")
 
 
 def make_sharded_encode(mesh: DataMesh, *, seg_bits: int, max_words: int,

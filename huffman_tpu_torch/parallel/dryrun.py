@@ -302,11 +302,11 @@ def run_paths(mesh: DataMesh, sizes: dict | None = None) -> dict:
     return out
 
 
-def _rank_main(rank, n_devices, init_method, backend, device, out_dir,
-               timeout, sizes, local_rank=None):
+def _rank_main(rank, n_devices, coordinator_address, backend, device,
+               out_dir, timeout, sizes, local_rank=None):
     local_rank = rank if local_rank is None else local_rank
-    init_multihost(init_method, n_devices, rank, local_rank=local_rank,
-                   backend=backend, timeout=timeout)
+    init_multihost(coordinator_address, n_devices, rank,
+                   local_rank=local_rank, backend=backend, timeout=timeout)
     if device == "cuda" and backend != "nccl":
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
     try:
@@ -346,7 +346,7 @@ def dryrun_multichip(n_devices: int, *, backend: str = "nccl",
         Path(out_dir).mkdir(parents=True, exist_ok=True)
     mp.start_processes(
         _rank_main, nprocs=n_devices, join=True, start_method="spawn",
-        args=(n_devices, f"tcp://127.0.0.1:{_free_port()}", backend, device,
+        args=(n_devices, f"127.0.0.1:{_free_port()}", backend, device,
               None if out_dir is None else str(out_dir), timeout, sizes))
 
 

@@ -38,9 +38,9 @@ def is_multihost() -> bool:
 
 
 def init_multihost(
-    init_method: str | None = None,
-    world_size: int | None = None,
-    rank: int | None = None,
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
     *,
     local_rank: int | None = None,
     backend: str = "nccl",
@@ -50,8 +50,15 @@ def init_multihost(
     from the launcher's environment (``MASTER_ADDR``, ``MASTER_PORT``,
     ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, as ``torchrun`` sets them).
 
+    The JAX package's call form: ``coordinator_address`` is ``host:port``,
+    as ``jax.distributed`` takes it, and becomes ``tcp://host:port``; an
+    address with a scheme (``tcp://``, ``file://``, ``env://``) is passed
+    on as it is.  ``num_processes`` and ``process_id`` are the world size
+    and this process's rank.  Unlike the JAX package, the port reads
+    neither ``JAX_COORDINATOR_ADDRESS`` nor ``TPU_WORKER_HOSTNAMES``.
+
     Safe to call unconditionally: a no-op when a group exists already, or
-    when no multi-process launch is configured (no ``init_method`` and no
+    when no multi-process launch is configured (no address and no
     ``MASTER_ADDR``).  ``backend`` is "nccl"
     (the cards) unless the caller asks for "gloo"; with nccl the process
     takes card ``local_rank``.  ``timeout`` (seconds) bounds every
@@ -60,16 +67,22 @@ def init_multihost(
     if dist.is_initialized():
         return
     env = os.environ
-    if init_method is None and "MASTER_ADDR" not in env:
+    if not coordinator_address and "MASTER_ADDR" not in env:
         return  # a single process
-    world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None \
-        else world_size
-    rank = int(env.get("RANK", 0)) if rank is None else rank
+    if not coordinator_address:
+        init_method = "env://"
+    elif "://" in coordinator_address:
+        init_method = coordinator_address
+    else:
+        init_method = f"tcp://{coordinator_address}"
+    world_size = int(env.get("WORLD_SIZE", 1)) if num_processes is None \
+        else num_processes
+    rank = int(env.get("RANK", 0)) if process_id is None else process_id
     local_rank = int(env.get("LOCAL_RANK", rank)) if local_rank is None \
         else local_rank
     if backend == "nccl":
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
     kw = {} if timeout is None else {
         "timeout": datetime.timedelta(seconds=timeout)}
-    dist.init_process_group(backend, init_method=init_method or "env://",
+    dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank, **kw)

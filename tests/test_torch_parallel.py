@@ -393,3 +393,39 @@ def test_init_multihost_reads_the_launchers_environment(monkeypatch):
     assert calls[1][1] == {"init_method": "tcp://127.0.0.1:1234",
                            "world_size": 2, "rank": 1}
     assert dist.is_available()
+
+
+@pytest.mark.parametrize("address,init_method", [
+    ("127.0.0.1:29533", "tcp://127.0.0.1:29533"),  # jax.distributed's form
+    ("localhost:1234", "tcp://localhost:1234"),
+    ("tcp://127.0.0.1:1234", "tcp://127.0.0.1:1234"),
+    ("file:///nonexistent/rendezvous", "file:///nonexistent/rendezvous"),
+    ("env://", "env://"),
+])
+def test_init_multihost_takes_the_jax_call_form(monkeypatch, address,
+                                                init_method):
+    # init_multihost(coordinator_address, num_processes, process_id), as
+    # the JAX package's; a host:port address becomes tcp://host:port
+    from huffman_tpu_torch.utils import distributed as tdist
+
+    calls = []
+    monkeypatch.setattr(tdist.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(tdist.dist, "init_process_group",
+                        lambda *a, **kw: calls.append((a, kw)))
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    init_multihost(address, 2, 1, backend="gloo")
+    init_multihost(coordinator_address=address, num_processes=2,
+                   process_id=1, backend="gloo")
+    assert calls == 2 * [(("gloo",), {"init_method": init_method,
+                                      "world_size": 2, "rank": 1})]
+
+
+def test_sharded_histogram_takes_blocks_by_keyword(mesh1):
+    # sharded_histogram(mesh, blocks=...): the JAX package's counts in both
+    data = generate_redundant(4 * 512, 0.5, seed=6).reshape(4, 512)
+    ref = np.bincount(data.reshape(-1), minlength=256)
+    jhist = jpar.sharded_histogram(jpar.data_mesh(2), blocks=jnp.asarray(data))
+    assert np.array_equal(np.asarray(jhist), ref)
+    thist = tpar.sharded_histogram(mesh1, blocks=torch.from_numpy(data))
+    assert thist.dtype == torch.int32
+    assert np.array_equal(thist.numpy(), np.asarray(jhist))
