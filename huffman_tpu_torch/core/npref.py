@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..constants import ALPHABET_SIZE, SEG_BITS, UNIT_BITS
+from ..utils import trace
 from .canonical import CodeTable, build_flat_lut
 
 __all__ = [
@@ -35,7 +36,7 @@ def histogram(data) -> np.ndarray:
         if data.dtype != torch.uint8:
             raise TypeError(f"histogram needs uint8 data, got {data.dtype}")
         counts = torch.bincount(data.reshape(-1), minlength=ALPHABET_SIZE)
-        return counts.cpu().numpy().astype(np.int64)
+        return trace.to_host(counts, "histogram").numpy().astype(np.int64)
     data = np.asarray(data, dtype=np.uint8)
     from .. import native
 

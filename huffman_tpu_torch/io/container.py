@@ -61,6 +61,7 @@ from ..core.ils_ref import (
     IlsParams,
     ils_n_win,
 )
+from ..utils import trace
 
 __all__ = [
     "write_container",
@@ -92,10 +93,11 @@ def _table_entries(table: CodeTable) -> np.ndarray:
 
 
 def _crc(original_size: int, payloads) -> int:
-    crc = zlib.crc32(str(original_size).encode())
-    for p in payloads:
-        crc = zlib.crc32(p, crc)
-    return crc & 0xFFFFFFFF
+    with trace.span("io.crc"):
+        crc = zlib.crc32(str(original_size).encode())
+        for p in payloads:
+            crc = zlib.crc32(p, crc)
+        return crc & 0xFFFFFFFF
 
 
 def container_kind(buf: bytes) -> str:
@@ -360,6 +362,11 @@ class IlsStreamReader:
 
 def read_ils_container(buf: bytes):
     """Parse an ILS1 container; payloads land as CPU int32 tensors."""
+    with trace.span("io.parse"):
+        return _parse_ils(buf)
+
+
+def _parse_ils(buf: bytes):
     from ..models.ils_codec import IlsCompressed
     from ..ops.ils import IlsSection
 

@@ -36,6 +36,7 @@ from ..ops.gap_encode_kernels import encode_blocks
 from ..ops.ils import _as_bytes, resolve_device
 from ..ops.ils_kernels import ils_enc_tabs
 from ..ops.tables import dec_spec, device_dec_table
+from ..utils import trace
 
 __all__ = ["Compressed", "DeviceCompressed", "GapArrayCodec"]
 
@@ -147,23 +148,26 @@ class GapArrayCodec:
         """(G, B) uint8 blocks on the codec's device, any B >= 1 -> (words,
         total_bits, gaps, counts) with the JAX package's shapes, from the
         kernels B4b-B4d."""
-        return encode_blocks(blocks, self.enc, seg_bits=self.seg_bits,
-                             max_words=max_words, n_segs=n_segs,
-                             max_len=max(self.table.max_len_present, 1))
+        with trace.span("gap.blocks"):
+            return encode_blocks(blocks, self.enc, seg_bits=self.seg_bits,
+                                 max_words=max_words, n_segs=n_segs,
+                                 max_len=max(self.table.max_len_present, 1))
 
     def encode_device(self, blocks) -> DeviceCompressed:
         """Encode a (G, B) stack of equal-size blocks (or one (B,) block),
         a uint8 array or tensor; the result stays on the device.  The
         payload is sized by the deepest code, as the data is not counted."""
-        shape = (blocks.shape if isinstance(blocks, torch.Tensor)
-                 else np.shape(blocks))
-        blocks = _as_bytes(blocks, self.device).view(
-            shape[0] if len(shape) == 2 else 1, -1)
-        g, b = blocks.shape
-        max_words = _round_up(_cdiv(b * self.table.max_len_present, 32), 512)
-        n_segs = _cdiv(max_words * 32, self.seg_bits)
-        words, total_bits, gaps, counts = self._encode_blocks(
-            blocks, max_words, n_segs)
+        with trace.span("gap.encode", device=self.device):
+            shape = (blocks.shape if isinstance(blocks, torch.Tensor)
+                     else np.shape(blocks))
+            blocks = _as_bytes(blocks, self.device).view(
+                shape[0] if len(shape) == 2 else 1, -1)
+            g, b = blocks.shape
+            max_words = _round_up(_cdiv(b * self.table.max_len_present, 32),
+                                  512)
+            n_segs = _cdiv(max_words * 32, self.seg_bits)
+            words, total_bits, gaps, counts = self._encode_blocks(
+                blocks, max_words, n_segs)
         return DeviceCompressed(
             table=self.table, seg_bits=self.seg_bits, original_size=g * b,
             block_bytes=b, words=words, total_bits=total_bits, gaps=gaps,
@@ -179,46 +183,56 @@ class GapArrayCodec:
         payload by the deepest code) to a multiple of 4096 segments, as the
         JAX package does.  Two scalars cross to the host: the last segment
         any block uses and the largest count."""
-        counts, gaps = dcomp.counts, dcomp.gaps
-        n_segs = counts.shape[1]
-        used = counts.any(0) * torch.arange(1, n_segs + 1, device=counts.device)
-        last, top = torch.stack([used.max(), counts.max().to(used.dtype)]).tolist()
-        ns_used = min(_round_up(max(last, 1), 4096), n_segs)
-        return (dcomp.words, gaps[:, :ns_used].contiguous(),
-                counts[:, :ns_used].contiguous(), _round_up(max(top, 1), 8))
+        with trace.span("gap.plan"):
+            counts, gaps = dcomp.counts, dcomp.gaps
+            n_segs = counts.shape[1]
+            used = counts.any(0) * torch.arange(1, n_segs + 1,
+                                                device=counts.device)
+            last, top = map(int, trace.to_host(
+                torch.stack([used.max(), counts.max().to(used.dtype)]),
+                "plan").numpy())
+            ns_used = min(_round_up(max(last, 1), 4096), n_segs)
+            return (dcomp.words, gaps[:, :ns_used].contiguous(),
+                    counts[:, :ns_used].contiguous(), _round_up(max(top, 1), 8))
 
     def _decode_group(self, words, gaps, counts, *, seg_bits: int,
                       max_count: int, out_size: int) -> torch.Tensor:
         """(G, out_size) uint8 from G blocks' (words, gaps, counts), by the
         codec's method: the kernels, or the step decoder block by block."""
-        if self.method == "pallas":
-            return decode_blocks(
-                words, gaps, counts, self.dec, spec=self.spec,
-                seg_bits=seg_bits, max_count=max_count, out_size=out_size)
-        return torch.stack([
-            step.decode_block(w, gp, c, self.dec, spec=self.spec,
-                              seg_bits=seg_bits, max_count=max_count,
-                              out_size=out_size, method=self.method)
-            for w, gp, c in zip(words, gaps, counts)])
+        with trace.span("gap.group"):
+            if self.method == "pallas":
+                return decode_blocks(
+                    words, gaps, counts, self.dec, spec=self.spec,
+                    seg_bits=seg_bits, max_count=max_count, out_size=out_size)
+            return torch.stack([
+                step.decode_block(w, gp, c, self.dec, spec=self.spec,
+                                  seg_bits=seg_bits, max_count=max_count,
+                                  out_size=out_size, method=self.method)
+                for w, gp, c in zip(words, gaps, counts)])
 
     def decode_device(self, dcomp: DeviceCompressed) -> torch.Tensor:
         """Decode a device-resident group; returns (G, block_bytes) uint8 on
         the device.  The payload and the output never leave it."""
-        words, gaps, counts, max_count = self.decode_device_plan(dcomp)
-        return self._decode_group(words, gaps, counts, seg_bits=dcomp.seg_bits,
-                                  max_count=max_count,
-                                  out_size=dcomp.block_bytes)
+        with trace.span("gap.decode", device=self.device):
+            words, gaps, counts, max_count = self.decode_device_plan(dcomp)
+            return self._decode_group(words, gaps, counts,
+                                      seg_bits=dcomp.seg_bits,
+                                      max_count=max_count,
+                                      out_size=dcomp.block_bytes)
 
     def stage_host(self, dcomp: DeviceCompressed, comp: Compressed) -> None:
         """Append a device group's blocks to a host `Compressed` (exact,
         unpadded per block) — the container-writing path.  Only the words
         and segments up to the longest block's bits cross to the host."""
-        total_bits = dcomp.total_bits.cpu().numpy()
+        total_bits = trace.to_host(dcomp.total_bits, "stage_host").numpy()
         top = int(total_bits.max(initial=0))
         seg_bits = dcomp.seg_bits
-        words = dcomp.words[:, : _cdiv(top, 32)].cpu().numpy().view(np.uint32)
-        gaps = dcomp.gaps[:, : _cdiv(top, seg_bits)].cpu().numpy()
-        counts = dcomp.counts[:, : _cdiv(top, seg_bits)].cpu().numpy()
+        words = trace.to_host(dcomp.words[:, : _cdiv(top, 32)],
+                              "stage_host").numpy().view(np.uint32)
+        gaps = trace.to_host(dcomp.gaps[:, : _cdiv(top, seg_bits)],
+                             "stage_host").numpy()
+        counts = trace.to_host(dcomp.counts[:, : _cdiv(top, seg_bits)],
+                               "stage_host").numpy()
         for i in range(total_bits.shape[0]):
             tb = int(total_bits[i])
             ns = _cdiv(tb, seg_bits)
@@ -239,21 +253,22 @@ class GapArrayCodec:
         full blocks in device groups of at most GROUP_BYTES, then the tail
         as one block of its own size, each through the kernels.  (The JAX package sizes its groups by their exact bit
         count; the bytes do not depend on the grouping or the sizing.)"""
-        data = _as_bytes(data, self.device)
-        n = data.numel()
-        comp = Compressed(
-            table=self.table, seg_bits=self.seg_bits, original_size=n,
-            block_bytes=self.block_bytes, block_words=[], block_total_bits=[],
-            block_gaps=[], block_counts=[],
-        )
-        bb = self.block_bytes
-        n_full = n // bb
-        for grp in self._groups(n_full, bb):
-            blocks = data[grp.start * bb : grp.stop * bb].view(len(grp), bb)
-            self.stage_host(self.encode_device(blocks), comp)
-        if n % bb:
-            self.stage_host(self.encode_device(data[n_full * bb :]), comp)
-        return comp
+        with trace.span("gap.encode", device=self.device):
+            data = _as_bytes(data, self.device)
+            n = data.numel()
+            comp = Compressed(
+                table=self.table, seg_bits=self.seg_bits, original_size=n,
+                block_bytes=self.block_bytes, block_words=[],
+                block_total_bits=[], block_gaps=[], block_counts=[],
+            )
+            bb = self.block_bytes
+            n_full = n // bb
+            for grp in self._groups(n_full, bb):
+                blocks = data[grp.start * bb : grp.stop * bb].view(len(grp), bb)
+                self.stage_host(self.encode_device(blocks), comp)
+            if n % bb:
+                self.stage_host(self.encode_device(data[n_full * bb :]), comp)
+            return comp
 
     # ------------------------------------------------------------------
     def decode_plan(self, comp: Compressed, idxs):
@@ -270,27 +285,28 @@ class GapArrayCodec:
             words[j, : comp.block_words[i].size] = comp.block_words[i]
             gaps[j, : comp.block_gaps[i].size] = comp.block_gaps[i]
             counts[j, : comp.block_counts[i].size] = comp.block_counts[i]
-        return (*(torch.from_numpy(x).to(self.device)
+        return (*(trace.to_device(x, self.device, "plan_host")
                   for x in (words.view(np.int32), gaps, counts)),
                 _round_up(max(int(counts.max(initial=0)), 1), 8))
 
     def decode(self, comp: Compressed) -> torch.Tensor:
         """Decode to a flat uint8 tensor on the codec's device, the full
         blocks in groups as `encode` makes them, then the tail."""
-        n = comp.original_size
-        bb = comp.block_bytes
-        n_full = n // bb
-        out = torch.empty(n, dtype=torch.uint8, device=self.device)
-        groups = [(grp, bb) for grp in self._groups(n_full, bb)]
-        if n % bb:
-            groups.append(([comp.n_blocks - 1], n % bb))
-        for grp, out_size in groups:
-            words, gaps, counts, max_count = self.decode_plan(comp, grp)
-            lo = grp[0] * bb
-            out[lo : lo + len(grp) * out_size] = self._decode_group(
-                words, gaps, counts, seg_bits=comp.seg_bits,
-                max_count=max_count, out_size=out_size).view(-1)
-        return out
+        with trace.span("gap.decode", device=self.device):
+            n = comp.original_size
+            bb = comp.block_bytes
+            n_full = n // bb
+            out = torch.empty(n, dtype=torch.uint8, device=self.device)
+            groups = [(grp, bb) for grp in self._groups(n_full, bb)]
+            if n % bb:
+                groups.append(([comp.n_blocks - 1], n % bb))
+            for grp, out_size in groups:
+                words, gaps, counts, max_count = self.decode_plan(comp, grp)
+                lo = grp[0] * bb
+                out[lo : lo + len(grp) * out_size] = self._decode_group(
+                    words, gaps, counts, seg_bits=comp.seg_bits,
+                    max_count=max_count, out_size=out_size).view(-1)
+            return out
 
     def roundtrip_check(self, data) -> bool:
         """Self-verifying round trip, compared on the codec's device."""

@@ -34,6 +34,7 @@ from ..ops.ils import (
     resolve_device,
 )
 from ..ops.ils_kernels import ils_dec_tabs, ils_enc_tabs
+from ..utils import trace
 
 __all__ = ["IlsCompressed", "IlsCodec"]
 
@@ -74,8 +75,9 @@ class IlsCodec:
                  rotate: bool | str = "auto"):
         self.device = resolve_device(device)
         self.table = table
-        self.enc = ils_enc_tabs(table, device=self.device)
-        self.dec = ils_dec_tabs(table, device=self.device)
+        with trace.span("ils.tables"):
+            self.enc = ils_enc_tabs(table, device=self.device)
+            self.dec = ils_dec_tabs(table, device=self.device)
         self.k = int(k) if k else pick_k(8.0, optimize)
         # "auto" decides per section from the certified band; decode always
         # follows the container
@@ -108,7 +110,9 @@ class IlsCodec:
         return codec
 
     def _avg_bits(self, data: torch.Tensor) -> float:
-        freqs = npref.histogram(data)
+        with trace.span("ils.histogram", device=data.device):
+            freqs = npref.histogram(data)
+        trace.count("histogram_bytes", data.numel())
         return float(
             (freqs * self.table.lengths.astype(np.int64)).sum()
             / max(data.numel(), 1)
@@ -121,15 +125,16 @@ class IlsCodec:
         multiple of 4, as the format needs: the JAX package's plain
         halving wherever that stays a multiple of 4 (a k of 4 times an odd
         number, such as 4100, would halve to 2050)."""
-        data = _as_bytes(data, self.device)
-        k = self.k
-        while True:
-            try:
-                return self._encode_with_k(data, k)
-            except IlsVmemError:
-                if k <= ils_ops.MIN_K:
-                    raise
-                k = -(-k // 8) * 4
+        with trace.span("ils.encode", device=self.device):
+            data = _as_bytes(data, self.device)
+            k = self.k
+            while True:
+                try:
+                    return self._encode_with_k(data, k)
+                except IlsVmemError:
+                    if k <= ils_ops.MIN_K:
+                        raise
+                    k = -(-k // 8) * 4
 
     def _encode_with_k(self, data: torch.Tensor, k_main: int) -> IlsCompressed:
         n = data.numel()
@@ -152,13 +157,16 @@ class IlsCodec:
             padded[:rem] = data[n_full * tile_bytes :]
             chunks.append((padded, k_tail))
         for chunk, k in chunks:
-            comp.sections.append(
-                ils_encode_device(
-                    chunk, self.table, self.enc, k=k,
-                    avg_bits=self._avg_bits(chunk), rot=self.rotate,
-                    device=self.device,
+            with trace.span("ils.section", k=k,
+                            n_tiles=chunk.numel() // (k * ILS_LANES)):
+                comp.sections.append(
+                    ils_encode_device(
+                        chunk, self.table, self.enc, k=k,
+                        avg_bits=self._avg_bits(chunk), rot=self.rotate,
+                        device=self.device,
+                    )
                 )
-            )
+        trace.count("ils.sections", len(comp.sections))
         return comp
 
     def decode(self, comp: IlsCompressed) -> torch.Tensor:
@@ -166,11 +174,15 @@ class IlsCodec:
         n = comp.original_size
         if n == 0:
             return torch.zeros(0, dtype=torch.uint8, device=self.device)
-        outs = [
-            ils_decode_device(sec, comp.table, self.dec, device=self.device)
-            for sec in comp.sections
-        ]
-        return torch.cat(outs)[:n]
+        with trace.span("ils.decode", device=self.device):
+            outs = []
+            for sec in comp.sections:
+                with trace.span("ils.section", k=sec.params.k,
+                                n_tiles=sec.params.n_tiles):
+                    outs.append(ils_decode_device(sec, comp.table, self.dec,
+                                                  device=self.device))
+            with trace.span("ils.concat"):
+                return torch.cat(outs)[:n]
 
     # ------------------------------------------------------------------
     # File paths, one section at a time
@@ -256,7 +268,7 @@ class IlsCodec:
         zeros added to the count of byte 0 (the same integers as counting
         the padded chunk); any other chunk is whole tiles of every k it
         tries."""
-        data = torch.from_numpy(chunk).to(self.device)
+        data = trace.to_device(chunk, self.device, "file_chunk")
         n = data.numel()
         freqs = npref.histogram(data)
         lengths = self.table.lengths.astype(np.int64)
@@ -272,9 +284,11 @@ class IlsCodec:
                 buf = torch.zeros(size, dtype=torch.uint8, device=self.device)
                 buf[:n] = data
             try:
-                return ils_encode_device(buf, self.table, self.enc, k=k,
-                                         avg_bits=avg, rot=self.rotate,
-                                         device=self.device)
+                sec = ils_encode_device(buf, self.table, self.enc, k=k,
+                                        avg_bits=avg, rot=self.rotate,
+                                        device=self.device)
+                trace.count("ils.sections")
+                return sec
             except IlsVmemError:
                 if k <= ils_ops.MIN_K:
                     raise
@@ -302,7 +316,7 @@ class IlsCodec:
                 out = ils_decode_device(sec, reader.table, codec.dec,
                                         device=codec.device)
                 take = min(out.numel(), remaining)
-                fout.write(out[:take].cpu().numpy().data)
+                fout.write(trace.to_host(out[:take], "file_out").numpy().data)
                 remaining -= take
             reader.close()
             if remaining:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .ils_kernels import (
     _M32,
     _check,
@@ -91,14 +92,12 @@ def encode_map(data, enc):
 
 
 _WRAPPERS = (encode_map,)
-for _fn in _WRAPPERS:
-    _fn.launches = 0
+_NAMES = tuple(fn.__name__ for fn in _WRAPPERS)
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    trace.reset_launches(_NAMES)
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    return trace.launches(_NAMES)

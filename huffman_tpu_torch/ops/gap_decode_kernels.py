@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .ils_kernels import (
     _check,
     _launched,
@@ -364,14 +365,12 @@ def decode_blocks(words, gaps, counts, dec: DeviceDecTable, *, spec: DecSpec,
 
 
 _WRAPPERS = (gap_decode_ranks, gap_place_bytes, count_segments)
-for _fn in _WRAPPERS:
-    _fn.launches = 0
+_NAMES = tuple(fn.__name__ for fn in _WRAPPERS)
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    trace.reset_launches(_NAMES)
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    return trace.launches(_NAMES)

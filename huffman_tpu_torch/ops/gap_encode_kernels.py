@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from .ils_kernels import (
     _M32,
     _check,
@@ -425,14 +426,12 @@ def encode_blocks(blocks, enc, *, seg_bits, max_words, n_segs, max_len,
 
 
 _WRAPPERS = (gap_row_pack, gap_row_meta, gap_place_bits)
-for _fn in _WRAPPERS:
-    _fn.launches = 0
+_NAMES = tuple(fn.__name__ for fn in _WRAPPERS)
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    trace.reset_launches(_NAMES)
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    return trace.launches(_NAMES)

@@ -24,6 +24,7 @@ import torch
 
 from ..core.canonical import CodeTable
 from ..core.ils_ref import ILS_LANES, IlsParams, ils_n_win, ils_schedule_numer
+from ..utils import trace
 from .ils_kernels import (
     CHUNK_I,
     FUSED_E_BAND,
@@ -186,7 +187,7 @@ class IlsSection:
 
     def payload_u32(self) -> np.ndarray:
         """The payload on the host as (total_rows, 1024) uint32."""
-        return self.payload.cpu().numpy().view(np.uint32)
+        return trace.to_host(self.payload, "payload_u32").numpy().view(np.uint32)
 
 
 def _as_tiles_i32(data: torch.Tensor) -> torch.Tensor:
@@ -196,11 +197,11 @@ def _as_tiles_i32(data: torch.Tensor) -> torch.Tensor:
 
 
 def _lane_min(x: torch.Tensor) -> np.ndarray:
-    return x.amin(dim=-1).cpu().numpy()
+    return trace.to_host(x.amin(dim=-1), "lane_min").numpy()
 
 
 def _lane_max(x: torch.Tensor) -> np.ndarray:
-    return x.amax(dim=-1).cpu().numpy()
+    return trace.to_host(x.amax(dim=-1), "lane_max").numpy()
 
 
 def stride_rows_for(k: int, max_len: int) -> int:
@@ -244,8 +245,9 @@ def envelope_params(bits, dn, dx, *, k: int, snum: int, rot: bool,
                     extra_band_pairs: int = 0) -> IlsParams:
     """Certified params from a pass's per-stream bits and decode envelopes
     (`ils_pack_certify` or `ils_lengths_pass` outputs)."""
-    return meta_params(tile_meta(bits, dn, dx)[None].cpu().numpy(), k=k,
-                       snum=snum, rot=rot, extra_band_pairs=extra_band_pairs)
+    meta = trace.to_host(tile_meta(bits, dn, dx)[None], "envelope").numpy()
+    return meta_params(meta, k=k, snum=snum, rot=rot,
+                       extra_band_pairs=extra_band_pairs)
 
 
 def fused_pass_for(k: int, stride_rows: int, e_band: int,
@@ -283,12 +285,15 @@ def fused_certify(fused, data_i32, snum: int, enc, *, k: int,
     at both anchors, or the envelope-widened cap exceeds the strided
     slack."""
     for anchor in ("mu", "laggard"):
-        pay_s, bits, dn, dx, viol = fused(
-            data_i32, snum, enc, k=k, stride_rows=stride_rows,
-            e_band=e_band, rot=rot, anchor=anchor,
-        )
-        row = tile_meta(bits, dn, dx, viol)
-        meta = (row[None] if gather is None else gather(row)).cpu().numpy()
+        with trace.span("ils.pass", tier="fused", anchor=anchor, rot=rot):
+            trace.count("ils.passes")
+            pay_s, bits, dn, dx, viol = fused(
+                data_i32, snum, enc, k=k, stride_rows=stride_rows,
+                e_band=e_band, rot=rot, anchor=anchor,
+            )
+            row = tile_meta(bits, dn, dx, viol)
+            meta = trace.to_host(row[None] if gather is None else gather(row),
+                                 "certify").numpy()
         if meta[:, 0].any():
             continue
         params = meta_params(meta, k=k, snum=snum, rot=rot)
@@ -317,7 +322,8 @@ def row_starts_of(params: IlsParams, dev) -> torch.Tensor:
     device-to-host sync per launch): they are the prefix sum of ``w_tiles``,
     each at most the worst-case stride.  Rows a kernel would address outside
     its buffers are skipped or read as zero there."""
-    return torch.from_numpy(params.row_starts[:-1].astype(np.int32)).to(dev)
+    return trace.to_device(params.row_starts[:-1].astype(np.int32), dev,
+                           "row_starts")
 
 
 def ils_encode_to_device(
@@ -361,7 +367,7 @@ def ils_encode_to_device(
     snum = ils_schedule_numer(avg_bits)
     e_band = fused_e_band(k) if e_band is None else e_band
     if max_len is None:
-        max_len = int((enc >> 20).max())
+        max_len = int(trace.to_host((enc >> 20).max(), "max_len"))
     stride_rows = stride_rows_for(k, max_len)
     fused = fused_pass_for(k, stride_rows, e_band, stride_budget)
     res = None if fused is None else fused_certify(
@@ -369,28 +375,31 @@ def ils_encode_to_device(
         e_band=e_band, rot=rot)
     if res is not None:
         pay_s, params = res
-        row_starts = row_starts_of(params, dev)
-        payload_rows = ils_compact(
-            pay_s, row_starts, stride_rows=stride_rows,
-            w_cap=params.w_cap, total_rows=params.total_rows,
-        )
+        with trace.span("ils.compact"):
+            row_starts = row_starts_of(params, dev)
+            payload_rows = ils_compact(
+                pay_s, row_starts, stride_rows=stride_rows,
+                w_cap=params.w_cap, total_rows=params.total_rows,
+            )
         return payload_rows, row_starts, params
 
-    # A5 takes A4's chunk bits rather than counting them again
-    bits, dn, dx, en, ex, cbits = ils_lengths_pass(
-        data_i32, snum, enc, k=k, rot=rot, chunk_bits=True)
-    w_band_enc, boffs_enc = emission_band(en, ex)
-    # the emission window needs w_band_enc <= w_cap // 2 as well; this
-    # extra band is why the two-pass tier can write a wider w_cap
-    # (ROADMAP.md trap F2)
-    params = envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
-                             extra_band_pairs=w_band_enc)
-    row_starts = row_starts_of(params, dev)
-    payload_rows = ils_pack(
-        data_i32, snum, torch.from_numpy(boffs_enc).to(dev), row_starts, enc,
-        k=k, w_cap=params.w_cap, w_band=w_band_enc,
-        total_rows=params.total_rows, rot=rot, cbits=cbits,
-    )
+    with trace.span("ils.pass", tier="two_pass", anchor=None, rot=rot):
+        trace.count("ils.passes")
+        # A5 takes A4's chunk bits rather than counting them again
+        bits, dn, dx, en, ex, cbits = ils_lengths_pass(
+            data_i32, snum, enc, k=k, rot=rot, chunk_bits=True)
+        w_band_enc, boffs_enc = emission_band(en, ex)
+        # the emission window needs w_band_enc <= w_cap // 2 as well; this
+        # extra band is why the two-pass tier can write a wider w_cap
+        # (ROADMAP.md trap F2)
+        params = envelope_params(bits, dn, dx, k=k, snum=snum, rot=rot,
+                                 extra_band_pairs=w_band_enc)
+        row_starts = row_starts_of(params, dev)
+        payload_rows = ils_pack(
+            data_i32, snum, trace.to_device(boffs_enc, dev, "boffs"),
+            row_starts, enc, k=k, w_cap=params.w_cap, w_band=w_band_enc,
+            total_rows=params.total_rows, rot=rot, cbits=cbits,
+        )
     return payload_rows, row_starts, params
 
 
@@ -398,9 +407,9 @@ def _as_bytes(data, dev: torch.device) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         if data.dtype != torch.uint8:
             raise TypeError(f"data must be uint8, got {data.dtype}")
-        return data.reshape(-1).to(dev).contiguous()
+        return trace.to_device(data.reshape(-1), dev, "input").contiguous()
     arr = np.ascontiguousarray(np.asarray(data, np.uint8).reshape(-1))
-    return torch.from_numpy(arr).to(dev)
+    return trace.to_device(arr, dev, "input")
 
 
 def ils_encode_device(
@@ -451,7 +460,7 @@ def ils_decode_device(
             f"invalid ILS section: w_band={p.w_band} outside "
             f"[1, w_cap//2={p.w_cap // 2}]"
         )
-    rows = section.payload.to(dev)
+    rows = trace.to_device(section.payload, dev, "payload")
     if tuple(rows.shape) != (p.total_rows, ILS_LANES):
         raise ValueError(
             f"ILS section payload has shape {tuple(rows.shape)}, expected "
@@ -461,7 +470,7 @@ def ils_decode_device(
     # end as zeros
     out = ils_decode(
         rows.contiguous(), row_starts_of(p, dev),
-        IlsDecTabs(*(x.to(dev) for x in dec)),
+        IlsDecTabs(*(trace.to_device(x, dev, "dec_tables") for x in dec)),
         k=p.k, w_cap=p.w_cap, n_tiles=p.n_tiles,
         max_len=max(table.max_len_present, 1),
         min_len=max(table.min_len, 1), rot=p.rot,

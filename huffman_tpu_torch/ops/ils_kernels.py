@@ -13,12 +13,13 @@ The plain versions also run on CUDA tensors when called directly: that is
 how a kernel is held against them on the card.  They keep u32 values in
 int64 masked to 32 bits, since torch's ``>>`` on int32 is arithmetic.
 
-Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``; `reset_launch_counts` and `launch_counts` read them
-together.  The TPU kernels' banded one-hot refill and emission windows,
-lane tables, rolls and chunked grids are TPU artifacts and are not carried
-over; where a window decided TPU output (the dropped out-of-band pairs and
-the violation flag, ROADMAP.md trap F2) the cadence is replayed exactly.
+Each wrapper counts its kernel launches in the port's counter store
+(`utils/trace.py`, ``launches.<wrapper>``); `reset_launch_counts` and
+`launch_counts` read them together.  The TPU kernels' banded one-hot
+refill and emission windows, lane tables, rolls and chunked grids are TPU
+artifacts and are not carried over; where a window decided TPU output
+(the dropped out-of-band pairs and the violation flag, ROADMAP.md trap
+F2) the cadence is replayed exactly.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from ..core.canonical import CodeTable
 from ..core.ils_ref import ILS_LANES, ILS_WIN, _rot_src_index, ils_n_win
+from ..utils import trace
 
 __all__ = [
     "IlsDecTabs",
@@ -138,7 +140,9 @@ def ils_enc_tabs(table: CodeTable, *, device="cuda") -> torch.Tensor:
     """(256,) int32 ``(len << 20) | code`` per symbol, on ``device`` (CUDA
     unless the caller asks for the CPU)."""
     packed = (table.lengths.astype(np.int32) << 20) | table.codes.astype(np.int32)
-    return torch.from_numpy(packed.astype(np.int32)).to(resolve_device(device))
+    with trace.span("ils.enc_tables"):
+        return trace.to_device(packed.astype(np.int32), resolve_device(device),
+                               "enc_table")
 
 
 def ils_dec_tabs(table: CodeTable, *, device="cuda") -> IlsDecTabs:
@@ -152,11 +156,12 @@ def ils_dec_tabs(table: CodeTable, *, device="cuda") -> IlsDecTabs:
     bias[: b.shape[0]] = b.astype(np.int32)
     symtab = np.zeros(256, np.int32)
     symtab[: table.num_symbols] = table.symtab
-    return IlsDecTabs(
-        torch.from_numpy(lim.view(np.int32)).to(device),
-        torch.from_numpy(bias).to(device),
-        torch.from_numpy(symtab).to(device),
-    )
+    with trace.span("ils.dec_tables"):
+        return IlsDecTabs(
+            trace.to_device(lim.view(np.int32), device, "dec_tables"),
+            trace.to_device(bias, device, "dec_tables"),
+            trace.to_device(symtab, device, "dec_tables"),
+        )
 
 
 # ----------------------------------------------------------------------
@@ -194,7 +199,7 @@ def _stream(x: torch.Tensor) -> int:
 def _launched(fn, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA launch failed (cudaError {rc})")
-    fn.launches += 1
+    trace.count(trace.LAUNCH + fn.__name__)
 
 
 def _lib(name: str):
@@ -842,14 +847,12 @@ def ils_decode(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
 
 _WRAPPERS = (ils_decode, ils_pack_certify, ils_compact, ils_lengths_pass,
              ils_pack, ils_pack_certify_stream)
-for _fn in _WRAPPERS:
-    _fn.launches = 0
+_NAMES = tuple(fn.__name__ for fn in _WRAPPERS)
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    trace.reset_launches(_NAMES)
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    return trace.launches(_NAMES)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .gap_decode_kernels import _walk_counts
 from .ils_kernels import (
     _check,
@@ -110,12 +111,9 @@ def sync_transitions(words, lim, *, total_bits, seg_bits, n_subseq, min_len,
     return out
 
 
-sync_transitions.launches = 0
-
-
 def reset_launch_counts() -> None:
-    sync_transitions.launches = 0
+    trace.reset_launches(("sync_transitions",))
 
 
 def launch_counts() -> dict[str, int]:
-    return {"sync_transitions": sync_transitions.launches}
+    return trace.launches(("sync_transitions",))

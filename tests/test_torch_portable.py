@@ -182,7 +182,7 @@ def test_encode_map_plain_matches_pallas():
     ref = encode_map_pallas(jnp.asarray(data), jk.ils_enc_tabs(jt),
                             interpret=True)
     got = em.encode_map(torch.from_numpy(data), tk.ils_enc_tabs(pt, device="cpu"))
-    assert em.encode_map.launches == 0  # a CPU tensor runs the plain version
+    assert em.launch_counts()["encode_map"] == 0  # a CPU tensor runs the plain version
     for g, r in zip(got, ref):
         assert g.dtype == torch.int32
         assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int64)
