@@ -16,7 +16,8 @@ failure raises and exits non-zero with the traceback):
    C2, B2 and A2 (`row_pack_tile`, `meta_tile`, `ranks_tile`,
    `sync_tile`, `place_tile`, `certify_chunks`), B4d's rows a warp,
    A1's length-and-symbol table, A5's grid, A4's (tile, chunk) grid at
-   the shapes below and C1's count table, a line each for those eleven.
+   the shapes below, C1's count table and H1's counters, a line each for
+   those twelve.
 2. Kernels A1-A5 against their plain PyTorch versions on the card, bit for
    bit, on: 4 tiles at k=4096 of generate_redundant(r=0.5) with rotation
    off and on (A2 in its chunks, `certify_chunks`); the zeros-then-uniform
@@ -31,10 +32,14 @@ failure raises and exits non-zero with the traceback):
    tail (default 777); --size 1073741824 with 0.9 or 0.1 gives the 1 GiB
    configurations of BASELINE.json:
    IlsCodec fit, encode, write_ils_container, read_ils_container, decode,
-   bit-exact on the device, with the launch counters of that one run.  Then
-   the kernels are held against their plain versions again at the shapes
-   that run gave them and timed: ms is the kernel's own device time, the
-   sum of its kernels per wrapper call where it launches two (A2 at more
+   bit-exact on the device, with the launch counters of that one run
+   (the byte histogram H1, `byte_counts`, once a section of the encode).
+   Then the kernels are held against their plain versions again at the
+   shapes that run gave them and timed (H1 on each section's bytes, and
+   at 10^9 B on one constant byte, r=0.9, r=0.1 and uniform bytes, made
+   on the card, where its time must not depend on the data:
+   HIST_SKEW_MAX): ms is the kernel's own device time, the sum of its
+   kernels per wrapper call where it launches two (A2 at more
    than one chunk a stream; each under "ms_parts") (torch.profiler; where
    every trace lost its launches, CUDA events around its wrapper, and
    ms_by says "cuda_events"), wrapper_ms, plain_ms and
@@ -217,7 +222,9 @@ failure raises and exits non-zero with the traceback):
    A5 and A1 also
    carry "full_band" (phase 15a's shape) and, with A2, A3 and B4b-B4d,
    their phase-15 launches ("parallel_launches").  The rows of A1, A2,
-   A4, A5, B1, B2, B4b-B4d, C1 and C2 also carry their "ptxas" report.  Then the card
+   A4, A5, B1, B2, B4b-B4d, C1, C2 and H1 also carry their "ptxas" report;
+   H1's row carries "tail" and the four inputs of 10^9 B
+   ("bytes_1e9_<input>").  Then the card
    line, then the device line last.
 
 bound_ms is the larger of (bytes each input read once + each output written
@@ -247,6 +254,12 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 # phase 15c's default count of fuzz cases
 FUZZ_ITERS = 64
+# H1's largest time on one constant byte over its time on uniform bytes
+HIST_SKEW_MAX = 1.3
+# H1's inputs of 10^9 B: (label, share of the bytes on 'A'-'D'); None is
+# one constant byte
+HIST_INPUTS = (("constant", None), ("r09", 0.9), ("r01", 0.1),
+               ("uniform", 0.0))
 KERNELS = {
     # wrapper name -> (source, TPU kernel it replaces)
     "ils_decode": ("huffman_tpu_torch/csrc/ils_decode.cu",
@@ -275,6 +288,8 @@ KERNELS = {
                          "huffman_tpu/ops/pallas/selfsync_kernels.py:42"),
     "encode_map": ("huffman_tpu_torch/csrc/encode_map.cu",
                    "huffman_tpu/ops/pallas/encode_kernel.py:39"),
+    # H1: no TPU kernel; the JAX package's histogram is an XLA scatter-add
+    "byte_counts": ("huffman_tpu_torch/csrc/byte_histogram.cu", "none"),
 }
 HTC1 = ("gap_decode_ranks", "gap_place_bytes", "gap_row_pack", "gap_row_meta",
         "gap_place_bits")
@@ -312,6 +327,7 @@ SYMBOLS = {
     "count_segments": C1_KERNELS,
     "sync_transitions": ("sync_transitions_kernel",),
     "encode_map": ("encode_map_kernel",),
+    "byte_counts": ("byte_histogram_kernel",),
     # D1 launches A2's kernels
     "ils_pack_certify_stream": A2_KERNELS,
 }
@@ -505,6 +521,57 @@ def timed_kernel(name, call, plain_ms, reps, symbols=None, **extra):
                 plain_ms=plain_ms,
                 **({"ms_parts": parts} if parts and len(parts) > 1 else {}),
                 **extra)
+
+
+def histogram_case(stats, hk, data, label, timing=None):
+    """H1 and its plain version (`torch.bincount`, also the library op)
+    on one uint8 tensor on the card, exact; with `timing`, also timed:
+    the input read once and the 2 KiB of counts written once."""
+    got = hk.byte_counts(data)
+    stats.check("byte_counts", got, hk.byte_counts_plain(data), label)
+    if timing is not None:
+        t = timed("byte_counts", lambda: hk.byte_counts(data),
+                  lambda: hk.byte_counts_plain(data), 10, 3,
+                  bytes=data.numel() + got.numel() * 8, ops=0,
+                  shape=list(got.shape))
+        t["library_ms"] = t["plain_ms"]
+        timing["byte_counts"] = t
+
+
+def histogram_inputs(stats, hk, n, dev, card):
+    """H1 on `HIST_INPUTS` of `n` bytes each, made on the card from a
+    fixed seed (the generator's data: each byte one of 'A'-'D' with
+    probability r, else uniform); returns {label: timing}.  Its time on
+    the constant byte must stay within HIST_SKEW_MAX of the uniform's."""
+    out = {}
+    for label, r in HIST_INPUTS:
+        g = torch.Generator(device=dev).manual_seed(19)
+        if r is None:
+            x = torch.full((n,), ord("A"), dtype=torch.uint8, device=dev)
+        else:
+            x = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                              generator=g)
+            if r:
+                hot = torch.rand(n, device=dev, generator=g) < r
+                abcd = torch.randint(ord("A"), ord("D") + 1, (n,),
+                                     dtype=torch.uint8, device=dev,
+                                     generator=g)
+                x = torch.where(hot, abcd, x)
+                del hot, abcd
+        timing = {}
+        histogram_case(stats, hk, x, f"{label} {n} B", timing)
+        out[label] = timing["byte_counts"]
+        del x
+        torch.cuda.empty_cache()
+    skew = out["constant"]["ms"] / out["uniform"]["ms"]
+    log(f"  byte_counts at {n} B: " + ", ".join(
+        f"{label} {t['ms']:.4f} ms ({t['ms_by']}, plain {t['plain_ms']:.3f})"
+        for label, t in out.items())
+        + f"; constant / uniform {skew:.3f} ({card})")
+    if skew > HIST_SKEW_MAX:
+        raise AssertionError(f"byte_counts: constant / uniform {skew:.3f} "
+                             f"> {HIST_SKEW_MAX}")
+    return out
 
 
 def chunk_kernels(tk, k, kernels=A2_KERNELS):
@@ -1846,7 +1913,7 @@ def fuzz_phase(seed, iters, card):
         f"{fuzz.MAX_BYTES} B a case ({card})")
     for m in (fuzz.ils_kernels, fuzz.gap_decode_kernels,
               fuzz.gap_encode_kernels, fuzz.selfsync_kernels,
-              fuzz.encode_map_kernels):
+              fuzz.encode_map_kernels, fuzz.histogram_kernels):
         m.reset_launch_counts()
     r = fuzz.soak(seed, 0, iters, torch.device("cuda"),
                   log=lambda line: log("  " + line))
@@ -2085,6 +2152,7 @@ def main(argv=None) -> int:
     from huffman_tpu_torch.ops import encode_map_kernels as em
     from huffman_tpu_torch.ops import gap_decode_kernels as gd
     from huffman_tpu_torch.ops import gap_encode_kernels as ge
+    from huffman_tpu_torch.ops import histogram_kernels as hk
     from huffman_tpu_torch.ops import ils as tils
     from huffman_tpu_torch.ops import ils_kernels as tk
     from huffman_tpu_torch.ops import selfsync_kernels as sk
@@ -2144,6 +2212,9 @@ def main(argv=None) -> int:
         ("count_segments", f"count table on {gd.COUNT_TAB_BITS} bits: "
          f"{2 << gd.COUNT_TAB_BITS} B built per call, copied to each block's "
          "static shared memory"),
+        ("byte_counts", "one 8-bit counter a (bin, thread): 64 KiB of "
+         "dynamic shared memory, 256 threads a block, drained into 64-bit "
+         "totals every 224 B a thread"),
     ):
         ptxas[name] = {}
         for symbol in SYMBOLS[name]:
@@ -2201,6 +2272,7 @@ def main(argv=None) -> int:
     data = torch.from_numpy(host).to(dev)
     torch.cuda.synchronize()
     tk.reset_launch_counts()
+    hk.reset_launch_counts()
     t0 = time.perf_counter()
     codec = IlsCodec.fit(host, device="cuda")
     comp = codec.encode(data)
@@ -2209,13 +2281,17 @@ def main(argv=None) -> int:
     out = codec.decode(comp2)
     ok = torch.equal(out, data)
     torch.cuda.synchronize()
-    launches = tk.launch_counts()
+    launches = {**tk.launch_counts(), **hk.launch_counts()}
     log(f"  round trip {time.perf_counter() - t0:.2f} s bit-exact={ok} "
         f"k={codec.k} sections={[(s.params.k, s.params.n_tiles, s.params.rot, s.params.w_band, s.params.w_cap) for s in comp.sections]}")
     log(f"  container {len(blob)} bytes, ratio {len(blob) / n:.6f}")
     log(f"  launches in that run: {launches}")
     if not ok:
         raise AssertionError("end-to-end round trip is not bit-exact")
+    # the fit counted host bytes: H1 runs once a section of the encode
+    if launches["byte_counts"] != len(comp.sections):
+        raise AssertionError(f"byte_counts launched {launches['byte_counts']}"
+                             f" times for {len(comp.sections)} sections")
     # the streaming pack runs only where PREFER_STREAM_PACK is on (phase 11)
     missing = [name for name, c in launches.items()
                if c == 0 and name != "ils_pack_certify_stream"]
@@ -2233,8 +2309,10 @@ def main(argv=None) -> int:
     kernel_cases(stats, tk, tils, chunk.view(torch.int32).view(-1, ILS_LANES),
                  codec, snum, k, main_sec.params.rot, tils.fused_e_band(k),
                  f"main {main_sec.params.n_tiles}x k={k}", timing)
+    histogram_case(stats, hk, chunk, f"main {main_bytes} B", timing)
     main_timing = {name: timing[name] for name in
-                   ("ils_decode", "ils_pack_certify", "ils_compact")
+                   ("ils_decode", "ils_pack_certify", "ils_compact",
+                    "byte_counts")
                    if name in timing}
     # A4 and A5 at the full section: the shape of the two-pass tier when a
     # section's anchors both violate or its stride exceeds the budget
@@ -2253,6 +2331,9 @@ def main(argv=None) -> int:
         main_timing["ils_lengths_pass"] = timing["ils_lengths_pass"]
         main_timing["ils_pack"] = timing["ils_pack"]
         a1_tail = timing["ils_decode"]
+        histogram_case(stats, hk, padded, f"tail {padded.numel()} B", timing)
+        h1_tail = timing["byte_counts"]
+    h1_inputs = histogram_inputs(stats, hk, 10**9, dev, card)
     # A4 at the first attempt of the file path on this input written as a
     # file (phase 13): one tile at k = 4 * ceil(n / 4096), 257 chunks at the
     # default size, unrotated (its section fails the row budget, so
@@ -2274,7 +2355,8 @@ def main(argv=None) -> int:
     dec_ms = [cuda_ms(lambda: codec.decode(comp), 1) for _ in range(5)]
     enc_med, dec_med = statistics.median(enc_ms), statistics.median(dec_ms)
     prof = {"encode": device_profile(lambda: codec.encode(data), "encode",
-                                     tk.launch_counts),
+                                     lambda: {**tk.launch_counts(),
+                                              **hk.launch_counts()}),
             "decode": device_profile(lambda: codec.decode(comp), "decode",
                                      tk.launch_counts)}
     log(f"  encode ms {[round(x, 3) for x in enc_ms]} median {enc_med:.3f} "
@@ -2714,6 +2796,9 @@ def main(argv=None) -> int:
         extra.setdefault(name, []).append(("ragged_blocks", t))
     if n % tile_bytes:
         extra.setdefault("ils_decode", []).insert(0, ("tail", a1_tail))
+        extra["byte_counts"] = [("tail", h1_tail)]
+    extra.setdefault("byte_counts", []).extend(
+        (f"bytes_1e9_{label}", t) for label, t in h1_inputs.items())
     extra["ils_decode"].append(("entry", entry_timing))
     log(f"per kernel at the main path's shapes ({card}):")
     rows = []

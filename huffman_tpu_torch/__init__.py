@@ -6,8 +6,10 @@ reference.  The host-side table math is NumPy, bit-identical to the JAX
 package; every Pallas kernel of the ILS, HTC1, Yamamoto and self-sync
 paths is a hand-written CUDA kernel in ``csrc/`` with a plain PyTorch
 version beside it (`ops/ils_kernels.py`, `ops/gap_decode_kernels.py`,
-`ops/gap_encode_kernels.py`, `ops/selfsync_kernels.py`).  The entry
-points run on the CUDA device unless the caller passes ``device="cpu"``.
+`ops/gap_encode_kernels.py`, `ops/selfsync_kernels.py`), and the byte
+histogram of a device tensor is one too (`ops/histogram_kernels.py`).
+The entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 This package imports neither jax nor anything of `huffman_tpu`.
 
 Host helpers: ``native`` (a C++ histogram, package-merge, canonical

@@ -29,14 +29,13 @@ __all__ = [
 def histogram(data) -> np.ndarray:
     """(256,) int64 byte histogram of a uint8 array or tensor.
 
-    A tensor is counted where it lies (``torch.bincount``) and only the 256
-    counts come back to the host, so a device-resident input is never
-    copied whole."""
+    A tensor is counted where it lies (`ops/histogram_kernels.py::
+    byte_counts`: the kernel on a card) and only the 256 counts come back
+    to the host, so a device-resident input is never copied whole."""
     if isinstance(data, torch.Tensor):
-        if data.dtype != torch.uint8:
-            raise TypeError(f"histogram needs uint8 data, got {data.dtype}")
-        counts = torch.bincount(data.reshape(-1), minlength=ALPHABET_SIZE)
-        return trace.to_host(counts, "histogram").numpy().astype(np.int64)
+        from ..ops.histogram_kernels import byte_counts
+
+        return trace.to_host(byte_counts(data), "histogram").numpy()
     data = np.asarray(data, dtype=np.uint8)
     from .. import native
 

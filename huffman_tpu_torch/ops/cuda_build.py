@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "huffman_tpu_torch"
 KERNEL_SOURCES = (
     "ils_decode", "ils_encode", "ils_compact", "gap_decode", "gap_encode",
-    "selfsync", "encode_map",
+    "selfsync", "encode_map", "byte_histogram",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -89,6 +89,9 @@ _SIGNATURES = {
     },
     "encode_map": {
         "encode_map_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
+    },
+    "byte_histogram": {
+        "byte_histogram_launch": [_P, _L, _P, _P],
     },
 }
 

@@ -12,9 +12,10 @@ Counterpart of `huffman_tpu/ops/encode.py`, bit-identical to it.
 - `encode_block_fast`: the same outputs from the encode map kernel B5
   (`ops/encode_map_kernels.py`), which packs each 4-byte group into 64
   bits, so the placement and the metadata run once per group;
-- `histogram`: the (256,) byte count of a tensor where it lies.
+- `histogram`: the (256,) byte count of a tensor where it lies, by the
+  byte histogram kernel (`ops/histogram_kernels.py`).
 
-Around the kernel these are XLA functions in the JAX package, not kernels,
+Around the kernels these are XLA functions in the JAX package, not kernels,
 and run as plain tensor code on any device.
 """
 
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .encode_map_kernels import MAP_ALIGN, encode_map
+from .histogram_kernels import byte_counts
 from .ils_kernels import _M32, _to_i32, _u32
 
 __all__ = ["encode_block", "encode_block_fast", "histogram"]
@@ -32,10 +34,9 @@ _I32_MAX = (1 << 31) - 1
 
 def histogram(data: torch.Tensor) -> torch.Tensor:
     """(256,) int32 byte histogram of a uint8 tensor, counted on its
-    device (a scatter-add in the JAX package, XLA code there)."""
-    if data.dtype != torch.uint8:
-        raise TypeError(f"histogram needs uint8 data, got {data.dtype}")
-    return torch.bincount(data.reshape(-1), minlength=256).to(torch.int32)
+    device by `byte_counts` (a scatter-add in the JAX package, XLA code
+    there)."""
+    return byte_counts(data).to(torch.int32)
 
 
 def encode_block(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,

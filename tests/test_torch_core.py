@@ -111,15 +111,39 @@ def test_canonical_table_errors_match(lengths, max_len):
     assert str(got.value) == str(ref.value)
 
 
-@pytest.mark.parametrize("size", [0, 1, 4097, 1 << 17])
-def test_histogram_matches(size):
-    data = jgen.generate_redundant(size, 0.7, seed=size)
+@pytest.mark.parametrize("size,kind", [
+    pytest.param(0, "0.7", id="0"),
+    pytest.param(1, "0.7", id="1"),
+    pytest.param(4097, "0.7", id="4097"),
+    pytest.param(1 << 17, "0.7", id="131072"),
+    pytest.param(70_001, "0.9", id="70001-skewed"),
+    pytest.param(65_537, "constant", id="65537-constant"),
+    pytest.param(4099, "unaligned", id="4099-unaligned"),
+])
+def test_histogram_matches(size, kind):
+    # a tensor is counted by `byte_counts` (its plain version on the CPU),
+    # an array on the host; from an odd byte offset too
+    from huffman_tpu_torch.ops.histogram_kernels import byte_counts
+
+    if kind == "constant":
+        data = np.full(size, 0x41, np.uint8)
+    else:
+        data = jgen.generate_redundant(
+            size, 0.7 if kind == "unaligned" else float(kind), seed=size)
+    t = torch.from_numpy(data)
+    if kind == "unaligned":
+        data, t = data[3:], t[3:]
     want = jnpref.histogram(data)
     assert np.array_equal(tnpref.histogram(data), want)
-    got = tnpref.histogram(torch.from_numpy(data))
+    got = tnpref.histogram(t)
     assert got.dtype == np.int64 and np.array_equal(got, want)
+    counts = byte_counts(t)
+    assert counts.dtype == torch.int64 and counts.shape == (256,)
+    assert np.array_equal(counts.numpy(), want)
     with pytest.raises(TypeError, match="uint8"):
         tnpref.histogram(torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(TypeError, match="uint8"):
+        byte_counts(torch.zeros(4, dtype=torch.int8))
 
 
 @pytest.mark.parametrize("size,r,seed", [

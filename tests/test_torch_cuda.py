@@ -1030,3 +1030,110 @@ def test_encode_blocks_any_size_on_card(cuda, b):
                             n_segs=n_segs)
                         assert _equal(tuple(x[i] for x in ref), one), \
                             (kind, seg_bits, counts, i)
+
+
+# ----------------------------------------------------------------------
+# The byte histogram kernel (csrc/byte_histogram.cu)
+# ----------------------------------------------------------------------
+def _hist_data(kind, n, seed=5):
+    if kind == "constant":
+        return np.full(n, ord("C"), np.uint8)
+    r = {"0.9": 0.9, "0.1": 0.1, "uniform": 0.0}[kind]
+    return generate_redundant(n, r, seed=seed)
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, (4 << 20) + 3])
+@pytest.mark.parametrize("kind", ["constant", "0.9", "0.1", "uniform"])
+def test_byte_counts_match_bincount(cuda, kind, n):
+    from huffman_tpu_torch.ops import histogram_kernels as hk
+
+    x = torch.from_numpy(_hist_data(kind, n)).to(cuda)
+    got = hk.byte_counts(x)
+    assert got.dtype == torch.int64 and got.shape == (256,)
+    assert got.device == x.device
+    assert torch.equal(got, torch.bincount(x, minlength=256))
+
+
+@pytest.mark.parametrize("view", ["[1:]", "[3:-5]", "[::3]"])
+def test_byte_counts_of_views(cuda, view):
+    # unaligned heads and ragged tails of every length the slices give,
+    # and a strided view (copied by the wrapper), each exact
+    from huffman_tpu_torch.ops import histogram_kernels as hk
+
+    base = torch.from_numpy(_hist_data("0.9", (1 << 20) + 77)).to(cuda)
+    for off in range(17):
+        x = {"[1:]": base[1 + off:], "[3:-5]": base[3 + off:-5 - off],
+             "[::3]": base[off::3]}[view]
+        assert torch.equal(hk.byte_counts(x),
+                           torch.bincount(x.reshape(-1), minlength=256)), off
+    two_d = base[: 1000 * 1000].view(1000, 1000)[:, 1:999]
+    assert not two_d.is_contiguous()
+    assert torch.equal(hk.byte_counts(two_d),
+                       torch.bincount(two_d.reshape(-1), minlength=256))
+
+
+def test_byte_counts_past_32_bits(cuda):
+    # 2^32 + 7 bytes from an odd offset: one bin's count passes 2^32; the
+    # counts are known by construction, exactly
+    from huffman_tpu_torch.ops import histogram_kernels as hk
+
+    n = (1 << 32) + 7
+    buf = torch.full((n + 3,), ord("A"), dtype=torch.uint8, device=cuda)
+    x = buf[3:]
+    x[:2] = 1
+    x[-2:] = 2
+    x[1 << 31] = 3
+    want = torch.zeros(256, dtype=torch.int64)
+    want[1], want[2], want[3] = 2, 2, 1
+    want[ord("A")] = n - 5
+    got = hk.byte_counts(x).cpu()
+    del buf, x
+    assert int(got[ord("A")]) > (1 << 32)
+    assert torch.equal(got, want)
+
+
+def test_byte_counts_launch_once_a_call(cuda):
+    from huffman_tpu_torch.core import npref
+    from huffman_tpu_torch.ops import histogram as ops_histogram
+    from huffman_tpu_torch.ops import histogram_kernels as hk
+
+    x = torch.from_numpy(_hist_data("0.1", 100_001)).to(cuda)
+    hk.reset_launch_counts()
+    want = torch.bincount(x, minlength=256)
+    assert torch.equal(hk.byte_counts(x), want)
+    assert hk.launch_counts() == {"byte_counts": 1}
+    assert np.array_equal(npref.histogram(x), want.cpu().numpy())
+    assert hk.launch_counts() == {"byte_counts": 2}
+    got = ops_histogram(x)
+    assert got.dtype == torch.int32 and torch.equal(got, want.to(torch.int32))
+    assert hk.launch_counts() == {"byte_counts": 3}
+    with pytest.raises(TypeError, match="uint8"):
+        hk.byte_counts(x.to(torch.int32))
+    assert hk.launch_counts() == {"byte_counts": 3}
+
+
+@pytest.mark.parametrize("r", [0.9, 0.1])
+def test_ils_container_same_with_bincount(cuda, monkeypatch, r):
+    # the kernel's counts give the same avg_bits, so the same tier, snum
+    # and certified parameters: the containers are equal byte for byte;
+    # each encode launches the kernel once a section
+    from huffman_tpu_torch.ops import histogram_kernels as hk
+    from huffman_tpu_torch.utils import trace
+
+    data = generate_redundant(3 * (4 << 20) + 70_001, r, seed=11)
+    x = torch.from_numpy(data).to(cuda)
+    blobs = []
+    for patched in (False, True):
+        if patched:
+            monkeypatch.setattr(hk, "byte_counts", hk.byte_counts_plain)
+        codec = IlsCodec.fit(x)
+        trace.drain()
+        hk.reset_launch_counts()
+        blobs.append(write_ils_container(codec.encode(x)))
+        sections = trace.drain()["counters"]["ils.sections"]
+        assert sections >= 2
+        launched = hk.launch_counts()["byte_counts"]
+        assert launched == (0 if patched else sections), (launched, sections)
+    assert blobs[0] == blobs[1]
+    comp = read_ils_container(blobs[0])
+    assert torch.equal(IlsCodec(comp.table).decode(comp).reshape(-1), x)

@@ -182,15 +182,31 @@ def test_exported_names_match_the_jax_package():
         huffman_tpu_torch.mesh
 
 
-def test_ops_histogram_equals_npref():
+@pytest.mark.parametrize("kind", ["mixed", "skewed", "constant", "unaligned",
+                                  "2-d view"])
+def test_ops_histogram_equals_npref(kind):
+    # ops.histogram keeps its int32 call form over `byte_counts`
     from huffman_tpu_torch.core import npref
     from huffman_tpu_torch.ops import histogram
+    from huffman_tpu_torch.ops.histogram_kernels import byte_counts
 
-    data = np.random.default_rng(3).integers(0, 256, 70_000, dtype=np.uint8)
+    rng = np.random.default_rng(3)
+    data = rng.integers(0, 256, 70_000, dtype=np.uint8)
     data[:1000] = 7
-    got = histogram(torch.from_numpy(data))
+    if kind == "skewed":
+        data = np.where(rng.random(70_000) < 0.9, 65 + (data & 3), data)
+    elif kind == "constant":
+        data[:] = 200
+    t = torch.from_numpy(data)
+    if kind == "unaligned":
+        data, t = data[5:-3], t[5:-3]
+    elif kind == "2-d view":
+        t = t.view(350, 200)[:, 1:]
+        data = np.ascontiguousarray(data.reshape(350, 200)[:, 1:])
+    got = histogram(t)
     assert got.dtype == torch.int32 and got.shape == (256,)
     assert np.array_equal(got.numpy(), npref.histogram(data))
+    assert np.array_equal(byte_counts(t).numpy(), npref.histogram(data))
     with pytest.raises(TypeError, match="uint8"):
         histogram(torch.zeros(4, dtype=torch.int32))
 

@@ -19,6 +19,7 @@ from huffman_tpu_torch.ops import (
     encode_map_kernels as em,
     gap_decode_kernels as gd,
     gap_encode_kernels as ge,
+    histogram_kernels as hk,
     ils_kernels as tk,
     selfsync_kernels as sk,
 )
@@ -212,6 +213,7 @@ WRAPPERS = {
     ge: ("gap_row_pack", "gap_row_meta", "gap_place_bits"),
     em: ("encode_map",),
     sk: ("sync_transitions",),
+    hk: ("byte_counts",),
 }
 
 

@@ -64,6 +64,7 @@ from huffman_tpu_torch.ops import (
     encode_map_kernels,
     gap_decode_kernels,
     gap_encode_kernels,
+    histogram_kernels,
     ils_kernels,
     selfsync_kernels,
 )
@@ -461,7 +462,7 @@ def case_line(i, leg, p, seconds) -> str:
 def _launch_counts() -> dict:
     out = {}
     for m in (ils_kernels, gap_decode_kernels, gap_encode_kernels,
-              selfsync_kernels, encode_map_kernels):
+              selfsync_kernels, encode_map_kernels, histogram_kernels):
         out.update(m.launch_counts())
     return out
 
