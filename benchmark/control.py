@@ -23,6 +23,7 @@ import time
 from pathlib import Path
 
 STRIDE = 16
+DRIVER_NEEDS = ("fit_from_freqs",)
 
 
 def sampled_fit(driver):

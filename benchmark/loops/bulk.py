@@ -22,6 +22,7 @@ from benchmark.reference.huffman import diff_bytes
 from benchmark.traffic import DATA, SAMPLE, slices, sync
 
 SAMPLE_BELOW = 16
+DRIVER_NEEDS = ("input_shape", "fit", "encode", "decode", "container")
 
 
 def _calls(run, phase: str, fn, seconds: float, keep: set):

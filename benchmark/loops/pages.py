@@ -22,6 +22,7 @@ from benchmark.reference.huffman import diff_bytes
 from benchmark.traffic import DATA, ORDER, SAMPLE, p95, slices, sync
 
 SAMPLE_BELOW, SAMPLE_SIZE = 100_000, 512
+DRIVER_NEEDS = ("fit", "pack", "read")
 
 
 def setup(run) -> dict:

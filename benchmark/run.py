@@ -6,7 +6,9 @@ The cell (BENCHMARK.json ``workloads``) names a configuration and a
 traffic mix, found by name (`spec`).  The run makes its inputs on the
 device from the seed and warms up every shape its window uses (set-up),
 drives the program for ``--seconds`` (the window), then judges what the
-window produced against the plain reference.  The last line of standard
+window produced against the plain reference.  A cell that asks for more
+than one card runs one rank a card: this process is rank 0 on ``cuda:0``
+and starts the others (`benchmark/ranks.py`).  The last line of standard
 output is one JSON object: ``correct``, ``attempted``, ``failed``,
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer metrics, read from a profiled window), ``device``, with
@@ -59,10 +61,12 @@ class Run:
     ``overrides`` replaces keys of the configuration or the mix (tests
     run cells at a size the CPU holds); ``patch`` replaces functions of
     the configuration's driver (the control's table, the planted
-    faults)."""
+    faults); ``parts`` is a second folder of parts, searched first (the
+    tests' own, `spec`).  ``ranks`` is None on one card, and on more the
+    rank's view of the others (`benchmark/ranks.py`)."""
 
     def __init__(self, workload: str, seed: int, traced: bool, device, *,
-                 spec=None, overrides=None, patch=None):
+                 spec=None, overrides=None, patch=None, parts=None):
         import torch
 
         from benchmark import spec as specs
@@ -73,13 +77,16 @@ class Run:
         self.cell = specs.cell(self.spec, workload)
         self.config = {**specs.config(self.spec, self.cell["config"]),
                        **overrides.get("config", {})}
-        self.mix = {**specs.mix(self.cell["traffic"]), **overrides.get("mix", {})}
-        driver = specs.driver(self.config["driver"])
+        self.mix = {**specs.mix(self.cell["traffic"], parts),
+                    **overrides.get("mix", {})}
+        driver = specs.driver(self.config["driver"], parts)
         public = {k: v for k, v in vars(driver).items()
                   if callable(v) and not k.startswith("_")}
         self.codec = types.SimpleNamespace(**{**public, **(patch or {})})
-        self.reference = specs.reference(self.config["reference"])
-        self.loop = specs.loop(self.mix["loop"])
+        self.reference = specs.reference(self.config["reference"], parts)
+        self.loop = specs.loop(self.mix["loop"], parts)
+        self.parts = parts
+        self.ranks = None
         self.seed = int(seed)
         self.device = torch.device(device)
         self.tracer = Tracer(traced, self.device)
@@ -87,6 +94,12 @@ class Run:
 
     def note(self, msg: str) -> None:
         print(msg, flush=True)
+
+    def peak_bytes(self) -> int:
+        import torch
+
+        return (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
 
     def free(self) -> None:
         import torch
@@ -122,6 +135,8 @@ def execute(run: Run, seconds: float, t0: float) -> dict:
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     st = setup(run)
     sync()
+    if run.ranks is not None:
+        run.ranks.barrier("setup")  # every rank's start and set-up count
     # the set-up's objects leave the collector's scans, so a collection in
     # the window costs what the window's own garbage costs
     gc.collect()
@@ -132,8 +147,14 @@ def execute(run: Run, seconds: float, t0: float) -> dict:
         seconds = min(seconds, run.mix.get("trace_seconds", seconds))
     res = window(run, st, seconds)
     sync()
-    peak = torch.cuda.max_memory_allocated(run.device) if on_card else 0
+    peak = run.peak_bytes()
     counts = check(run, st, res)
+    if run.ranks is not None:
+        # rank 0 takes the fullest card's peak and the sum of every rank's
+        # counts; another rank hands its own over and is done
+        peak, counts = run.ranks.gather(peak, counts, forbidden_modules())
+        if run.ranks.rank:
+            return {}
     res["setup_s"] = setup_s
     checks = {k: {"value": v, "limit": run.limits[k]} for k, v in counts.items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
@@ -148,9 +169,9 @@ def execute(run: Run, seconds: float, t0: float) -> dict:
     if run.tracer.traced:
         ctx = types.SimpleNamespace(
             stages=run.tracer.stages, host=run.tracer.host, on_card=on_card,
-            device_kind=kind, least_bytes=res.get("least_bytes", {}))
+            device_kind=kind, least_bytes=res.get("least_bytes", {}), window=res)
         for m in specs.per_layer(run.spec, run.cell["name"]):
-            value = specs.metric_reader(m["name"]).read(ctx)
+            value = specs.metric_reader(m["name"], run.parts).read(ctx)
             if value is not None:
                 out["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
         ops, idle, gaps = {}, {}, {}
@@ -203,9 +224,20 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    run = Run(args.workload, args.seed, bool(args.trace), "cuda:0")
-    out = execute(run, args.seconds, T0)
-    bad = forbidden_modules()
+    if chips == 1:
+        run = Run(args.workload, args.seed, bool(args.trace), "cuda:0")
+        return report(execute(run, args.seconds, T0))
+    from benchmark import ranks
+
+    return report(*ranks.lead(args.workload, args.seed, args.seconds,
+                              bool(args.trace), chips, "cuda", t0=T0))
+
+
+def report(out: dict, others: list[str] = ()) -> int:
+    """Print the checks and the result line; or, where this process or
+    another rank (``others``) loaded JAX or the JAX package, say so and
+    print no result."""
+    bad = sorted(set(others) | set(forbidden_modules()))
     if bad:
         print(f"the run loaded {bad}: the benchmark measures the port alone",
               file=sys.stderr)

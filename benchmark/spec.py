@@ -11,10 +11,14 @@ per-layer metric is a file of its own, found by name:
 - ``drivers/<driver>.py``: how the program's codec is driven;
 - ``reference/<reference>.py``: the plain reference that judges its
   containers (two drivers of one format share it);
-- ``metrics/<metric>.py``: the reader of one per-layer metric.
+- ``metrics/<metric>.py``: the reader of one per-layer metric;
+- ``tiny/<workload>.json``: the cell at a size the CPU holds in a test,
+  ``{"config": {...}, "mix": {...}}``, the keys it replaces.
 
 So a cell, configuration, kind of traffic, way of driving a codec or
-metric is added with files and entries alone.
+metric is added with files and entries alone.  ``parts`` names a second
+folder of the same layout, searched first, for parts that only tests use
+(`benchmark/tests/parts/`).
 """
 
 from __future__ import annotations
@@ -46,37 +50,57 @@ def config(spec: dict, name: str) -> dict:
     raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
 
-def mix(traffic: str) -> dict:
-    return json.loads((HERE / "mixes" / f"{traffic}.json").read_text())
+def _find(kind: str, filename: str, parts: Path | None) -> Path:
+    roots = [Path(r).resolve() for r in (parts, HERE) if r is not None]
+    for root in roots:
+        path = root / kind / filename
+        if path.exists():
+            return path
+    raise KeyError(f"no {kind} file {filename} under "
+                   f"{' or '.join(str(r) for r in roots)}")
 
 
-def _module(kind: str, name: str):
-    path = HERE / kind / f"{name}.py"
-    key = f"benchmark_{kind}_{name}".replace(".", "_").replace("-", "_")
+def mix(traffic: str, parts: Path | None = None) -> dict:
+    return json.loads(_find("mixes", f"{traffic}.json", parts).read_text())
+
+
+def tiny(workload: str, parts: Path | None = None) -> dict:
+    """The keys that cut a cell to a size the CPU holds in a test."""
+    try:
+        path = _find("tiny", f"{workload}.json", parts)
+    except KeyError:
+        raise KeyError(f"cell {workload!r} has no CPU size: add "
+                       f"benchmark/tiny/{workload}.json, "
+                       '{"config": {...}, "mix": {...}}') from None
+    return json.loads(path.read_text())
+
+
+def _module(kind: str, name: str, parts: Path | None = None):
+    path = _find(kind, f"{name}.py", parts)
+    key = "_".join(path.relative_to(ROOT).with_suffix("").parts)
+    key = key.replace(".", "_").replace("-", "_")
     if key not in sys.modules:
         spec = importlib.util.spec_from_file_location(key, path)
-        if spec is None or not path.exists():
-            raise KeyError(f"no {kind[:-1]} file {path}")
         mod = importlib.util.module_from_spec(spec)
         sys.modules[key] = mod
         spec.loader.exec_module(mod)
     return sys.modules[key]
 
 
-def driver(name: str):
-    return _module("drivers", name)
+def driver(name: str, parts: Path | None = None):
+    return _module("drivers", name, parts)
 
 
-def reference(name: str):
-    return _module("reference", name)
+def reference(name: str, parts: Path | None = None):
+    return _module("reference", name, parts)
 
 
-def loop(name: str):
-    return _module("loops", name)
+def loop(name: str, parts: Path | None = None):
+    return _module("loops", name, parts)
 
 
-def metric_reader(name: str):
-    return _module("metrics", name)
+def metric_reader(name: str, parts: Path | None = None):
+    return _module("metrics", name, parts)
 
 
 def _applies(metric: dict, cell_name: str) -> bool:

@@ -5,14 +5,17 @@ check: all but the harness's look for a card) with the timed path broken
 underneath, and sees ``correct`` come out false (among the faults an
 answer remembered from the call before, which the bulk loop's turns of
 distinct inputs and the pages' walk expose); the sound run and the
-control (`benchmark/control.py`) frame them.
+control (`benchmark/control.py`) frame them.  Every cell of one card of
+BENCHMARK.json takes each fault its loop can have: a fault of the answer
+where the loop's driver decodes or reads, and of the encode where it
+encodes.
 """
 
 import pytest
 import torch
 
 from benchmark import control, spec as specs
-from benchmark.tests.test_bench_harness import TINY, tiny_run
+from benchmark.tests.test_bench_harness import ONE_CARD, tiny_run
 
 
 def _flip_first(out):
@@ -49,12 +52,25 @@ def _remembered(fn):
     return call
 
 
+def _largest_tensor(obj):
+    """The largest tensor held in an encode's output (its payload)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (list, tuple)):
+        items = obj
+    elif hasattr(obj, "__dict__"):
+        items = vars(obj).values()
+    else:
+        return []
+    found = [t for x in items for t in _largest_tensor(x)]
+    return [max(found, key=torch.Tensor.numel)] if found else []
+
+
 def _encode_fault(driver):
     """One payload word altered where the encode writes it."""
     def encode(codec, data):
         comp = driver.encode(codec, data)
-        words = (comp.sections[0].payload if hasattr(comp, "sections")
-                 else comp.words)
+        [words] = _largest_tensor(comp)
         words.view(-1)[words.numel() // 3] ^= 1 << 7
         return comp
     return encode
@@ -67,27 +83,33 @@ FAULTS = {
 }
 
 
+def _needs(workload):
+    spec = specs.load_spec()
+    return specs.loop(specs.mix(specs.cell(spec, workload)["traffic"])["loop"]).DRIVER_NEEDS
+
+
 def _patch(workload, kind):
-    driver = specs.driver("htc1" if workload.startswith("htc1") else "ils")
+    spec = specs.load_spec()
+    driver = specs.driver(specs.config(spec, specs.cell(spec, workload)["config"])["driver"])
     if kind == "encode_altered":
         return {"encode": _encode_fault(driver)}
     if kind == "encode_remembered":
         return {"encode": _remembered(driver.encode)}
+    fn = "read" if "read" in _needs(workload) else "decode"
     if kind == "answer_remembered":
-        fn = "read" if workload.endswith(".pages") else "decode"
         return {fn: _remembered(getattr(driver, fn))}
-    if workload.endswith(".pages"):
+    if fn == "read":
         return {"read": _read_fault(driver, FAULTS[kind])}
     return {"decode": _decode_fault(driver, FAULTS[kind])}
 
 
-@pytest.mark.parametrize("workload", sorted(TINY))
+@pytest.mark.parametrize("workload", ONE_CARD)
 def test_sound_run_is_correct(workload):
     assert tiny_run(workload, seed=11)["correct"]
 
 
-CASES = [(w, k) for w in sorted(TINY) for k in [*FAULTS, "answer_remembered"]] + [
-    (w, k) for w in ("ils-r09.bulk", "htc1-r01.bulk")
+CASES = [(w, k) for w in ONE_CARD for k in [*FAULTS, "answer_remembered"]] + [
+    (w, k) for w in ONE_CARD if "encode" in _needs(w)
     for k in ("encode_altered", "encode_remembered")]
 
 
@@ -98,11 +120,11 @@ def test_planted_fault_is_not_correct(workload, kind):
     assert any(c["value"] > c["limit"] for c in out["checks"].values())
 
 
-@pytest.mark.parametrize("workload", sorted(TINY))
+@pytest.mark.parametrize("workload", ONE_CARD)
 def test_control_is_not_correct(workload):
     for seed in (21, 22, 23):
         out = control.run_seed(workload, seed, 0.2, "cpu",
-                               overrides=TINY[workload])
+                               overrides=specs.tiny(workload))
         assert out["correct"] is False
         assert out["checks"]["table_len_diff"]["value"] > 0
         assert all(c["value"] == 0 for k, c in out["checks"].items()

@@ -1,16 +1,26 @@
-"""The benchmark's harness on the CPU: discovery, seeded inputs, the
-arithmetic of its metrics, the result line, the reference, the import
-guard.  No card, nvcc or triton is needed, apart from the one test marked
-``cuda``, which runs a short cell on the card and skips elsewhere.
+"""The benchmark's harness on the CPU: discovery, the contract of
+BENCHMARK.json, seeded inputs, the arithmetic of its metrics, the result
+line, the reference, the import guard.  No card, nvcc or triton is
+needed, apart from the one test marked ``cuda``, which runs a short cell
+on the card and skips elsewhere.
+
+The cells are BENCHMARK.json's, each at the size its ``tiny/<cell>.json``
+gives (a cell of more than one card runs its ranks as processes on the
+CPU).  Two cells that only the tests see, made of files under
+``tests/parts/`` and entries added to a copy of the spec, show that a cell
+is added with files and entries alone: ``ils-r09-copy.bulk`` (a copy of
+``ils-r09.bulk``) and ``probe.x4`` (four ranks, `benchmark/ranks.py`).
 
     python -m pytest benchmark/tests -q
 """
 
 import ast
+import copy
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import types
 from pathlib import Path
 
@@ -18,30 +28,91 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import datagen, readings, spec as specs, trace, traffic
+from benchmark import control, datagen, readings, spec as specs, trace, traffic
 from benchmark.reference import htc1 as ref_htc1, huffman, ils as ref_ils
 from benchmark.run import Run, execute
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "benchmark"
+PARTS = BENCH / "tests" / "parts"
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
-# cells at a size the CPU holds in a test; the codec's plain path runs
-TINY = {
-    "ils-r09.bulk": {"config": {"n_bytes": 300_000, "k": 64},
-                     "mix": {"inputs": 3}},
-    "htc1-r01.bulk": {"config": {"n_bytes": 4 * 16384, "block_bytes": 16384},
-                      "mix": {"inputs": 3}},
-    "ils-r09.pages": {"config": {"k": 64},
-                      "mix": {"pool": 8, "min_bytes": 4096, "max_bytes": 65536}},
-}
+CELLS = sorted(w["name"] for w in specs.load_spec()["workloads"])
+ONE_CARD = sorted(w["name"] for w in specs.load_spec()["workloads"]
+                  if w["chips"] == 1)
 
 
-def tiny_run(workload, seed=7, traced=False, patch=None, seconds=0.3):
-    run = Run(workload, seed, traced, "cpu", overrides=TINY[workload],
-              patch=patch)
-    return execute(run, seconds, 0.0)
+def tiny_run(workload, seed=7, traced=False, patch=None, seconds=0.3, *,
+             spec=None, parts=None):
+    """One run of a cell on the CPU at its ``tiny`` size: in this process
+    on one card, else as processes, one a rank."""
+    spec = spec or specs.load_spec()
+    tiny = specs.tiny(workload, parts)
+    chips = specs.cell(spec, workload)["chips"]
+    if chips == 1:
+        run = Run(workload, seed, traced, "cpu", spec=spec, overrides=tiny,
+                  patch=patch, parts=parts)
+        return execute(run, seconds, 0.0)
+    assert patch is None, "a patch does not reach the other ranks"
+    p = rank_run(spec, workload, seed, seconds, traced, chips, parts, tiny)
+    assert p.returncode == 0, p.stderr[-3000:]
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def rank_run(spec, workload, seed, seconds, traced, chips, parts, overrides,
+             timeout=60):
+    """``chips`` ranks of a cell on the CPU, as run.py runs them on cards."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "BENCHMARK.json"
+        path.write_text(json.dumps(spec))
+        cmd = [sys.executable, "-m", "benchmark.ranks", "--rank", "0",
+               "--world", str(chips), "--device", "cpu", "--workload", workload,
+               "--seed", str(seed), "--seconds", str(seconds), "--trace",
+               str(int(traced)), "--spec", str(path),
+               "--overrides", json.dumps(overrides)]
+        if parts is not None:
+            cmd += ["--parts", str(parts)]
+        return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=timeout)
+
+
+def copied_spec(spec):
+    """BENCHMARK.json with ``ils-r09.bulk`` copied under another name: a
+    config file and a tiny file under ``tests/parts/``, and entries."""
+    spec = copy.deepcopy(spec)
+    config = dict(next(c for c in spec["configs"] if c["name"] == "ils-r09"))
+    config.update(name="ils-r09-copy",
+                  file="benchmark/tests/parts/configs/ils-r09-copy.json")
+    spec["configs"].append(config)
+    spec["workloads"].append({"name": "ils-r09-copy.bulk",
+                              "config": "ils-r09-copy", "traffic": "bulk",
+                              "chips": 1, "why": "a copy of ils-r09.bulk"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "ils-r09.bulk" in m.get("workloads", ()):
+            m["workloads"].append("ils-r09-copy.bulk")
+    return spec
+
+
+def probe_spec(spec):
+    """BENCHMARK.json with the probe, a cell of four ranks (files under
+    ``tests/parts/``, and entries): each rank sums a tensor across all."""
+    spec = copy.deepcopy(spec)
+    spec["configs"].append({
+        "name": "probe", "source": "https://pytorch.org/docs/stable/distributed.html",
+        "file": "benchmark/tests/parts/configs/probe.json", "reduced": [],
+        "why": "the harness's rank path: a sum across four ranks"})
+    spec["workloads"].append({
+        "name": "probe.x4", "config": "probe", "traffic": "probe", "chips": 4,
+        "why": "every rank all-reduces 1 GiB of its own, back to back"})
+    spec["end_to_end"].insert(0, {
+        "name": "reduce_gbps", "unit": "GB/s", "better": "higher",
+        "bound": 0.05, "source": "host_clock", "workloads": ["probe.x4"]})
+    spec["per_layer"].append({
+        "name": "allreduce_ms.probe", "unit": "ms", "better": "lower",
+        "source": "host_clock", "layer": "collectives",
+        "moves": "reduce_gbps", "workloads": ["probe.x4"]})
+    return spec
 
 
 @pytest.fixture(scope="module")
@@ -52,50 +123,100 @@ def spec():
 # ----------------------------------------------------------------------
 # discovery and the file's shape
 # ----------------------------------------------------------------------
-def test_every_cell_finds_its_parts(spec):
-    assert set(TINY) == {w["name"] for w in spec["workloads"]}
+def _parts_of_every_cell(spec, parts=None):
     for w in spec["workloads"]:
         cfg = specs.config(spec, w["config"])
-        mix = specs.mix(w["traffic"])
-        loop = specs.loop(mix["loop"])
+        mix = specs.mix(w["traffic"], parts)
+        loop = specs.loop(mix["loop"], parts)
         for fn in ("setup", "window", "check"):
             assert callable(getattr(loop, fn))
-        driver = specs.driver(cfg["driver"])
-        needs = {"bulk": ("input_shape", "encode", "decode", "container"),
-                 "pages": ("pack", "read")}[mix["loop"]]
-        for fn in ("fit", "fit_from_freqs") + needs:
-            assert callable(getattr(driver, fn))
-        assert callable(specs.reference(cfg["reference"]).check)
+        driver = specs.driver(cfg["driver"], parts)
+        # control.py runs one process: it drives the cells of one card
+        needs = loop.DRIVER_NEEDS + (control.DRIVER_NEEDS if w["chips"] == 1 else ())
+        for fn in needs:
+            assert callable(getattr(driver, fn)), (w["name"], fn)
+        assert callable(specs.reference(cfg["reference"], parts).check)
         e2e = {m["name"] for m in specs.end_to_end(spec, w["name"])}
         assert "setup_s" in e2e and len(e2e) >= 2
         layer = specs.per_layer(spec, w["name"])
         assert layer
         for m in layer:
-            assert callable(specs.metric_reader(m["name"]).read)
+            assert callable(specs.metric_reader(m["name"], parts).read)
             assert m["moves"] in e2e
+        tiny = specs.tiny(w["name"], parts)
+        assert set(tiny) <= {"config", "mix"}
 
 
-def test_benchmark_json_keeps_to_its_contract(spec):
+def _contract(spec, accepted_four=0):
+    """The contract's rules on BENCHMARK.json's shape.  ``accepted_four``:
+    the cells of four chips that the accepted benchmark has."""
     assert set(spec) == {"command", "paths", "run_seconds", "configs",
                          "workloads", "end_to_end", "per_layer"}
     assert spec["paths"] == ["benchmark"] and 1 <= spec["run_seconds"] <= 51
-    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+    assert len(json.dumps(spec).encode()) <= 64 * 1024
     names = [x["name"] for k in ("configs", "workloads", "end_to_end", "per_layer")
              for x in spec[k]]
     assert len(names) == len(set(names)) and all(NAME.match(n) for n in names)
+    files = [c["file"] for c in spec["configs"]]
+    assert len(files) == len(set(files))
     for c in spec["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert c["file"].startswith("benchmark/") and c["source"].startswith("https://")
+    pairs = [(w["config"], w["traffic"]) for w in spec["workloads"]]
+    assert len(pairs) == len(set(pairs))
     for w in spec["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    four = sum(w["chips"] == 4 for w in spec["workloads"])
+    allowed = max(1, len(spec["workloads"]) // 4, accepted_four)
+    assert four <= allowed, f"{four} cells ask for 4 chips; {allowed} may"
     for m in spec["end_to_end"] + spec["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for m in spec["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
-    layers = {m["layer"] for m in spec["per_layer"]}
-    assert layers <= {"kernels", "device", "orchestration", "io", "tables"}
+    for m in spec["per_layer"]:
+        assert NAME.match(m["layer"]), m["layer"]
+
+
+def test_every_cell_finds_its_parts(spec):
+    _parts_of_every_cell(spec)
+
+
+def test_benchmark_json_keeps_to_its_contract(spec):
+    _contract(spec)
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def test_a_cell_without_a_cpu_size_is_named():
+    with pytest.raises(KeyError, match=r"no CPU size: add benchmark/tiny/x\.y\.json"):
+        specs.tiny("x.y")
+
+
+@pytest.mark.parametrize("made", [copied_spec, probe_spec], ids=["copied", "probe"])
+def test_a_cell_is_added_with_files_and_entries_alone(made, spec):
+    """A cell of one card and one of four, each from new files under
+    ``tests/parts/`` and new entries, pass every contract test and run."""
+    from benchmark.tests.test_bench_program import program_metrics_kept
+
+    new = made(spec)
+    _parts_of_every_cell(new, PARTS)
+    _contract(new)
+    program_metrics_kept(new)
+    name = new["workloads"][-1]["name"]
+    out = tiny_run(name, spec=new, parts=PARTS)
+    assert out["correct"] and out["device"]["count"] == new["workloads"][-1]["chips"]
+    want = {m["name"] for m in specs.end_to_end(new, name)}
+    assert set(out["metrics"]) == want
+
+
+def test_a_second_four_card_cell_among_four_is_refused(spec):
+    bad = probe_spec(spec)
+    bad["workloads"][0]["chips"] = 4
+    assert len(bad["workloads"]) == 4
+    with pytest.raises(AssertionError, match="2 cells ask for 4 chips; 1 may"):
+        _contract(bad)
+    _contract(bad, accepted_four=2)  # as many as the accepted benchmark has
 
 
 # ----------------------------------------------------------------------
@@ -245,6 +366,18 @@ def test_readers_roofline_idle_and_host_spans():
     # 10 calls x 3.35e9 B at 3.35e12 B/s = 10 ms of a 1.6 s device time
     assert specs.metric_reader("kernel_roofline.decode").read(ctx) == pytest.approx(0.625)
     assert specs.metric_reader("device_idle.decode").read(ctx) == pytest.approx(25.0)
+    enc = _ctx("encode")
+    for split, name in (("kernel_roofline.ils_encode", "kernel_roofline.encode"),
+                        ("device_idle.ils_encode", "device_idle.encode")):
+        assert specs.metric_reader(split).read(enc) == pytest.approx(
+            specs.metric_reader(name).read(enc))
+    # the encode rate of the traced window, as the window took it
+    rate = specs.metric_reader("encode_gbps.ils")
+    assert rate.read(enc) is None
+    enc.window = {"encode_gbps": 212.5, "decode_gbps": 350.0}
+    assert rate.read(enc) == 212.5
+    enc.on_card = False
+    assert rate.read(enc) is None
     pages = _ctx("pages")
     assert specs.metric_reader("device_ops_per_page").read(pages) == 8.0
     assert specs.metric_reader("parse_ms.pages").read(pages) == pytest.approx(2.0)
@@ -286,7 +419,7 @@ def test_bulk_calls_take_the_inputs_in_turn():
 
     out = tiny_run("ils-r09.bulk", patch={"encode": encode}, seconds=1.2)
     assert out["correct"]
-    k = TINY["ils-r09.bulk"]["mix"]["inputs"]
+    k = specs.tiny("ils-r09.bulk")["mix"]["inputs"]
     # set-up encodes each input once, then the window takes them in turn
     assert len(set(seen[:k])) == k and len(seen) > 2 * k
     assert all(a == seen[i % k] for i, a in enumerate(seen[k:]))
@@ -296,7 +429,7 @@ def test_bulk_calls_take_the_inputs_in_turn():
 # ----------------------------------------------------------------------
 # the result line
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("workload", sorted(TINY))
+@pytest.mark.parametrize("workload", CELLS)
 def test_result_line_shape(workload, spec):
     out = tiny_run(workload)
     assert list(out) == ["correct", "attempted", "failed", "metrics", "device",
@@ -409,12 +542,12 @@ def test_htc1_reference_agrees_with_the_port(g, bb, r, sb):
 GUARD = """
 import sys
 sys.path.insert(0, {root!r})
-from benchmark.tests.test_bench_harness import tiny_run, TINY
-from benchmark import control
-for w in TINY:
+from benchmark.tests.test_bench_harness import tiny_run, ONE_CARD
+from benchmark import control, spec as specs
+for w in ONE_CARD:
     assert tiny_run(w, seconds=0.1)["correct"]
 assert not control.run_seed("ils-r09.bulk", 3, 0.1, "cpu",
-                            overrides=TINY["ils-r09.bulk"])["correct"]
+                            overrides=specs.tiny("ils-r09.bulk"))["correct"]
 print(sorted({{m.split(".")[0] for m in sys.modules}}))
 """
 

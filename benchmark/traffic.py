@@ -3,12 +3,15 @@
 A mix is a data file (``mixes/<traffic>.json``) whose ``loop`` names the
 loop that reads it and whose other keys are the loop's parameters; the
 configuration gives the data's size and distribution.  Each loop is a
-module with three functions, all on a `Run` (`run.py`): ``setup(run)``
-makes the inputs from the seed and warms up every shape the window uses,
-``window(run, st, seconds)`` drives the program for the given seconds and
-returns the end-to-end numbers, ``check(run, st, res)`` hands what the
-window produced to the plain reference once the window has closed and
-returns the counts compared with `limits.json`.
+module that names the functions of the configuration's driver it calls,
+``DRIVER_NEEDS``, and has three functions, all on a `Run` (`run.py`):
+``setup(run)`` makes the inputs from the seed and warms up every shape
+the window uses, ``window(run, st, seconds)`` drives the program for the
+given seconds and returns the end-to-end numbers, ``check(run, st, res)``
+hands what the window produced to the plain reference once the window
+has closed and returns the counts compared with `limits.json`.  On a cell
+of more than one card every rank runs all three, with ``run.ranks`` set
+(`ranks.py`).
 """
 
 from __future__ import annotations
