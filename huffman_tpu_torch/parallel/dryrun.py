@@ -10,7 +10,12 @@ fork) and runs on each, on its shard of inputs made from seeds:
    (`ils_sharded_certified_encode`, A2 + A3, then `make_ils_sharded_decode`,
    A1) on zeros | random | constant data, so the ranks' content differs;
 3. the HTC1 block codec: the collective histogram, the table fitted from
-   it, the sharded encode, decode and round trip.
+   it, the sharded encode, decode and round trip;
+4. the sharded ILS codec (`IlsShardedCodec`): its table fitted on the
+   global histogram, each rank's shard at every ``rotate``, the whole
+   stream decoded on every rank and the ordered ILS1 container, and its
+   refusal, on every rank, of a byte count on rank 0 that is no whole
+   number of tiles.
 
 Then each rank checks that a wrong decode table on rank 0 gives
 ``ok == 0`` on every rank, and that sections the fused tier refuses raise
@@ -39,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from . import (
+    IlsShardedCodec,
     data_mesh,
     gather_shards,
     ils_sharded_certified_encode,
@@ -59,7 +65,8 @@ from ..utils import generate_redundant
 from ..utils.distributed import init_multihost
 
 __all__ = ["dryrun_multichip", "run_paths", "ils_input", "certified_input",
-           "gap_input", "band_fault_input", "fit_table", "DEFAULT_SIZES"]
+           "gap_input", "band_fault_input", "fit_table", "DEFAULT_SIZES",
+           "ROTATIONS"]
 
 # the JAX dry run's sizes
 DEFAULT_SIZES = dict(
@@ -67,7 +74,10 @@ DEFAULT_SIZES = dict(
     cert_k=512, cert_tpd=1, cert_rots=(False,), cert_seed=2,
     gap_blocks=2, gap_block_bytes=2048, gap_seg_bits=128,
     gap_methods=("lut",), gap_seed=1,
+    codec_k=64, codec_tpd=2, codec_seed=3,
 )
+# the sharded ILS codec's ``rotate`` settings, by the name of their outputs
+ROTATIONS = {"plain": False, "rot": True, "auto": "auto"}
 # the ILS kernels the paths must launch on a CUDA mesh
 ILS_WRAPPERS = ("ils_pack", "ils_decode", "ils_pack_certify", "ils_compact")
 # and the HTC1 encode kernels (the sharded encode)
@@ -215,6 +225,35 @@ def _gap(mesh, out, s):
                     f"gap_{method}_ok": int(ok)})
 
 
+def _sharded_codec(mesh, out, s):
+    k, tpd = s["codec_k"], s["codec_tpd"]
+    whole = ils_input(mesh.size, k, tpd, s["codec_seed"])
+    tile = tpd * k * ILS_LANES
+    local = torch.from_numpy(whole[mesh.rank * tile: (mesh.rank + 1) * tile]
+                             .copy()).to(mesh.device)
+    codec = IlsShardedCodec.fit(mesh, local)
+    out.update(codec_lengths=codec.table.lengths, codec_fit_k=codec.k)
+    for name, rot in ROTATIONS.items():
+        codec = IlsShardedCodec(mesh, codec.table, k=k, rotate=rot)
+        shard = codec.encode(local)
+        got = codec.decode(shard).cpu().numpy()
+        _check(np.array_equal(got, whole),
+               f"sharded codec ({name}): the decode is not the whole stream")
+        rows = int(shard.params.w_tiles.reshape(mesh.size, tpd)[mesh.rank]
+                   .sum())
+        blob = codec.container(shard)
+        out.update({f"codec_{name}_rows":
+                    shard.payload_dev[:rows].cpu().numpy(),
+                    f"codec_{name}_w_band": shard.params.w_band,
+                    f"codec_{name}_container": np.frombuffer(blob, np.uint8)})
+    try:  # rank 0 holds 4 bytes short of its tiles
+        codec.encode(local[:-4] if mesh.rank == 0 else local)
+    except ValueError as e:
+        out["codec_refused"] = str(e)
+    else:
+        raise AssertionError("the sharded codec took a partial tile")
+
+
 def _refused(mesh, out, key, data_local, enc, **kw):
     """Records the ValueError that the certified encode must raise."""
     try:
@@ -292,6 +331,7 @@ def run_paths(mesh: DataMesh, sizes: dict | None = None) -> dict:
     _ils_roundtrip(mesh, out, s)
     _certified(mesh, out, s)
     _gap(mesh, out, s)
+    _sharded_codec(mesh, out, s)
     launches = {**tk.launch_counts(), **ge.launch_counts()}
     if mesh.device.type == "cuda":
         missing = [name for name in ILS_WRAPPERS + GAP_WRAPPERS
@@ -305,6 +345,8 @@ def run_paths(mesh: DataMesh, sizes: dict | None = None) -> dict:
 def _rank_main(rank, n_devices, coordinator_address, backend, device,
                out_dir, timeout, sizes, local_rank=None):
     local_rank = rank if local_rank is None else local_rank
+    if device == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(1)
     init_multihost(coordinator_address, n_devices, rank,
                    local_rank=local_rank, backend=backend, timeout=timeout)
     if device == "cuda" and backend != "nccl":

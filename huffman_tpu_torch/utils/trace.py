@@ -1,7 +1,7 @@
 """Spans and counters of the port's own layers.
 
 A span is a named interval of host time, ``<layer>.<step>`` (``ils.encode``,
-``ils.section``, ``sync.row_starts``).  Each record holds its name, its
+``ils.section``, ``sync.row_starts``, ``coll.all_gather``).  Each record holds its name, its
 start and end (`time.perf_counter_ns`), its own id, its parent's id (0 for
 a span opened outside any other) and a call id that every span of one
 top-level call shares: the id of the span that opened the call.  Records
@@ -16,6 +16,9 @@ Counters are plain integers in one store, always on:
   or copies host memory to it, counted by `to_host` and `to_device`;
 - ``ils.sections``, ``ils.passes``: ILS sections kept and pack passes run;
 - ``histogram_bytes``: the bytes the ILS encode's histogram counted;
+- ``collectives.<op>``, ``collective_bytes``: each collective of
+  `parallel/mesh.py` (``all_reduce``, ``all_gather``), and the bytes of
+  its rank's input and output buffers; each is also a span ``coll.<op>``;
 - ``alloc_calls``: the caching allocator's own cudaMalloc and cudaFree calls
   (``num_device_alloc`` + ``num_device_free`` of `torch.cuda.memory_stats`)
   across a top-level span given a CUDA ``device``, read only while tracing.

@@ -8,7 +8,9 @@ same number of devices, its Pallas kernels in interpret mode, at the JAX
 suite's tiny shapes.  Every output must be equal bit for bit, rank by
 rank: the collective histogram, the HTC1 block encode, decode and round
 trip, the full-band ILS round trip, and the certified ILS section (params
-and each rank's payload) and its decode.
+and each rank's payload) and its decode.  The sharded ILS codec
+(`IlsShardedCodec`) is held to the single-device `IlsCodec` on the whole
+stream and to the benchmark's plain reference of the ILS1 container.
 """
 
 import jax.numpy as jnp
@@ -22,7 +24,8 @@ from huffman_tpu.ops import device_dec_table as jdevice_dec_table
 from huffman_tpu.ops import device_enc_table as jdevice_enc_table
 from huffman_tpu.ops.pallas.ils_kernels import ils_dec_tabs as jdec_tabs
 from huffman_tpu.ops.pallas.ils_kernels import ils_enc_tabs as jenc_tabs
-from huffman_tpu_torch import IlsCodec
+from benchmark.reference import ils as ref_ils
+from huffman_tpu_torch import IlsCodec, read_ils_container
 from huffman_tpu_torch import parallel as tpar
 from huffman_tpu_torch.core.ils_ref import ILS_LANES, ils_n_win
 from huffman_tpu_torch.ops import gap_encode_kernels as ge
@@ -38,11 +41,13 @@ SIZES = {
     2: dict(ils_k=8, ils_tpd=2, ils_rot=False, ils_seed=7,
             cert_k=64, cert_tpd=1, cert_rots=(False,), cert_seed=17,
             gap_blocks=2, gap_block_bytes=4096, gap_seg_bits=1024,
-            gap_methods=("lut",), gap_seed=2),
+            gap_methods=("lut",), gap_seed=2,
+            codec_k=64, codec_tpd=3, codec_seed=5),
     4: dict(ils_k=8, ils_tpd=2, ils_rot=True, ils_seed=7,
             cert_k=64, cert_tpd=2, cert_rots=(False, True), cert_seed=17,
             gap_blocks=2, gap_block_bytes=2048, gap_seg_bits=128,
-            gap_methods=("canonical", "lut"), gap_seed=1),
+            gap_methods=("canonical", "lut"), gap_seed=1,
+            codec_k=64, codec_tpd=2, codec_seed=6),
 }
 GAP_CASES = [(2, "lut"), (4, "canonical"), (4, "lut")]
 
@@ -301,6 +306,59 @@ def test_plain_versions_count_no_launch(ranks, world):
         assert not any(counts.values())
 
 
+def _codec_whole(world):
+    s = SIZES[world]
+    return tdr.ils_input(world, s["codec_k"], s["codec_tpd"], s["codec_seed"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_codec_table_is_ilscodec_fit_of_the_whole(ranks, world):
+    single = IlsCodec.fit(_codec_whole(world), device="cpu")
+    for r in ranks(world):
+        assert np.array_equal(r["codec_lengths"], single.table.lengths)
+        assert int(r["codec_fit_k"]) == single.k
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", sorted(tdr.ROTATIONS))
+def test_sharded_codec_rows_are_the_single_device_payload(ranks, world, name):
+    # each rank's rows, in rank order, are IlsCodec's one section of the
+    # whole stream at the same table, k and rotate
+    whole = _codec_whole(world)
+    rs = ranks(world)
+    single = IlsCodec(IlsCodec.fit(whole, device="cpu").table,
+                      k=SIZES[world]["codec_k"], rotate=tdr.ROTATIONS[name],
+                      device="cpu")
+    (sec,) = single.encode(whole).sections
+    got = np.concatenate([r[f"codec_{name}_rows"] for r in rs])
+    assert np.array_equal(got, sec.payload.numpy())
+    assert {int(r[f"codec_{name}_w_band"]) for r in rs} == {sec.params.w_band}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_container_reads_back_on_one_process(ranks, world):
+    whole = _codec_whole(world)
+    rs = ranks(world)
+    for name in tdr.ROTATIONS:
+        blobs = {r[f"codec_{name}_container"].tobytes() for r in rs}
+        assert len(blobs) == 1  # every rank holds the same container
+        blob = blobs.pop()
+        comp = read_ils_container(blob)
+        assert len(comp.sections) == world
+        out = IlsCodec(comp.table, device="cpu").decode(comp)
+        assert np.array_equal(out.numpy(), whole)
+        assert ref_ils.check([blob], [torch.from_numpy(whole)], 16, "cpu") == {
+            "table_len_diff": 0, "container_byte_diff": 0, "format_faults": 0}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_codec_refuses_a_partial_tile_on_every_rank(ranks, world):
+    # only rank 0's byte count is off; every rank raises before any pass
+    msgs = [str(r["codec_refused"]) for r in ranks(world)]
+    assert all("a positive multiple of k * 1024 = 65536" in m for m in msgs)
+    assert f"rank 0 holds {SIZES[world]['codec_tpd'] * 65536 - 4}" in msgs[0]
+
+
 @pytest.fixture(scope="module")
 def mesh1():
     mesh = tpar.data_mesh(device="cpu")
@@ -367,6 +425,31 @@ def test_world_one_mesh(mesh1):
     init_multihost()
     assert not is_multihost()
 
+
+
+def test_collectives_are_spans_and_counts(mesh1):
+    from huffman_tpu_torch.utils import trace
+
+    trace.drain()
+    trace.enable()
+    try:
+        x = torch.arange(6, dtype=torch.int32).reshape(2, 3)
+        assert torch.equal(tpar.gather_shards(mesh1, x), x)
+        assert torch.equal(tpar.gather_ragged(mesh1, x[:1]), x[:1])
+        got = trace.drain()
+    finally:
+        trace.disable()
+    colls = [(s["name"], {k: v for k, v in s["attrs"].items() if k != "counts"})
+             for s in got["spans"] if s["name"].startswith("coll.")]
+    # gather_shards: one all-gather of 24 B; gather_ragged: the sizes' 8 B
+    # all-reduced, then the one padded row of 12 B gathered
+    assert colls == [
+        ("coll.all_gather", {"op": "all_gather", "bytes": 24, "world": 1}),
+        ("coll.all_reduce", {"op": "all_reduce", "bytes": 8, "world": 1}),
+        ("coll.all_gather", {"op": "all_gather", "bytes": 12, "world": 1})]
+    c = got["counters"]
+    assert (c["collectives.all_gather"], c["collectives.all_reduce"]) == (2, 1)
+    assert c["collective_bytes"] == (24 + 24) + (8 + 8) + (12 + 12)
 
 
 def test_init_multihost_reads_the_launchers_environment(monkeypatch):
