@@ -2183,10 +2183,12 @@ def main(argv=None) -> int:
          + "; the 1 KB length table static"),
         ("gap_place_bits", "8 lanes a row (16-byte quads), 4 rows a warp "
          "step, 128 rows a block"),
-        ("gap_decode_ranks", "dynamic tile ranks_tile(max_count): "
-         f"{gd.ranks_tile(1 << 20)[2]} B at most, "
-         f"{gd.ranks_tile(1)[0]} rows a block, column chunk "
-         f"{gd.ranks_tile(1)[1]}..{gd.ranks_tile(1 << 20)[1]}"),
+        ("gap_decode_ranks", "staged rows and rank tile "
+         "ranks_tile(max_count, seg_bits) (rows, column chunk, pitch in "
+         "words, bytes): " + ", ".join(
+             f"{m}/{b} {gd.ranks_tile(m, b)}"
+             for m, b in ((176, 1024), (64, 128), (8192, 8192),
+                          (64, 16384)))),
         ("sync_transitions", "dynamic shared memory sync_tile(seg_bits) "
          "(rows, bitmap words, bytes): " + ", ".join(
              f"{b} bits {sk.sync_tile(b)}" for b in (32, 1024, 65504))

@@ -14,19 +14,45 @@
 // block's end read as zeros (the JAX package pads each block to the
 // segment grid instead).
 //
-// The ranks go through a shared-memory tile.  A block takes R consecutive
-// segments (flat index t, R threads), so its R rows of the matrix are one
-// contiguous range.  A row can hold ~8,200 ranks (seg_bits=8192, 1-bit
-// codes), so the block walks the columns in chunks of C (a multiple of 8,
-// at most 64; the wrapper picks R and C): each thread decodes up to C
-// codewords into its row of a tile [R][C + 4] bytes, zeros past its count,
-// then after a barrier the block stores the tile, consecutive lanes on
-// consecutive 4-byte words (bytes where max_count % 4 != 0) of each row's
-// chunk, so a warp store fills whole sectors.  The pitch (C + 4) / 4 words
-// is odd, so the threads of a warp, each on its own row, write 32 banks.
-// The bit window stays in registers across chunks; shared memory does not
-// depend on max_count.  (Stored from each thread at its row's stride, every
-// warp store of a rank would touch 32 sectors.)
+// The payload comes in through shared memory.  A block takes R consecutive
+// segments (flat index t, R threads), and each warp first stages the words
+// of its 32 segments into rows of a tile: row r holds the words [base, base
+// + P) of its segment's payload block, base the word of the segment's first
+// bit and P the pitch (`stage_words(seg_bits)` rounded up to odd), every
+// word that a valid segment's walk reads, the window's lookahead included.
+// The copies are cp.async of 4 bytes, consecutive lanes on consecutive
+// words: a warp's 32 rows lie one after another in the payload (but for the
+// P - seg_bits/32 words each shares with the next), so a warp copy fills
+// whole sectors; words past the payload block are zeros.  The walk then
+// refills from its row (StagedWindow), and the odd pitch puts the threads
+// of a warp, each at the same offset of its own row, on 32 banks.  A word
+// outside the row, which only a corrupt gap or count reaches, is read from
+// device memory as BitWindow reads it, so every output equals the plain
+// version's for any input.  Read from device memory on the chain, the 32
+// lanes of a warp each on their own 128-byte segment, 2048 threads an SM
+// outgrew L1 (on an H100 at the HTC1 cell's shape, 64 blocks of 16 MiB at
+// seg_bits 1024: 7.03 ms; held to 1408 threads by registers, 3.58);
+// staged, the reads are coalesced at any occupancy (3.05).  The rows cost
+// shared memory, so fewer threads fit an SM, and below 1024 (8 warps a
+// scheduler) the walk's latency shows (there, 4 blocks of 128 an SM took
+// 1.4x the time of 8; 9 to 18 no less than 8): where the tile would leave
+// fewer (seg_bits above 1024), nothing is staged and every word is read
+// from device memory.  (Copying each word once instead, a run of a payload
+// block's words into one skewed region, took 5% longer there: the skew's
+// arithmetic sits on every refill.)
+//
+// The ranks go out through a second shared-memory tile.  The block's R
+// rows of the matrix are one contiguous range.  A row can hold ~8,200
+// ranks (seg_bits=8192, 1-bit codes), so the block walks the columns in
+// chunks of C (a multiple of 8, at most 64; the wrapper picks R, C and P):
+// each thread decodes up to C codewords into its row of a tile [R][C + 4]
+// bytes, zeros past its count, then after a barrier the block stores the
+// tile, consecutive lanes on consecutive 4-byte words (bytes where
+// max_count % 4 != 0) of each row's chunk, so a warp store fills whole
+// sectors.  The pitch (C + 4) / 4 words is odd, so the threads of a warp,
+// each on its own row, write 32 banks.  The bit window stays in registers
+// across chunks.  (Stored from each thread at its row's stride, every warp
+// store of a rank would touch 32 sectors.)
 //
 // gap_place_bytes_kernel replaces compact_kernel.py:_kernel (wrapper
 // ragged_concat_pallas): out[off[s] + i] = symtab[rank[s, i]] for
@@ -77,14 +103,15 @@
 // step's arithmetic is 32-bit.  Measured on an H100 at the Yamamoto path's
 // 128 MiB: 12 table bits and a 64-bit window 0.200 ms, with the funnel
 // window and the limits in shared memory 0.149, 13 bits 0.142, 11 bits
-// 0.152; a persistent grid (one table copy a block) 0.164.  B1 reads
-// through BitWindow and canon_len (bitwalk.cuh); it could take the same
+// 0.152; a persistent grid (one table copy a block) 0.164.  B1 takes
+// canon_len (bitwalk.cuh) on its staged window; it could take the same
 // table.
 //
 // Bounds on this card.  B1 reads the payload once and writes the rank
-// matrix (~1 byte per symbol); with its stores tiled, its time is the
-// serial bit chain of each segment (length compare -> shift -> next
-// window), ~200 symbols at seg_bits=1024, with one thread per segment.
+// matrix (~1 byte per symbol); with its loads staged and its stores tiled,
+// its time is the instructions of each segment's serial bit chain (length
+// compare -> shift -> next window), ~100-200 symbols at seg_bits=1024, with
+// one thread per segment.
 // B2 is bytes-bound: rank matrix in, output out (it reads the matrix's
 // rows whole, padding past the counts included, except the last row of a
 // run).  C1 reads the payload once and writes one int per segment; at
@@ -97,6 +124,8 @@
 
 #define RANK_MAX_ROWS 256
 #define RANK_PAD 4  // tile pitch chunk + 4 bytes: odd words for chunk % 8 == 0
+#define RANK_MAX_SMEM 49152  // most dynamic shared memory of a B1 block
+#define RANK_MAX_REGS 64     // registers a B1 thread may use
 #define COUNT_THREADS 256
 #define COUNT_TAB_BITS 13  // window bits of C1's count table
 #define COUNT_TAB_SIZE (1 << COUNT_TAB_BITS)
@@ -123,12 +152,128 @@ __device__ __forceinline__ void store_rows(const uint8_t* tile, int pitch,
         reinterpret_cast<const U*>(tile + r * pitch)[c];
 }
 
-__global__ void __launch_bounds__(RANK_MAX_ROWS) gap_decode_ranks_kernel(
+// Words of a staged row: every word that a valid segment's walk reads.  Its
+// codewords start inside its own seg_bits bits, so the last one starts in
+// word (phase + seg_bits - 1) / 32 of the row, the phase (the bit of the
+// segment's start in its word) 0 where seg_bits % 32 == 0 and below 32
+// otherwise; StagedWindow holds that word and the next, has loaded a third,
+// and the last codeword's skip may load a fourth.  The wrapper's
+// `stage_words` is the same.
+__host__ __device__ inline int stage_words(int seg_bits) {
+  return (seg_bits - 1 + (seg_bits % 32 ? 31 : 0)) / 32 + 4;
+}
+
+// A bit window over one segment, its words staged in a row of shared
+// memory: the row holds the payload block's words [base, base + len), zeros
+// past the block; a word outside it is read from device memory, zero
+// outside [0, n_words), as BitWindow reads it.  The window is two words and
+// a bit offset, read by a funnel shift, with the next word loaded one
+// refill ahead (as C1's).
+struct StagedWindow {
+  const uint32_t* words;
+  const uint32_t* row;
+  long long n_words, base;
+  int len;
+  int next;  // the word, from base, that the next refill loads
+  int q;     // bits of w0 already taken
+  uint32_t w0, w1, w2;
+
+  __device__ __forceinline__ StagedWindow(const uint32_t* w, long long n,
+                                          const uint32_t* r, long long b,
+                                          int l)
+      : words(w), row(r), n_words(n), base(b), len(l), next(0), q(0), w0(0),
+        w1(0), w2(0) {}
+
+  __device__ __forceinline__ uint32_t word(int j) const {
+    if ((unsigned)j < (unsigned)len) return row[j];
+    const long long i = base + j;
+    return (unsigned long long)i < (unsigned long long)n_words ? words[i] : 0u;
+  }
+
+  // put the window at bit pos of the payload block
+  __device__ __forceinline__ void seek(long long pos) {
+    next = (int)((pos >> 5) - base);
+    q = (int)(pos & 31);
+    w0 = word(next);
+    w1 = word(next + 1);
+    w2 = word(next + 2);
+    next += 3;
+  }
+
+  // the 32 stream bits at the current position
+  __device__ __forceinline__ uint32_t peek() const {
+    return __funnelshift_l(w1, w0, q);
+  }
+
+  // drop ln in [1, 16] bits
+  __device__ __forceinline__ void skip(int ln) {
+    q += ln;
+    if (q >= 32) {
+      q -= 32;
+      w0 = w1;
+      w1 = w2;
+      w2 = word(next++);
+    }
+  }
+};
+
+// Copy 4 bytes from device memory to the shared-memory address dst without
+// the registers, or write 4 zero bytes there where !fill (nothing is read
+// then).
+__device__ __forceinline__ void copy4_async(unsigned dst, const uint32_t* src,
+                                            bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(fill ? 4 : 0)
+               : "memory");
+}
+
+// Stage the rows of the calling warp.  Each lane passes its own row: its
+// words start at `from`, `avail` of them lie inside the payload block and
+// the rest of the row is zeros; -1 past the last segment, a row that is not
+// staged.  The warp copies its 32 rows of `pitch` words into rows[0 ..
+// 32 * pitch): item x of the 32 * pitch is word x % pitch of row x / pitch,
+// lane l takes items l, l + 32, ..., so every lane takes `pitch` items and
+// consecutive lanes take consecutive words.  `words`, any valid address,
+// stands for the source of a zero fill.  All 32 lanes call it; the rows are
+// readable by every lane on return.
+__device__ __forceinline__ void stage_warp_rows(uint32_t* rows,
+                                                const uint32_t* words,
+                                                const uint32_t* from,
+                                                int avail, int pitch) {
+  const int lane = threadIdx.x & 31;
+  int r = lane / pitch, j = lane - r * pitch;
+  const int dr = 32 / pitch, dj = 32 - dr * pitch;
+  // item lane + 32 k lies at rows[lane + 32 k]
+  unsigned dst = (unsigned)__cvta_generic_to_shared(rows + lane);
+  for (int k = 0; k < pitch; ++k, dst += 128) {
+    const uint32_t* f = reinterpret_cast<const uint32_t*>(__shfl_sync(
+        0xffffffffu, reinterpret_cast<unsigned long long>(from), r));
+    const int a = __shfl_sync(0xffffffffu, avail, r);
+    if (a >= 0) copy4_async(dst, j < a ? f + j : words, j < a);
+    r += dr;
+    j += dj;
+    if (j >= pitch) {
+      j -= pitch;
+      ++r;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+}
+
+// Up to RANK_MAX_REGS registers: held by __launch_bounds__ to 32, ptxas
+// recomputed the walk's loop invariants at every codeword (on an H100 at
+// the HTC1 cell's shape 3.48 ms against 3.05 with 64 allowed, 46 used; the
+// group, Yamamoto and self-sync shapes 12-16% faster too), and 8 blocks of
+// 128 still fit an SM.
+__global__ void __maxnreg__(RANK_MAX_REGS) gap_decode_ranks_kernel(
     const uint32_t* __restrict__ words, const int* __restrict__ gaps,
     const int* __restrict__ counts, const uint32_t* __restrict__ lim,
     const int* __restrict__ bias, uint8_t* __restrict__ ranks,
     long long n_segs_all, int n_segs, long long n_words, int seg_bits,
-    int max_count, int min_len, int max_len, int chunk) {
+    int max_count, int min_len, int max_len, int chunk, int pitch) {
+  // dynamic: the staged rows, R x pitch words (none where pitch is 0),
+  // then the rank tile
   extern __shared__ uint4 smem[];
   __shared__ uint32_t s_lim[32];
   __shared__ int s_bias[32];
@@ -136,42 +281,56 @@ __global__ void __launch_bounds__(RANK_MAX_ROWS) gap_decode_ranks_kernel(
     s_lim[threadIdx.x] = lim[threadIdx.x];
     s_bias[threadIdx.x] = bias[threadIdx.x];
   }
-  __syncthreads();
 
   // the block's segments [t0, t0 + nv): every thread reaches every barrier,
   // those past the last segment decode nothing
   const long long t0 = (long long)blockIdx.x * blockDim.x;
   const long long t = t0 + threadIdx.x;
   const int nv = (int)min((long long)blockDim.x, n_segs_all - t0);
-  long long g = 0, pos = 0;
+  long long g = 0, pos = 0, base = 0;
   int n = 0;
   if (threadIdx.x < nv) {
     g = t / n_segs;
-    pos = (t - g * n_segs) * seg_bits + gaps[t];
+    const long long s0 = (t - g * n_segs) * seg_bits;
+    pos = s0 + gaps[t];
+    base = s0 >> 5;
     n = min(max(counts[t], 0), max_count);
   }
   // the words of this block; zero outside it
-  BitWindow bw(words + g * n_words, n_words, pos);
-  const int pitch = chunk + RANK_PAD;
-  uint8_t* tile = reinterpret_cast<uint8_t*>(smem);
-  uint8_t* row = tile + threadIdx.x * pitch;
+  const uint32_t* wb = words + g * n_words;
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem);
+  if (pitch > 0) {  // uniform
+    // every segment's row, so that the copies need not wait for the counts
+    const int avail = threadIdx.x < nv
+                          ? (int)min(max(n_words - base, 0LL), (long long)pitch)
+                          : -1;
+    stage_warp_rows(stage + (threadIdx.x & ~31) * pitch, words, wb + base,
+                    avail, pitch);
+  }
+  StagedWindow sw(wb, n_words, stage + threadIdx.x * pitch, base, pitch);
+  if (n > 0) sw.seek(pos);
+  __syncthreads();  // s_lim, s_bias
+
+  const int rpitch = chunk + RANK_PAD;
+  uint8_t* tile = reinterpret_cast<uint8_t*>(stage + blockDim.x * pitch);
+  uint8_t* row = tile + threadIdx.x * rpitch;
   uint8_t* dst = ranks + t0 * max_count;
   for (int lo = 0; lo < max_count; lo += chunk) {
     const int width = min(chunk, max_count - lo);
     const int m = min(max(n - lo, 0), width);  // codewords in this chunk
     for (int i = 0; i < m; ++i) {
-      const uint32_t win = bw.peek();
+      const uint32_t win = sw.peek();
       const int ln = canon_len(win, s_lim, min_len, max_len);
       // ln is in [1, 16], so the shift is in range
       row[i] = (uint8_t)(s_bias[ln] + (int)(win >> (32 - ln)));
-      bw.skip(ln);
+      sw.skip(ln);
     }
     for (int i = m; i < width; ++i) row[i] = 0;
     __syncthreads();
     if (max_count % 4 == 0) {
-      store_rows<uint32_t>(tile, pitch, dst + lo, max_count, nv, width);
+      store_rows<uint32_t>(tile, rpitch, dst + lo, max_count, nv, width);
     } else {
-      store_rows<uint8_t>(tile, pitch, dst + lo, max_count, nv, width);
+      store_rows<uint8_t>(tile, rpitch, dst + lo, max_count, nv, width);
     }
     __syncthreads();
   }
@@ -490,13 +649,15 @@ extern "C" int gap_decode_ranks_launch(const void* words, const void* gaps,
                                        long long n_words, int seg_bits,
                                        int max_count, int min_len,
                                        int max_len, int rows_per_block,
-                                       int chunk, int smem_bytes,
+                                       int chunk, int pitch, int smem_bytes,
                                        void* stream) {
   // the wrapper's `ranks_tile` computes the same geometry
   if (rows_per_block < 32 || rows_per_block > RANK_MAX_ROWS ||
       rows_per_block % 32 || chunk < 8 || chunk % 8 ||
-      chunk > rows_per_block ||
-      smem_bytes != rows_per_block * (chunk + RANK_PAD))
+      chunk > rows_per_block || seg_bits < 1 ||
+      (pitch != 0 && pitch != (stage_words(seg_bits) | 1)) ||
+      smem_bytes > RANK_MAX_SMEM ||
+      smem_bytes != rows_per_block * (chunk + RANK_PAD + 4 * pitch))
     return (int)cudaErrorInvalidValue;
   // a refusal is returned, and cleared so that it does not surface at a
   // later launch's check
@@ -512,7 +673,7 @@ extern "C" int gap_decode_ranks_launch(const void* words, const void* gaps,
                             (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const int*)gaps, (const int*)counts,
       (const uint32_t*)lim, (const int*)bias, (uint8_t*)ranks, n_segs_all,
-      n_segs, n_words, seg_bits, max_count, min_len, max_len, chunk);
+      n_segs, n_words, seg_bits, max_count, min_len, max_len, chunk, pitch);
   return (int)cudaGetLastError();
 }
 

@@ -66,7 +66,7 @@ _SIGNATURES = {
     "gap_decode": {
         "gap_decode_ranks_launch": [
             _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _I, _I,
-            _P,
+            _I, _P,
         ],
         "gap_place_bytes_launch": [
             _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P,

@@ -11,8 +11,9 @@ that of `ops/ils_kernels.py`: a CUDA tensor launches the kernel of
 - `gap_decode_ranks` (B1, with B3's decode use folded in): one segment per
   thread, its ranks written as bytes into its own row of a
   ``(segments, max_count)`` matrix, zero past its count; a CUDA block
-  stores its R rows through a shared-memory tile, C columns at a time
-  (`ranks_tile`).
+  stages its R segments' payload words in shared memory, walks them from
+  there and stores its R rows through a shared-memory tile, C columns at
+  a time (`ranks_tile`).
 - `gap_place_bytes` (B2): ``out[off[s] + i] = symtab[rank[s, i]]`` for
   ``i < count[s]``, ``off`` the exclusive prefix sum of the counts; a CUDA
   block places a run of `place_tile`'s R segments through a shared-memory
@@ -50,6 +51,7 @@ from .tables import DecSpec, DeviceDecTable
 __all__ = [
     "kernel_tabs",
     "ranks_tile",
+    "stage_words",
     "place_tile",
     "gap_decode_ranks",
     "gap_decode_ranks_plain",
@@ -66,15 +68,46 @@ __all__ = [
 
 RANK_ROWS = 128  # segments of a B1 block
 RANK_CHUNK = 64  # widest column chunk of B1's tile
+RANK_MAX_SMEM = 49152  # most dynamic shared memory of a B1 block
+# An H100 SM: shared memory and threads it holds; the runtime keeps 1 KB a
+# block, and B1's lim and bias take 256 B of static shared memory
+SM_SMEM, SM_THREADS, BLOCK_EXTRA_SMEM = 233472, 2048, 1280
+# B1 stages its payload only where an SM still holds this many of its
+# threads: with fewer its walk's latency shows (on an H100 at the HTC1
+# cell's shape, 6, 5 and 4 blocks of 128 an SM took 1.10x, 1.20x and 1.40x
+# the time of 8; 9 to 18 no less than 8).  The staged words cost the same
+# shared memory a thread whatever the rows a block, so fewer rows would not
+# hold more threads.
+SM_MIN_THREADS = 1024
 
 
-def ranks_tile(max_count: int) -> tuple[int, int, int]:
-    """(rows per block, column chunk C, dynamic shared-memory bytes) of
-    B1: a tile of R rows of C + 4 bytes, C a multiple of 8 (so the pitch
-    is odd in words) no wider than the row needs.  At most 8,704 bytes
-    whatever max_count; ``csrc/gap_decode.cu`` checks the same product."""
+def stage_words(seg_bits: int) -> int:
+    """Words of a row of B1's staged tile: every word that a valid
+    segment's walk reads, from the word of its first bit.  Its last
+    codeword starts in word (phase + seg_bits - 1) // 32, the phase below
+    32 (0 where seg_bits % 32 == 0); the window holds that word and the
+    next, has loaded a third, and the last skip may load a fourth."""
+    return (seg_bits - 1 + (31 if seg_bits % 32 else 0)) // 32 + 4
+
+
+def ranks_tile(max_count: int, seg_bits: int) -> tuple[int, int, int, int]:
+    """(rows per block R, column chunk C, staged pitch P, dynamic
+    shared-memory bytes) of B1.  Each row stages P words of its segment's
+    payload (`stage_words` rounded up to odd, so that a warp at one offset
+    of its rows reads 32 banks), and the ranks go out through a tile of R
+    rows of C + 4 bytes, C a multiple of 8 (odd in words) no wider than the
+    row needs.  Where the staged rows would leave an SM fewer than
+    SM_MIN_THREADS threads (seg_bits above 1024), P is 0: no word is staged
+    and the walk reads device memory.  ``csrc/gap_decode.cu`` checks the
+    same arithmetic."""
     chunk = min(RANK_CHUNK, -(-max(max_count, 1) // 8) * 8)
-    return RANK_ROWS, chunk, RANK_ROWS * (chunk + 4)
+    pitch = stage_words(seg_bits) | 1
+    smem = RANK_ROWS * (chunk + 4 + 4 * pitch)
+    threads = RANK_ROWS * min(SM_THREADS // RANK_ROWS,
+                              SM_SMEM // (smem + BLOCK_EXTRA_SMEM))
+    if smem > RANK_MAX_SMEM or threads < SM_MIN_THREADS:
+        pitch, smem = 0, RANK_ROWS * (chunk + 4)
+    return RANK_ROWS, chunk, pitch, smem
 
 
 PLACE_ROWS = 1024  # most segments of a B2 block (4 a thread for the scan)
@@ -213,12 +246,12 @@ def gap_decode_ranks(words, gaps, counts, lim, bias, *, seg_bits, max_count,
                         device=words.device)
     if ranks.numel() == 0:
         return ranks
-    tile_rows, chunk, smem = ranks_tile(max_count)
+    tile_rows, chunk, pitch, smem = ranks_tile(max_count, seg_bits)
     rc = _lib("gap_decode").gap_decode_ranks_launch(
         words.data_ptr(), gaps.data_ptr(), counts.data_ptr(), lim.data_ptr(),
         bias.data_ptr(), ranks.data_ptr(), g_n * n_segs, n_segs,
         words.shape[1], seg_bits, max_count, min_len, max_len, tile_rows,
-        chunk, smem, _stream(words),
+        chunk, pitch, smem, _stream(words),
     )
     _launched(gap_decode_ranks, rc)
     return ranks

@@ -194,7 +194,8 @@ def test_gap_kernels_match_plain(cuda, kind, g, b, seg_bits):
     # column chunk (byte stores), and G blocks of a segment count that is
     # no multiple of a tile's rows, so that a tile spans two blocks
     ns = counts.shape[1]
-    cut = next(c for c in range(ns - 1, 0, -1) if g * c % gd.RANK_ROWS)
+    rows = gd.ranks_tile(mc, seg_bits)[0]
+    cut = next(c for c in range(ns - 1, 0, -1) if g * c % rows)
     for gaps_e, counts_e, mc_e in ((dcomp.gaps, counts, mc + 5),
                                    (dcomp.gaps[:, :cut].contiguous(),
                                     counts[:, :cut].contiguous(), mc)):
@@ -347,7 +348,9 @@ def test_gap_decode_kernels_stay_inside_buffers(cuda):
     gaps = torch.from_numpy(rng.integers(-40, 40, (g, ns)).astype(np.int32)).to(cuda)
     counts = torch.from_numpy(rng.integers(-5, 300, (g, ns)).astype(np.int32)).to(cuda)
     lim, bias = gd.kernel_tabs(codec.dec)
-    # 64 is one column chunk of B1's tile; 37 and 100 end in a partial one
+    # 64 is one column chunk of B1's tile; 37 and 100 end in a partial one.
+    # The walks leave their staged rows (counts past a segment's bits,
+    # gaps before it or past it) and read device memory
     for mc in (64, 37, 100):
         kw = dict(seg_bits=128, max_count=mc, min_len=codec.spec.min_len,
                   max_len=codec.spec.max_len)
@@ -362,7 +365,60 @@ def test_gap_decode_kernels_stay_inside_buffers(cuda):
         assert _equal(out, gd.gap_place_bytes_plain(ranks, flat, offs,
                                                     codec.dec.symtab,
                                                     n_out=1500))
+    # B1 staged at 1024 bits and 8 bits, unstaged at 8192: gaps far outside
+    # their segments, words cut short of the segments
+    for seg_bits, mc in ((1024, 200), (8, 300), (8192, 64)):
+        far = torch.from_numpy(rng.integers(
+            -3 * seg_bits, 3 * seg_bits, (g, ns)).astype(np.int32)).to(cuda)
+        for w in (words, words[:, :7].contiguous()):
+            kw = dict(seg_bits=seg_bits, max_count=mc,
+                      min_len=codec.spec.min_len, max_len=codec.spec.max_len)
+            assert _equal(
+                gd.gap_decode_ranks(w, far, counts, lim, bias, **kw),
+                gd.gap_decode_ranks_plain(w, far, counts, lim, bias, **kw))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("seg_bits", [128, 1024, 8192])
+def test_gap_decode_ranks_staged_tiles_match_plain(cuda, seg_bits):
+    # B1's staged words on valid streams (staged at 128 and 1024 bits, read
+    # from device memory at 8192): three blocks of a segment count that is
+    # no multiple of a warp's rows (tiles and warps cross from one payload
+    # block into the next), and a block shorter than the others, whose
+    # segments read zeros past its words
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.core import npref
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+
+    parts = [generate_redundant(m, 0.3, seed=31 + i)
+             for i, m in enumerate((20000, 23011, 9001))]
+    codec = GapArrayCodec.fit(np.concatenate(parts), seg_bits=seg_bits,
+                              device=cuda)
+    cases = [npref.encode_bits(d, codec.table)[0] for d in parts]
+    metas = [npref.segment_metadata(d, codec.table, seg_bits) for d in parts]
+    nw = max(w.size for w in cases)
+    ns = max(m[0].size for m in metas)
+    words = np.zeros((3, nw), np.uint32)
+    gaps = np.zeros((3, ns), np.int32)
+    counts = np.zeros((3, ns), np.int32)
+    for i, (w, (gp, c, _)) in enumerate(zip(cases, metas)):
+        words[i, : w.size], gaps[i, : gp.size], counts[i, : c.size] = w, gp, c
+    mc = -(-int(counts.max()) // 8) * 8
+    rows, _, pitch, _ = gd.ranks_tile(mc, seg_bits)
+    assert (pitch > 0) == (seg_bits <= 1024) and ns % 32 and ns > 8
+    lim, bias = gd.kernel_tabs(codec.dec)
+    kw = dict(seg_bits=seg_bits, max_count=mc, min_len=codec.spec.min_len,
+              max_len=codec.spec.max_len)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (words.view(np.int32), gaps, counts)]
+    got = gd.gap_decode_ranks(*args, lim, bias, **kw)
+    assert _equal(got, gd.gap_decode_ranks_plain(*args, lim, bias, **kw))
+    rank_of = np.zeros(256, np.int64)
+    rank_of[codec.table.symtab] = np.arange(codec.table.num_symbols)
+    ranks = got.cpu().numpy()
+    dec = np.concatenate([ranks[s, : counts.reshape(-1)[s]]
+                          for s in range(3 * ns)])
+    assert np.array_equal(dec, rank_of[np.concatenate(parts)] & 255)
 
 
 # ----------------------------------------------------------------------

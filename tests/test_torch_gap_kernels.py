@@ -710,15 +710,233 @@ def test_meta_tile_window_covers_span(seg_bits):
 
 @pytest.mark.parametrize("seg_bits", [2 ** k for k in range(3, 14)])
 def test_ranks_tile_fits_shared_memory(seg_bits):
+    # the staged row covers every word a valid segment reads: its last
+    # codeword starts below the segment's end, at any phase of the
+    # segment's start in its word; the window holds that word and the
+    # next, has loaded a third, and the last skip may load a fourth
+    need = max(((s * seg_bits) % 32 + seg_bits - 1) // 32 + 4
+               for s in range(32))
+    assert gd.stage_words(seg_bits) >= need
     # every max_count a segment of seg_bits can need, 1-bit codes included
     for max_count in range(1, gd.count_max(seg_bits, 1) + 9):
-        rows, chunk, smem = gd.ranks_tile(max_count)
-        assert rows % 32 == 0 and 32 <= rows <= 256
-        assert chunk % 8 == 0 and 8 <= chunk <= min(64, rows)
+        rows, chunk, pitch, smem = gd.ranks_tile(max_count, seg_bits)
+        assert rows == 128
+        assert chunk % 8 == 0 and 8 <= chunk <= 64
         assert chunk >= min(max_count, 64)
-        assert (chunk + 4) // 4 % 2 == 1  # odd pitch in words
-        # lim and bias, (32,) each, are static shared memory besides
-        assert smem == rows * (chunk + 4) and smem + 256 <= SMEM_PER_BLOCK
+        assert (chunk + 4) // 4 % 2 == 1  # odd rank pitch in words
+        # staged rows of an odd pitch in words, or none
+        assert pitch in (0, gd.stage_words(seg_bits) | 1)
+        # the staged rows and the rank tile; lim and bias, (32,) each,
+        # are static shared memory besides
+        assert smem == rows * (chunk + 4 + 4 * pitch)
+        assert smem <= gd.RANK_MAX_SMEM and smem + 256 <= SMEM_PER_BLOCK
+        # staged where an SM still holds 1024 of its threads
+        held = rows * min(gd.SM_THREADS // rows, gd.SM_SMEM // (
+            rows * (chunk + 4 + 4 * (gd.stage_words(seg_bits) | 1))
+            + gd.BLOCK_EXTRA_SMEM))
+        assert (pitch > 0) == (held >= gd.SM_MIN_THREADS)
+        # the codec's and the foreign paths' seg_bits are staged, at the
+        # widest chunk too; past 1024 bits the rows cost threads
+        assert (pitch > 0) == (seg_bits <= 1024)
+
+
+# ----------------------------------------------------------------------
+# B1: a NumPy model of csrc/gap_decode.cu's staged walk
+# ----------------------------------------------------------------------
+def _stage_items(pitch):
+    """(row, word) of lane l's item k in `stage_warp_rows`, walked as the
+    kernel walks it: (32, pitch) each."""
+    rows = np.zeros((32, pitch), np.int64)
+    cols = np.zeros((32, pitch), np.int64)
+    dr, dj = divmod(32, pitch)
+    for lane in range(32):
+        r, j = divmod(lane, pitch)
+        for k in range(pitch):
+            rows[lane, k], cols[lane, k] = r, j
+            r, j = r + dr, j + dj
+            if j >= pitch:
+                r, j = r + 1, j - pitch
+    return rows, cols
+
+
+def _b1_model(words, gaps, counts, lim, bias, *, seg_bits, max_count,
+              min_len, max_len):
+    """gap_decode_ranks_kernel on every segment at once, with the geometry
+    of `ranks_tile`: (ranks, device reads, top) with the words each
+    segment read from device memory (outside its staged row) and the
+    highest word of its row that it read (-1: none)."""
+    words = np.asarray(words).view(np.uint32).astype(np.int64)
+    g_n, n_words = words.shape
+    n_segs = gaps.shape[1]
+    total = g_n * n_segs
+    pitch = gd.ranks_tile(max_count, seg_bits)[2]
+    t = np.arange(total, dtype=np.int64)
+    g = t // n_segs
+    s0 = (t - g * n_segs) * seg_bits
+    pos = s0 + gaps.reshape(-1).astype(np.int64)
+    base = s0 >> 5
+    n = np.clip(counts.reshape(-1).astype(np.int64), 0, max_count)
+    flat = np.r_[words.reshape(-1), 0]
+
+    def device(i, gg):  # a block's word i, zero outside it
+        ok = (i >= 0) & (i < n_words)
+        return flat[np.where(ok, gg * n_words + i, flat.size - 1)]
+
+    # each warp copies its 32 rows through the lane walk; a row past the
+    # last segment is not staged (its words stay unknown)
+    n_pad = -(-total // 32) * 32
+    stage = np.full((n_pad, max(pitch, 1)), 0xDEADBEEF, np.int64)
+    if pitch:
+        r_of, j_of = _stage_items(pitch)
+        copies = np.zeros(stage.shape, np.int64)
+        for w0 in range(0, n_pad, 32):
+            r = w0 + r_of.reshape(-1)
+            j = j_of.reshape(-1)
+            live = r < total
+            r, j = r[live], j[live]
+            stage[r, j] = device(base[r] + j, g[r])
+            np.add.at(copies, (r, j), 1)
+        assert (copies[:total] == 1).all()  # every word of a row once
+        assert not copies[total:].any()
+
+    reads = np.zeros(total, np.int64)
+    top = np.full(total, -1, np.int64)
+    act = n > 0
+
+    def word(rel, m):
+        staged = (rel >= 0) & (rel < pitch)
+        reads[m & ~staged] += 1
+        top[:] = np.where(m & staged, np.maximum(top, rel), top)
+        return np.where(staged, stage[t, np.clip(rel, 0, max(pitch, 1) - 1)],
+                        device(base + rel, g))
+
+    rel = (pos >> 5) - base
+    q = pos & 31
+    w0, w1, w2 = word(rel, act), word(rel + 1, act), word(rel + 2, act)
+    rel = rel + 3
+    lim = lim.numpy().astype(np.int64) & _M32
+    bias = bias.numpy().astype(np.int64)
+    ranks = np.zeros((total, max_count), np.uint8)
+    for i in range(max_count):
+        on = i < n
+        if not on.any():
+            break
+        win = ((w0 << q) | (w1 >> (32 - q))) & _M32
+        ln = _canon(win, lim, min_len, max_len)
+        ranks[:, i] = np.where(on, (bias[ln] + (win >> (32 - ln))) & 255, 0)
+        q = q + np.where(on, ln, 0)
+        ref = on & (q >= 32)
+        q = np.where(ref, q - 32, q)
+        nxt = word(rel, ref)
+        w0, w1, w2 = (np.where(ref, w1, w0), np.where(ref, w2, w1),
+                      np.where(ref, nxt, w2))
+        rel = rel + ref
+    return ranks, reads, top
+
+
+def _b1_banks(seg_bits):
+    """Banks that the 32 rows of a warp read at the same offset j of their
+    staged rows, for each j: (P, 32)."""
+    pitch = gd.stage_words(seg_bits) | 1
+    y = np.arange(32)[None, :] * pitch + np.arange(pitch)[:, None]
+    return y % 32
+
+
+def _b1_kw(pt, seg_bits, max_count):
+    spec = tt.dec_spec(pt)
+    lim, bias = gd.kernel_tabs(tt.device_dec_table(pt, device="cpu"))
+    return (lim, bias), dict(seg_bits=seg_bits, max_count=max_count,
+                             min_len=spec.min_len, max_len=spec.max_len)
+
+
+def _b1_blocks(parts, pt, seg_bits):
+    """(words, gaps, counts) of G blocks, each a valid stream of its data,
+    stacked at the longest block's shape (zeros past each)."""
+    cases = [_ranks_case(d, pt, seg_bits) for d in parts]
+    nw = max(c[0].size for c in cases)
+    ns = max(c[1].size for c in cases)
+    words = np.zeros((len(parts), nw), np.uint32)
+    gaps = np.zeros((len(parts), ns), np.int32)
+    counts = np.zeros((len(parts), ns), np.int32)
+    for i, (w, gp, c) in enumerate(cases):
+        words[i, : w.size], gaps[i, : gp.size], counts[i, : c.size] = w, gp, c
+    return words, gaps, counts
+
+
+@pytest.mark.parametrize("kind,sizes,seg_bits", [
+    # three blocks of 45-ish segments: warps and tiles cross blocks
+    ("0.1", (1400, 1500, 900), 1024),
+    ("0.5", (700, 333, 801), 128),
+    ("0.9", (300, 200), 8),
+    ("uniform", (500, 257), 32),
+    ("0.3", (9000,), 512),
+    ("single", (3000,), 256),
+    # segments of 7 (blocks fewer than a warp's rows)
+    ("0.5", (100,) * 9, 128),
+])
+def test_b1_staged_model_matches_plain(kind, sizes, seg_bits):
+    # the staged walk of a valid stream reads only its rows, never device
+    # memory, and no word of its row past stage_words; its ranks are the
+    # plain version's
+    parts = [_input(kind, m, 3 + i) for i, m in enumerate(sizes)]
+    _, pt = _tables(np.concatenate(parts))
+    words, gaps, counts = _b1_blocks(parts, pt, seg_bits)
+    (lim, bias), kw = _b1_kw(pt, seg_bits, -(-int(counts.max()) // 8) * 8)
+    got, reads, top = _b1_model(words, gaps, counts, lim, bias, **kw)
+    plain = gd.gap_decode_ranks(_t(words.view(np.int32)), _t(gaps),
+                                _t(counts), lim, bias, **kw).numpy()
+    assert np.array_equal(got, plain)
+    assert not reads.any()
+    assert top.max() < gd.stage_words(seg_bits)
+    assert (top[counts.reshape(-1) > 0] >= 0).all()
+    # the rows of a warp at one offset of their words: 32 banks
+    assert all(len(set(b)) == 32 for b in _b1_banks(seg_bits))
+
+
+def test_b1_staged_model_matches_jax():
+    # two blocks through the model and the JAX kernel in interpret mode
+    parts = [generate_redundant(m, 0.5, seed=9 + i)
+             for i, m in enumerate((900, 650))]
+    jt, pt = _tables(np.concatenate(parts))
+    words, gaps, counts = _b1_blocks(parts, pt, 128)
+    mc = int(counts.max())
+    (lim, bias), kw = _b1_kw(pt, 128, mc)
+    got, reads, _ = _b1_model(words, gaps, counts, lim, bias, **kw)
+    assert not reads.any()
+    ns = gaps.shape[1]
+    for b in range(2):
+        packed = np.asarray(decode_ranks_pallas(
+            jnp.asarray(words[b]), jnp.asarray(gaps[b]),
+            jnp.asarray(counts[b]), jdevice_dec_table(jt, two_level=False),
+            spec=jdec_spec(jt), seg_bits=128, n_segs=ns, max_count=mc,
+            interpret=True))
+        jr = (packed.view(np.uint8).reshape(packed.shape[0], -1, 4)
+              .transpose(1, 0, 2).reshape(packed.shape[1], -1))
+        for s in range(ns):
+            c = counts[b, s]
+            assert np.array_equal(got[b * ns + s, :c], jr[s, :c]), (b, s)
+
+
+@pytest.mark.parametrize("seg_bits,max_count", [(128, 64), (1024, 37),
+                                                (8, 9), (4096, 40)])
+def test_b1_staged_model_exact_on_corrupt_metadata(seg_bits, max_count):
+    # negative and oversized gaps, counts past max_count and negative,
+    # words cut short of the segments: walks leave their rows and read
+    # device memory, zeros past each block, and stay the plain version's
+    rng = np.random.default_rng(seg_bits)
+    _, pt = _tables(generate_redundant(4000, 0.5, seed=6))
+    g, ns = 3, 45
+    nw = max(ns * seg_bits // 32 // 2, 3)
+    words = rng.integers(0, 2**32, (g, nw), dtype=np.uint64).astype(np.uint32)
+    gaps = rng.integers(-3 * seg_bits, 3 * seg_bits, (g, ns)).astype(np.int32)
+    gaps[0, :10] = rng.integers(0, 16, 10)  # a few in their segment
+    counts = rng.integers(-5, max_count + 100, (g, ns)).astype(np.int32)
+    (lim, bias), kw = _b1_kw(pt, seg_bits, max_count)
+    got, reads, _ = _b1_model(words, gaps, counts, lim, bias, **kw)
+    plain = gd.gap_decode_ranks(_t(words.view(np.int32)), _t(gaps),
+                                _t(counts), lim, bias, **kw).numpy()
+    assert np.array_equal(got, plain)
+    assert reads.any()
 
 
 # ----------------------------------------------------------------------
