@@ -151,7 +151,7 @@ def _codec_kwargs(args):
 def _device(args) -> torch.device:
     """The device of the command; raises where CUDA is asked for and there
     is no card, before any work."""
-    from .ops.ils import resolve_device
+    from .ops.launch import resolve_device
 
     return resolve_device(args.device)
 

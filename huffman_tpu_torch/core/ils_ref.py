@@ -38,6 +38,7 @@ __all__ = [
     "ILS_ROT_SUB",
     "ILS_ROT_LANE",
     "ils_n_win",
+    "rot_src_index",
     "IlsParams",
     "ils_schedule_numer",
     "ils_stream_symbols",
@@ -85,7 +86,7 @@ def ils_schedule_numer(avg_bits_per_symbol: float) -> int:
     return max(int(round(avg_bits_per_symbol * 4.0 / 64.0 * 65536.0)), 1)
 
 
-def _rot_src_index(k: int, inverse: bool = False) -> np.ndarray:
+def rot_src_index(k: int, inverse: bool = False) -> np.ndarray:
     """(k//4, ILS_LANES) flat word index each stream reads per row (or, for
     ``inverse``, the flat stream index each word position reads back)."""
     r = np.arange(k // 4)[:, None, None]
@@ -112,7 +113,7 @@ def ils_stream_symbols(data: np.ndarray, k: int, rot: bool = False) -> np.ndarra
     n_tiles = data.size // (k * ILS_LANES)
     u32 = data.reshape(n_tiles, k // 4, ILS_LANES, 4)
     if rot:
-        src = _rot_src_index(k)
+        src = rot_src_index(k)
         u32 = np.take_along_axis(u32, src[None, :, :, None], axis=2)
     # (t, r, s, j) -> (t, 4r+j, s)
     return u32.transpose(0, 1, 3, 2).reshape(n_tiles, k, ILS_LANES)
@@ -328,7 +329,7 @@ def ils_decode_np(
     n_tiles = params.n_tiles
     dec = out.reshape(n_tiles, k // 4, 4, lanes)
     if params.rot:
-        src = _rot_src_index(k, inverse=True)
+        src = rot_src_index(k, inverse=True)
         dec = np.take_along_axis(dec, src[None, :, None, :], axis=3)
     u32view = dec.transpose(0, 1, 3, 2)
     return np.ascontiguousarray(u32view).reshape(-1)

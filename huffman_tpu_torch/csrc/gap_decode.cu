@@ -27,7 +27,7 @@
 // refills from its row (StagedWindow), and the odd pitch puts the threads
 // of a warp, each at the same offset of its own row, on 32 banks.  A word
 // outside the row, which only a corrupt gap or count reaches, is read from
-// device memory as BitWindow reads it, so every output equals the plain
+// device memory, zero outside [0, n_words), so every output equals the plain
 // version's for any input.  Read from device memory on the chain, the 32
 // lanes of a warp each on their own 128-byte segment, 2048 threads an SM
 // outgrew L1 (on an H100 at the HTC1 cell's shape, 64 blocks of 16 MiB at
@@ -166,9 +166,8 @@ __host__ __device__ inline int stage_words(int seg_bits) {
 // A bit window over one segment, its words staged in a row of shared
 // memory: the row holds the payload block's words [base, base + len), zeros
 // past the block; a word outside it is read from device memory, zero
-// outside [0, n_words), as BitWindow reads it.  The window is two words and
-// a bit offset, read by a funnel shift, with the next word loaded one
-// refill ahead (as C1's).
+// outside [0, n_words).  The window is two words and a bit offset, read
+// by a funnel shift, with the next word loaded one refill ahead (as C1's).
 struct StagedWindow {
   const uint32_t* words;
   const uint32_t* row;

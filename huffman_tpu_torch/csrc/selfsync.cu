@@ -59,7 +59,7 @@
 #define SYNC_OWN_WORDS (SYNC_OWN_BITS / 8)
 #define SYNC_LEN_BITS 10   // window bits of the length table
 
-// BitWindow (bitwalk.cuh) over one subsequence's words (word j is
+// A bit window over one subsequence's words (word j is
 // words[first + j], zero past the stream).  Every entry starts in the
 // first 16 bits, so the first two words stay in registers and a start
 // loads nothing; each refill's word is loaded one refill ahead.

@@ -73,7 +73,7 @@ def device_compressed_from_numpy(lengths, max_len, seg_bits, original_size,
     """A `DeviceCompressed` on ``device`` from NumPy fields: words (G, W)
     uint32, total_bits (G,), gaps and counts (G, n_segs)."""
     from ..models.gap_codec import DeviceCompressed
-    from ..ops.ils import resolve_device
+    from ..ops.launch import resolve_device
 
     dev = resolve_device(device)
 

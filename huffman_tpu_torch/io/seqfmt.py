@@ -26,7 +26,7 @@ import torch
 
 from ..core import npref
 from ..core.canonical import CodeTable, build_flat_lut
-from ..ops.ils import resolve_device
+from ..ops.launch import resolve_device
 
 __all__ = [
     "PrefixCode",

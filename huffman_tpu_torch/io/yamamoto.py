@@ -38,7 +38,7 @@ from ..core import npref
 from ..core.canonical import CodeTable
 from ..ops import decode as step
 from ..ops.gap_decode_kernels import count_segments, decode_blocks, kernel_tabs
-from ..ops.ils import resolve_device
+from ..ops.launch import resolve_device
 from ..ops.tables import DecSpec, DeviceDecTable, dec_spec, device_dec_table
 
 __all__ = [

@@ -33,9 +33,8 @@ from ..core.package_merge import package_merge_lengths
 from ..ops import decode as step
 from ..ops.gap_decode_kernels import decode_blocks
 from ..ops.gap_encode_kernels import encode_blocks
-from ..ops.ils import _as_bytes, resolve_device
-from ..ops.ils_kernels import ils_enc_tabs
-from ..ops.tables import dec_spec, device_dec_table
+from ..ops.launch import as_device_bytes, resolve_device
+from ..ops.tables import dec_spec, device_dec_table, device_enc_table
 from ..utils import trace
 
 __all__ = ["Compressed", "DeviceCompressed", "GapArrayCodec"]
@@ -128,7 +127,8 @@ class GapArrayCodec:
         self.seg_bits = int(seg_bits)
         self.block_bytes = int(block_bytes)
         self.method = "pallas" if method is None else method
-        self.enc = ils_enc_tabs(table, device=self.device)  # (len << 20) | code
+        # (len << 20) | code
+        self.enc = device_enc_table(table, device=self.device)
         self.dec = device_dec_table(table, two_level=self.method == "twolevel",
                                     device=self.device)
         self.spec = dec_spec(table)
@@ -160,7 +160,7 @@ class GapArrayCodec:
         with trace.span("gap.encode", device=self.device):
             shape = (blocks.shape if isinstance(blocks, torch.Tensor)
                      else np.shape(blocks))
-            blocks = _as_bytes(blocks, self.device).view(
+            blocks = as_device_bytes(blocks, self.device).view(
                 shape[0] if len(shape) == 2 else 1, -1)
             g, b = blocks.shape
             max_words = _round_up(_cdiv(b * self.table.max_len_present, 32),
@@ -254,7 +254,7 @@ class GapArrayCodec:
         as one block of its own size, each through the kernels.  (The JAX package sizes its groups by their exact bit
         count; the bytes do not depend on the grouping or the sizing.)"""
         with trace.span("gap.encode", device=self.device):
-            data = _as_bytes(data, self.device)
+            data = as_device_bytes(data, self.device)
             n = data.numel()
             comp = Compressed(
                 table=self.table, seg_bits=self.seg_bits, original_size=n,
@@ -310,5 +310,5 @@ class GapArrayCodec:
 
     def roundtrip_check(self, data) -> bool:
         """Self-verifying round trip, compared on the codec's device."""
-        data = _as_bytes(data, self.device)
+        data = as_device_bytes(data, self.device)
         return bool(torch.equal(self.decode(self.encode(data)), data))

@@ -27,13 +27,12 @@ from ..ops import ils as ils_ops
 from ..ops.ils import (
     IlsSection,
     IlsVmemError,
-    _as_bytes,
     ils_decode_device,
     ils_encode_device,
     pick_k,
-    resolve_device,
 )
-from ..ops.ils_kernels import ils_dec_tabs, ils_enc_tabs
+from ..ops.launch import as_device_bytes, resolve_device
+from ..ops.tables import ils_dec_tabs, ils_enc_tabs
 from ..utils import trace
 
 __all__ = ["IlsCompressed", "IlsCodec"]
@@ -126,7 +125,7 @@ class IlsCodec:
         halving wherever that stays a multiple of 4 (a k of 4 times an odd
         number, such as 4100, would halve to 2050)."""
         with trace.span("ils.encode", device=self.device):
-            data = _as_bytes(data, self.device)
+            data = as_device_bytes(data, self.device)
             k = self.k
             while True:
                 try:
@@ -328,5 +327,5 @@ class IlsCodec:
 
     def roundtrip_check(self, data) -> bool:
         """Self-verifying round trip, compared on the codec's device."""
-        data = _as_bytes(data, self.device)
+        data = as_device_bytes(data, self.device)
         return bool(torch.equal(self.decode(self.encode(data)), data))

@@ -28,7 +28,7 @@ import torch
 
 from ..core.canonical import CodeTable
 from ..ops.gap_decode_kernels import decode_blocks, kernel_tabs
-from ..ops.ils import resolve_device
+from ..ops.launch import resolve_device
 from ..ops.selfsync_kernels import SYNC_STATES, sync_transitions
 from ..ops.tables import dec_spec, device_dec_table
 

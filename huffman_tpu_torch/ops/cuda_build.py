@@ -7,6 +7,9 @@ at first use, one ``nvcc`` per source, all started together, into
 a digest of every source and the compiler flags: an edited source builds
 anew, an unchanged one is loaded as built.  A missing ``nvcc`` or a failed
 build raises; nothing falls back to the plain PyTorch versions.  Each
+entry's argtypes are read from its ``extern "C"`` line when the library
+loads (`signatures`), so the source is the C interface's only
+declaration; `ops/launch.py` checks every call against them.  Each
 library's compiler output (``-Xptxas -v``: registers, shared memory and
 spills of every kernel) is kept beside it and read by `kernel_resources`.
 """
@@ -14,6 +17,7 @@ spills of every kernel) is kept beside it and read by `kernel_resources`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -24,76 +28,16 @@ import threading
 from pathlib import Path
 
 __all__ = ["load_kernels", "build_kernels", "kernel_resources",
-           "KERNEL_SOURCES"]
+           "signatures", "parse_entries", "KERNEL_SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "huffman_tpu_torch"
-KERNEL_SOURCES = (
-    "ils_decode", "ils_encode", "ils_compact", "gap_decode", "gap_encode",
-    "selfsync", "encode_map", "byte_histogram",
-)
+# one library a source: the stems of csrc/*.cu
+KERNEL_SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-# C entry points: name -> argtypes (every entry returns cudaGetLastError())
-_SIGNATURES = {
-    "ils_decode": {
-        "ils_decode_launch": [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P,
-        ],
-    },
-    "ils_encode": {
-        "ils_lengths_launch": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-        ],
-        "ils_pack_certify_launch": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-            _I, _L, _I, _I, _P,
-        ],
-        "ils_pack_launch": [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
-            _I, _P,
-        ],
-    },
-    "ils_compact": {
-        "ils_compact_launch": [_P, _P, _P, _I, _L, _L, _I, _P],
-    },
-    "gap_decode": {
-        "gap_decode_ranks_launch": [
-            _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _I, _I,
-            _I, _P,
-        ],
-        "gap_place_bytes_launch": [
-            _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P,
-        ],
-        "gap_count_segments_launch": [
-            _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P,
-        ],
-    },
-    "gap_encode": {
-        "gap_row_pack_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
-        "gap_row_meta_launch": [
-            _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P,
-        ],
-        "gap_place_bits_launch": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
-    },
-    "selfsync": {
-        "sync_transitions_launch": [
-            _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P,
-        ],
-    },
-    "encode_map": {
-        "encode_map_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
-    },
-    "byte_histogram": {
-        "byte_histogram_launch": [_P, _L, _P, _P],
-    },
-}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] | None = None
@@ -182,6 +126,39 @@ def kernel_resources() -> dict[str, dict[str, int]]:
     return out
 
 
+# the C types of an entry's parameters; every entry returns an int, its
+# cudaError_t
+_CTYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+
+def parse_entries(src: str, where: str = "") -> dict[str, list]:
+    """Each ``extern "C" int name(...)`` entry of a source and its
+    argtypes: a pointer is ``c_void_p``, ``int`` and ``long long`` their
+    ctypes.  A parameter of any other type raises, naming the entry."""
+    out = {}
+    for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        types = out[fn] = []
+        for param in params.split(","):
+            decl = " ".join(param.split()[:-1]).replace("const ", "")
+            if "*" in param:
+                types.append(ctypes.c_void_p)
+            elif decl in _CTYPES:
+                types.append(_CTYPES[decl])
+            else:
+                raise ValueError(f"{where}{fn}: parameter {param.strip()!r} "
+                                 "has a type the loader does not map")
+    return out
+
+
+@functools.cache
+def signatures() -> dict[str, dict[str, list]]:
+    """Per source, its entries' argtypes (`parse_entries`): the sources
+    are the only declaration of the kernels' C interface."""
+    return {name: parse_entries((CSRC / f"{name}.cu").read_text(),
+                                f"{name}.cu: ")
+            for name in KERNEL_SOURCES}
+
+
 def load_kernels() -> dict[str, ctypes.CDLL]:
     """Build (if needed) and load the kernel libraries, once per process."""
     global _libs
@@ -190,7 +167,7 @@ def load_kernels() -> dict[str, ctypes.CDLL]:
             libs = {}
             for name, so in build_kernels().items():
                 lib = ctypes.CDLL(str(so))
-                for fn, argtypes in _SIGNATURES[name].items():
+                for fn, argtypes in signatures()[name].items():
                     f = getattr(lib, fn)
                     f.argtypes = argtypes
                     f.restype = ctypes.c_int

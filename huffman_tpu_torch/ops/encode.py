@@ -25,7 +25,7 @@ import torch
 
 from .encode_map_kernels import MAP_ALIGN, encode_map
 from .histogram_kernels import byte_counts
-from .ils_kernels import _M32, _to_i32, _u32
+from .launch import M32, to_i32, u32
 
 __all__ = ["encode_block", "encode_block_fast", "histogram"]
 
@@ -62,7 +62,7 @@ def encode_block(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,
     offs = ends - lens  # exclusive start bit per codeword
 
     # left-justified codes; an absent symbol (length 0) has code 0
-    left = ((e & 0xFFFF) << (32 - lens)) & _M32
+    left = ((e & 0xFFFF) << (32 - lens)) & M32
     sh = offs & 31
     w0 = offs >> 5
     num_units = max_words + 1
@@ -70,14 +70,14 @@ def encode_block(data: torch.Tensor, enc: torch.Tensor, *, seg_bits: int,
     # the spare last unit takes what the JAX segment sums drop
     words.index_add_(0, w0.clamp(max=num_units), left >> sh)
     words.index_add_(0, (w0 + 1).clamp(max=num_units),
-                     (left << (32 - sh)) & _M32)
+                     (left << (32 - sh)) & M32)
 
     bounds = torch.arange(n_segs, dtype=torch.int64, device=dev) * seg_bits
     first = torch.searchsorted(offs, bounds)  # side="left"
     offs_pad = torch.cat([offs, total_bits[None]])
     gaps = torch.where(bounds < total_bits, offs_pad[first] - bounds, 0)
     first_next = torch.cat([first[1:], first.new_full((1,), idx.numel())])
-    return (_to_i32(words[:num_units]), total_bits.to(torch.int32),
+    return (to_i32(words[:num_units]), total_bits.to(torch.int32),
             gaps.to(torch.int32), (first_next - first).to(torch.int32))
 
 
@@ -109,7 +109,7 @@ def encode_block_fast(data: torch.Tensor, enc_tabs: torch.Tensor, *,
         data = data.clone()
     dev = data.device
     hi, lo, l4, lens_p = encode_map(data, enc_tabs)
-    hi, lo, l4 = _u32(hi), _u32(lo), l4.to(torch.int64)
+    hi, lo, l4 = u32(hi), u32(lo), l4.to(torch.int64)
     ends4 = torch.cumsum(l4, 0)
     total_bits = ends4[-1]
     goffs = ends4 - l4
@@ -150,5 +150,5 @@ def encode_block_fast(data: torch.Tensor, enc_tabs: torch.Tensor, *,
     bounds = torch.arange(n_segs, dtype=torch.int64, device=dev) * seg_bits
     gaps = torch.where(bounds < total_bits,
                        torch.minimum(first[:n_segs], total_bits) - bounds, 0)
-    return (_to_i32(words[:num_units]), total_bits.to(torch.int32),
+    return (to_i32(words[:num_units]), total_bits.to(torch.int32),
             gaps.to(torch.int32), counts[:n_segs].to(torch.int32))

@@ -5,7 +5,7 @@ Counterpart of `huffman_tpu/ops/pallas/decode_kernel.py`
 (`decode_ranks_pallas`, `decode_blocks_pallas`, `count_segments_pallas`),
 `huffman_tpu/ops/pallas/compact_kernel.py` (`ragged_concat_pallas`,
 `rows_assemble_pallas`) and `huffman_tpu/ops/compact.py`.  The routing is
-that of `ops/ils_kernels.py`: a CUDA tensor launches the kernel of
+that of `ops/launch.py`: a CUDA tensor launches the kernel of
 ``csrc/gap_decode.cu`` or raises, a CPU tensor runs the plain version.
 
 - `gap_decode_ranks` (B1, with B3's decode use folded in): one segment per
@@ -35,16 +35,14 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import trace
-from .ils_kernels import (
-    _check,
-    _launched,
-    _lib,
-    _same_device,
-    _stream,
-    _to_i32,
-    _u32,
-    _use_kernel,
+from .launch import (
+    check,
+    counters,
+    launch,
+    same_device,
+    to_i32,
+    u32,
+    use_kernel,
 )
 from .tables import DecSpec, DeviceDecTable
 
@@ -61,6 +59,7 @@ __all__ = [
     "count_segments",
     "count_segments_plain",
     "count_max",
+    "walk_counts",
     "reset_launch_counts",
     "launch_counts",
 ]
@@ -137,7 +136,7 @@ def kernel_tabs(dec: DeviceDecTable):
     bias = torch.zeros_like(lim)
     lim[:n] = dec.lim_left
     bias[:n] = dec.offsets.to(torch.int64) - dec.first_code
-    return _to_i32(lim), bias.to(torch.int32)
+    return to_i32(lim), bias.to(torch.int32)
 
 
 # ----------------------------------------------------------------------
@@ -147,7 +146,7 @@ def _word_reader(words, n_words, base=0):
     """word(i): u32 word i of each stream, as int64; zero outside
     [0, n_words).  words: (..., n_words) int32, flattened row-major, each
     row starting at `base` (broadcast against i)."""
-    flat = torch.cat([_u32(words).reshape(-1),
+    flat = torch.cat([u32(words).reshape(-1),
                       torch.zeros(1, dtype=torch.int64, device=words.device)])
 
     def word(i):  # the spare last entry of flat reads as zero
@@ -173,12 +172,12 @@ def _code_len(win, lim, min_len, max_len):
     return ln
 
 
-def _walk_counts(words, pos, end, lim, *, min_len, max_len, max_count):
+def walk_counts(words, pos, end, lim, *, min_len, max_len, max_count):
     """Codewords of a (W,) stream that start below `end`, walked from each
     `pos` (int64, any shape), at most max_count of them: returns (count,
     pos just past the last one counted), int64."""
     word = _word_reader(words, words.shape[0])
-    lim = _u32(lim)
+    lim = u32(lim)
     count = torch.zeros_like(pos)
     for _ in range(max_count):
         active = pos < end
@@ -201,7 +200,7 @@ def gap_decode_ranks_plain(words, gaps, counts, lim, bias, *, seg_bits,
     # zero outside each block
     word = _word_reader(words, n_words,
                         torch.arange(g_n, device=dev)[:, None] * n_words)
-    lim = _u32(lim)
+    lim = u32(lim)
     bias = bias.to(torch.int64)
     pos = (torch.arange(n_segs, device=dev)[None, :] * seg_bits
            + gaps.to(torch.int64))
@@ -225,21 +224,21 @@ def gap_decode_ranks(words, gaps, counts, lim, bias, *, seg_bits, max_count,
     words: (G, W) int32, each block's MSB-first u32 payload (words past W
     read as zeros); gaps, counts: (G, n_segs) int32; lim, bias: (32,)
     int32 (`kernel_tabs`).  Counts are clamped to [0, max_count]."""
-    _check("words", words, torch.int32)
+    check("words", words, torch.int32)
     if words.dim() != 2 or gaps.dim() != 2 or gaps.shape[0] != words.shape[0]:
         raise ValueError(f"words (G, W) and gaps/counts (G, n_segs) expected; "
                          f"got {tuple(words.shape)} and {tuple(gaps.shape)}")
-    _check("gaps", gaps, torch.int32)
-    _check("counts", counts, torch.int32, gaps.shape)
-    _check("lim", lim, torch.int32, (32,))
-    _check("bias", bias, torch.int32, (32,))
-    _same_device(words, gaps, counts, lim, bias)
+    check("gaps", gaps, torch.int32)
+    check("counts", counts, torch.int32, gaps.shape)
+    check("lim", lim, torch.int32, (32,))
+    check("bias", bias, torch.int32, (32,))
+    same_device(words, gaps, counts, lim, bias)
     if not 1 <= min_len <= max_len <= 16 or seg_bits <= 0 or max_count < 0:
         raise ValueError(f"invalid decode shape: seg_bits={seg_bits}, "
                          f"max_count={max_count}, lengths {min_len}..{max_len}")
     kw = dict(seg_bits=seg_bits, max_count=max_count, min_len=min_len,
               max_len=max_len)
-    if not _use_kernel(words):
+    if not use_kernel(words):
         return gap_decode_ranks_plain(words, gaps, counts, lim, bias, **kw)
     g_n, n_segs = gaps.shape
     ranks = torch.empty((g_n * n_segs, max_count), dtype=torch.uint8,
@@ -247,13 +246,11 @@ def gap_decode_ranks(words, gaps, counts, lim, bias, *, seg_bits, max_count,
     if ranks.numel() == 0:
         return ranks
     tile_rows, chunk, pitch, smem = ranks_tile(max_count, seg_bits)
-    rc = _lib("gap_decode").gap_decode_ranks_launch(
-        words.data_ptr(), gaps.data_ptr(), counts.data_ptr(), lim.data_ptr(),
-        bias.data_ptr(), ranks.data_ptr(), g_n * n_segs, n_segs,
-        words.shape[1], seg_bits, max_count, min_len, max_len, tile_rows,
-        chunk, pitch, smem, _stream(words),
-    )
-    _launched(gap_decode_ranks, rc)
+    launch("gap_decode", "gap_decode_ranks_launch",
+           words.data_ptr(), gaps.data_ptr(), counts.data_ptr(), lim.data_ptr(),
+           bias.data_ptr(), ranks.data_ptr(), g_n * n_segs, n_segs,
+           words.shape[1], seg_bits, max_count, min_len, max_len, tile_rows,
+           chunk, pitch, smem, like=words, counted=gap_decode_ranks)
     return ranks
 
 
@@ -279,27 +276,25 @@ def gap_place_bytes(ranks, counts, offsets, symtab, *, n_out):
     ranks: (S, max_count) uint8; counts: (S,) int32; offsets: (S,) int64
     exclusive prefix sum of the counts; symtab: (256,) int32.  Bytes no
     segment covers are zero; writes outside [0, n_out) are dropped."""
-    _check("ranks", ranks, torch.uint8)
+    check("ranks", ranks, torch.uint8)
     if ranks.dim() != 2:
         raise ValueError(f"ranks must be (S, max_count), got {tuple(ranks.shape)}")
     n_segs = ranks.shape[0]
-    _check("counts", counts, torch.int32, (n_segs,))
-    _check("offsets", offsets, torch.int64, (n_segs,))
-    _check("symtab", symtab, torch.int32, (256,))
-    _same_device(ranks, counts, offsets, symtab)
-    if not _use_kernel(ranks):
+    check("counts", counts, torch.int32, (n_segs,))
+    check("offsets", offsets, torch.int64, (n_segs,))
+    check("symtab", symtab, torch.int32, (256,))
+    same_device(ranks, counts, offsets, symtab)
+    if not use_kernel(ranks):
         return gap_place_bytes_plain(ranks, counts, offsets, symtab, n_out=n_out)
     out = torch.zeros(n_out, dtype=torch.uint8, device=ranks.device)
     max_count = ranks.shape[1]
     if n_segs == 0 or n_out == 0 or max_count == 0:
         return out
     rows, chunk, smem = place_tile(max_count)
-    rc = _lib("gap_decode").gap_place_bytes_launch(
-        ranks.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-        symtab.data_ptr(), out.data_ptr(), n_segs, max_count, n_out, rows,
-        chunk, smem, _stream(ranks),
-    )
-    _launched(gap_place_bytes, rc)
+    launch("gap_decode", "gap_place_bytes_launch",
+           ranks.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+           symtab.data_ptr(), out.data_ptr(), n_segs, max_count, n_out, rows,
+           chunk, smem, like=ranks, counted=gap_place_bytes)
     return out
 
 
@@ -324,9 +319,9 @@ def count_segments_plain(words, gaps, lim, *, seg_bits, total_bits, min_len,
            + gaps.to(torch.int64))
     end = torch.cat([pos[1:], pos.new_full((1,), total_bits)]).clamp(
         max=total_bits)
-    count, _ = _walk_counts(words, pos, end, lim, min_len=min_len,
-                            max_len=max_len,
-                            max_count=count_max(seg_bits, min_len))
+    count, _ = walk_counts(words, pos, end, lim, min_len=min_len,
+                           max_len=max_len,
+                           max_count=count_max(seg_bits, min_len))
     return count.to(torch.int32)
 
 
@@ -339,19 +334,19 @@ def count_segments(words, gaps, lim, *, seg_bits, total_bits, min_len,
     before `total_bits`), at most `count_max`.  words: (W,) int32
     MSB-first u32 payload (words past W read as zeros); gaps: (S,) int32;
     lim: (32,) int32 (`kernel_tabs`)."""
-    _check("words", words, torch.int32)
-    _check("gaps", gaps, torch.int32)
+    check("words", words, torch.int32)
+    check("gaps", gaps, torch.int32)
     if words.dim() != 1 or gaps.dim() != 1:
         raise ValueError(f"words (W,) and gaps (S,) expected; got "
                          f"{tuple(words.shape)} and {tuple(gaps.shape)}")
-    _check("lim", lim, torch.int32, (32,))
-    _same_device(words, gaps, lim)
+    check("lim", lim, torch.int32, (32,))
+    same_device(words, gaps, lim)
     if not 1 <= min_len <= max_len <= 16 or seg_bits <= 0:
         raise ValueError(f"invalid count shape: seg_bits={seg_bits}, "
                          f"lengths {min_len}..{max_len}")
     kw = dict(seg_bits=seg_bits, total_bits=total_bits, min_len=min_len,
               max_len=max_len)
-    if not _use_kernel(words):
+    if not use_kernel(words):
         return count_segments_plain(words, gaps, lim, **kw)
     n_segs = gaps.shape[0]
     counts = torch.empty(n_segs, dtype=torch.int32, device=words.device)
@@ -361,12 +356,11 @@ def count_segments(words, gaps, lim, *, seg_bits, total_bits, min_len,
                       device=words.device)
     # one count a call, though a call launches two kernels (the table's,
     # where the code has more than one length)
-    rc = _lib("gap_decode").gap_count_segments_launch(
-        words.data_ptr(), gaps.data_ptr(), lim.data_ptr(), tab.data_ptr(),
-        counts.data_ptr(), n_segs, words.shape[0], total_bits, seg_bits,
-        count_max(seg_bits, min_len), min_len, max_len, _stream(words),
-    )
-    _launched(count_segments, rc)
+    launch("gap_decode", "gap_count_segments_launch",
+           words.data_ptr(), gaps.data_ptr(), lim.data_ptr(), tab.data_ptr(),
+           counts.data_ptr(), n_segs, words.shape[0], total_bits, seg_bits,
+           count_max(seg_bits, min_len), min_len, max_len, like=words,
+           counted=count_segments)
     return counts
 
 
@@ -397,13 +391,5 @@ def decode_blocks(words, gaps, counts, dec: DeviceDecTable, *, spec: DecSpec,
     return out.view(g_n, out_size)
 
 
-_WRAPPERS = (gap_decode_ranks, gap_place_bytes, count_segments)
-_NAMES = tuple(fn.__name__ for fn in _WRAPPERS)
-
-
-def reset_launch_counts() -> None:
-    trace.reset_launches(_NAMES)
-
-
-def launch_counts() -> dict[str, int]:
-    return trace.launches(_NAMES)
+reset_launch_counts, launch_counts = counters(
+    gap_decode_ranks, gap_place_bytes, count_segments)

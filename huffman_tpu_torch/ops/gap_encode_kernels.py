@@ -2,7 +2,7 @@
 
 Counterpart of `huffman_tpu/ops/pallas/gap_encode_kernel.py`
 (`encode_blocks_pallas`), bit-identical to it and to
-`ops/encode.py::encode_block`.  Routing as in `ops/ils_kernels.py`: a CUDA
+`ops/encode.py::encode_block`.  Routing as in `ops/launch.py`: a CUDA
 tensor launches the kernel of ``csrc/gap_encode.cu`` or raises, a CPU
 tensor runs the plain version.  A block is cut into rows of
 ``ROW_BYTES = 128`` input bytes:
@@ -35,17 +35,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..utils import trace
-from .ils_kernels import (
-    _M32,
-    _check,
-    _launched,
-    _lib,
-    _same_device,
-    _stream,
-    _to_i32,
-    _u32,
-    _use_kernel,
+from .launch import (
+    M32,
+    check,
+    counters,
+    launch,
+    same_device,
+    to_i32,
+    u32,
+    use_kernel,
 )
 
 __all__ = [
@@ -145,12 +143,12 @@ def _check_n_bytes(n_bytes, n_rows, rows_per_block, ref):
     rows_per_block."""
     if n_bytes is None:
         return
-    _check("n_bytes", n_bytes, torch.int32)
+    check("n_bytes", n_bytes, torch.int32)
     if n_bytes.dim() != 1 or n_bytes.numel() * rows_per_block != n_rows:
         raise ValueError(f"n_bytes must be (G,) for G blocks of "
                          f"{rows_per_block} rows, got {tuple(n_bytes.shape)} "
                          f"for {n_rows} rows")
-    _same_device(ref, n_bytes)
+    same_device(ref, n_bytes)
 
 
 # ----------------------------------------------------------------------
@@ -161,7 +159,7 @@ def gap_row_pack_plain(rows, enc, *, cap_words, n_bytes=None):
     e = _row_codes(rows, enc)
     e = torch.where(_row_symbols(n_rows, n_bytes, rows.device), e, 0)
     ln = e >> 20
-    left = ((e & 0xFFFF) << (32 - ln)) & _M32  # ln == 0 gives 0
+    left = ((e & 0xFFFF) << (32 - ln)) & M32  # ln == 0 gives 0
     ends = torch.cumsum(ln, 1)
     starts = ends - ln
     sh = starts & 31
@@ -172,31 +170,31 @@ def gap_row_pack_plain(rows, enc, *, cap_words, n_bytes=None):
     pay.scatter_add_(1, w0.clamp(max=cap_words), left >> sh)
     pay.scatter_add_(1, (w0 + 1).clamp(max=cap_words),
                      _low_bits(left, sh) << (32 - sh))
-    return _to_i32(pay[:, :cap_words]), ends[:, -1].to(torch.int32)
+    return to_i32(pay[:, :cap_words]), ends[:, -1].to(torch.int32)
 
 
 def gap_row_pack(rows, enc, *, cap_words, n_bytes=None):
     """Pack each row of (n_rows, 32) int32 input words (128 bytes,
     little-endian within a word) with the (256,) int32 table of
-    ``(len << 20) | code`` (`ils_kernels.ils_enc_tabs`).  n_bytes: None
+    ``(len << 20) | code`` (`tables.ils_enc_tabs`).  n_bytes: None
     (every byte a symbol) or a (G,) int32 byte count for the rows taken as
     G blocks of n_rows / G rows; a byte at or past its block's count adds
     no bits.
 
     Returns (pay (n_rows, cap_words) int32 — MSB-first u32 words, zero past
     the row's bits —, bits (n_rows,) int32)."""
-    _check("rows", rows, torch.int32)
+    check("rows", rows, torch.int32)
     if rows.dim() != 2 or rows.shape[1] != ROW_WORDS:
         raise ValueError(f"rows must be (n_rows, {ROW_WORDS}), got "
                          f"{tuple(rows.shape)}")
-    _check("enc", enc, torch.int32, (256,))
-    _same_device(rows, enc)
+    check("enc", enc, torch.int32, (256,))
+    same_device(rows, enc)
     n_rows = rows.shape[0]
     block_rows = 0
     if n_bytes is not None:
         block_rows = n_rows // n_bytes.numel() if n_bytes.numel() else 0
         _check_n_bytes(n_bytes, n_rows, block_rows, rows)
-    if not _use_kernel(rows):
+    if not use_kernel(rows):
         return gap_row_pack_plain(rows, enc, cap_words=cap_words,
                                   n_bytes=n_bytes)
     if not rows.is_contiguous() or rows.data_ptr() % 16:
@@ -208,12 +206,10 @@ def gap_row_pack(rows, enc, *, cap_words, n_bytes=None):
     if n_rows == 0:
         return pay, bits
     tile_rows, smem = row_pack_tile(cap_words)
-    rc = _lib("gap_encode").gap_row_pack_launch(
-        rows.data_ptr(), enc.data_ptr(), _ptr(n_bytes), pay.data_ptr(),
-        bits.data_ptr(), n_rows, cap_words, block_rows, tile_rows, smem,
-        _stream(rows),
-    )
-    _launched(gap_row_pack, rc)
+    launch("gap_encode", "gap_row_pack_launch",
+           rows.data_ptr(), enc.data_ptr(), _ptr(n_bytes), pay.data_ptr(),
+           bits.data_ptr(), n_rows, cap_words, block_rows, tile_rows, smem,
+           like=rows, counted=gap_row_pack)
     return pay, bits
 
 
@@ -257,7 +253,7 @@ def gap_row_meta(rows, enc, s_local, *, rows_per_block, n_segs, seg_bits,
     only.  n_bytes: None, or a (G,) int32 byte count per block, as
     `gap_row_pack` takes it: a byte at or past it is no start (s_local
     then comes from the bits `gap_row_pack` gave with the same counts)."""
-    _check("rows", rows, torch.int32)
+    check("rows", rows, torch.int32)
     n_rows = rows.shape[0]
     if rows.dim() != 2 or rows.shape[1] != ROW_WORDS or rows_per_block <= 0 \
             or n_rows % rows_per_block:
@@ -267,13 +263,13 @@ def gap_row_meta(rows, enc, s_local, *, rows_per_block, n_segs, seg_bits,
         raise ValueError("seg_bits must be a power of two")
     if not 1 <= max_len <= 16:
         raise ValueError(f"max_len must be in [1, 16], got {max_len}")
-    _check("enc", enc, torch.int32, (256,))
-    _check("s_local", s_local, torch.int64, (n_rows,))
-    _same_device(rows, enc, s_local)
+    check("enc", enc, torch.int32, (256,))
+    check("s_local", s_local, torch.int64, (n_rows,))
+    same_device(rows, enc, s_local)
     _check_n_bytes(n_bytes, n_rows, rows_per_block, rows)
     kw = dict(rows_per_block=rows_per_block, n_segs=n_segs, seg_bits=seg_bits,
               n_bytes=n_bytes)
-    if not _use_kernel(rows):
+    if not use_kernel(rows):
         return gap_row_meta_plain(rows, enc, s_local, **kw)
     if rows.data_ptr() % 16:
         # the kernel reads each row with 16-byte loads
@@ -285,13 +281,11 @@ def gap_row_meta(rows, enc, s_local, *, rows_per_block, n_segs, seg_bits,
     if n_rows == 0:
         return counts, firsts
     tile_rows, window, smem = meta_tile(seg_bits, max_len)
-    rc = _lib("gap_encode").gap_row_meta_launch(
-        rows.data_ptr(), enc.data_ptr(), s_local.data_ptr(), _ptr(n_bytes),
-        counts.data_ptr(), firsts.data_ptr(), n_rows, rows_per_block, n_segs,
-        seg_bits.bit_length() - 1, max_len, tile_rows, window, smem,
-        _stream(rows),
-    )
-    _launched(gap_row_meta, rc)
+    launch("gap_encode", "gap_row_meta_launch",
+           rows.data_ptr(), enc.data_ptr(), s_local.data_ptr(), _ptr(n_bytes),
+           counts.data_ptr(), firsts.data_ptr(), n_rows, rows_per_block,
+           n_segs, seg_bits.bit_length() - 1, max_len, tile_rows, window,
+           smem, like=rows, counted=gap_row_meta)
     return counts, firsts
 
 
@@ -306,7 +300,7 @@ def gap_place_bits_plain(pay, bits, s_local, *, rows_per_block, out_words):
     bits = bits.to(torch.int64).clamp(0, 32 * cap_words)[:, None]
     k = torch.arange(cap_words + 1, device=dev)[None, :]
     keep = (bits - 32 * k).clamp(0, 32)  # bits of word k inside the row
-    cur = torch.cat([_u32(pay), zero], 1)
+    cur = torch.cat([u32(pay), zero], 1)
     cur = cur & (((1 << keep) - 1) << (32 - keep))
     prev = torch.cat([zero, cur[:, :-1]], 1)
     sh = (s_local & 31)[:, None]
@@ -318,7 +312,7 @@ def gap_place_bits_plain(pay, bits, s_local, *, rows_per_block, out_words):
     # the rows' bit ranges are disjoint, so the sum is the OR
     out = torch.zeros(g_n * out_words + 1, dtype=torch.int64, device=dev)
     out.index_add_(0, idx.reshape(-1), v.reshape(-1))
-    return _to_i32(out[:-1]).view(g_n, out_words)
+    return to_i32(out[:-1]).view(g_n, out_words)
 
 
 def gap_place_bits(pay, bits, s_local, *, rows_per_block, out_words):
@@ -326,16 +320,16 @@ def gap_place_bits(pay, bits, s_local, *, rows_per_block, out_words):
     words, row r's first bits(r) bits at block-local bit s_local[r], zero
     elsewhere.  pay: (n_rows, cap_words) int32; bits: (n_rows,) int32;
     s_local: (n_rows,) int64.  Words past out_words are dropped."""
-    _check("pay", pay, torch.int32)
+    check("pay", pay, torch.int32)
     n_rows = pay.shape[0]
     if pay.dim() != 2 or rows_per_block <= 0 or n_rows % rows_per_block:
         raise ValueError(f"pay must be (G * {rows_per_block}, cap_words), "
                          f"got {tuple(pay.shape)}")
-    _check("bits", bits, torch.int32, (n_rows,))
-    _check("s_local", s_local, torch.int64, (n_rows,))
-    _same_device(pay, bits, s_local)
+    check("bits", bits, torch.int32, (n_rows,))
+    check("s_local", s_local, torch.int64, (n_rows,))
+    same_device(pay, bits, s_local)
     kw = dict(rows_per_block=rows_per_block, out_words=out_words)
-    if not _use_kernel(pay):
+    if not use_kernel(pay):
         return gap_place_bits_plain(pay, bits, s_local, **kw)
     g_n = n_rows // rows_per_block
     # zeroed: the boundary words are OR'ed in, words past the bits stay 0
@@ -345,11 +339,10 @@ def gap_place_bits(pay, bits, s_local, *, rows_per_block, out_words):
     if pay.shape[1] % 4 == 0 and pay.data_ptr() % 16:
         # the kernel reads rows of whole 16-byte quads with 16-byte loads
         raise ValueError("pay must be 16-byte aligned")
-    rc = _lib("gap_encode").gap_place_bits_launch(
-        pay.data_ptr(), bits.data_ptr(), s_local.data_ptr(), out.data_ptr(),
-        n_rows, rows_per_block, pay.shape[1], out_words, _stream(pay),
-    )
-    _launched(gap_place_bits, rc)
+    launch("gap_encode", "gap_place_bits_launch",
+           pay.data_ptr(), bits.data_ptr(), s_local.data_ptr(), out.data_ptr(),
+           n_rows, rows_per_block, pay.shape[1], out_words, like=pay,
+           counted=gap_place_bits)
     return out
 
 
@@ -425,13 +418,5 @@ def encode_blocks(blocks, enc, *, seg_bits, max_words, n_segs, max_len,
             counts)
 
 
-_WRAPPERS = (gap_row_pack, gap_row_meta, gap_place_bits)
-_NAMES = tuple(fn.__name__ for fn in _WRAPPERS)
-
-
-def reset_launch_counts() -> None:
-    trace.reset_launches(_NAMES)
-
-
-def launch_counts() -> dict[str, int]:
-    return trace.launches(_NAMES)
+reset_launch_counts, launch_counts = counters(
+    gap_row_pack, gap_row_meta, gap_place_bits)

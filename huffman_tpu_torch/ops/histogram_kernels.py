@@ -14,8 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import ALPHABET_SIZE
-from ..utils import trace
-from .ils_kernels import _launched, _lib, _stream, _use_kernel
+from .launch import counters, launch, use_kernel
 
 __all__ = ["byte_counts", "byte_counts_plain", "reset_launch_counts",
            "launch_counts"]
@@ -33,22 +32,13 @@ def byte_counts(data: torch.Tensor) -> torch.Tensor:
     if data.dtype != torch.uint8:
         raise TypeError(f"byte_counts needs uint8 data, got {data.dtype}")
     flat = data.contiguous().view(-1)
-    if not _use_kernel(flat):
+    if not use_kernel(flat):
         return byte_counts_plain(flat)
     out = torch.empty(ALPHABET_SIZE, dtype=torch.int64, device=flat.device)
-    rc = _lib("byte_histogram").byte_histogram_launch(
-        flat.data_ptr(), flat.numel(), out.data_ptr(), _stream(flat))
-    _launched(byte_counts, rc)
+    launch("byte_histogram", "byte_histogram_launch",
+           flat.data_ptr(), flat.numel(), out.data_ptr(), like=flat,
+           counted=byte_counts)
     return out
 
 
-_WRAPPERS = (byte_counts,)
-_NAMES = tuple(fn.__name__ for fn in _WRAPPERS)
-
-
-def reset_launch_counts() -> None:
-    trace.reset_launches(_NAMES)
-
-
-def launch_counts() -> dict[str, int]:
-    return trace.launches(_NAMES)
+reset_launch_counts, launch_counts = counters(byte_counts)

@@ -28,7 +28,6 @@ from ..utils import trace
 from .ils_kernels import (
     CHUNK_I,
     FUSED_E_BAND,
-    IlsDecTabs,
     ils_compact,
     ils_decode,
     ils_lengths_pass,
@@ -36,8 +35,9 @@ from .ils_kernels import (
     ils_pack_certify,
     ils_pack_certify_stream,
     ils_stream_span_rows,
-    resolve_device,
 )
+from .launch import as_device_bytes, resolve_device
+from .tables import IlsDecTabs
 
 __all__ = [
     "IlsSection",
@@ -403,15 +403,6 @@ def ils_encode_to_device(
     return payload_rows, row_starts, params
 
 
-def _as_bytes(data, dev: torch.device) -> torch.Tensor:
-    if isinstance(data, torch.Tensor):
-        if data.dtype != torch.uint8:
-            raise TypeError(f"data must be uint8, got {data.dtype}")
-        return trace.to_device(data.reshape(-1), dev, "input").contiguous()
-    arr = np.ascontiguousarray(np.asarray(data, np.uint8).reshape(-1))
-    return trace.to_device(arr, dev, "input")
-
-
 def ils_encode_device(
     data,
     table: CodeTable,
@@ -428,7 +419,7 @@ def ils_encode_device(
     ``stride_budget=0`` forces the two-pass tier (see
     `ils_encode_to_device`)."""
     dev = resolve_device(device)
-    data = _as_bytes(data, dev)
+    data = as_device_bytes(data, dev)
     if data.numel() % (k * ILS_LANES):
         raise ValueError("data size must be a multiple of k * 1024")
     payload_rows, _, params = ils_encode_to_device(

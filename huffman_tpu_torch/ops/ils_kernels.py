@@ -13,9 +13,11 @@ The plain versions also run on CUDA tensors when called directly: that is
 how a kernel is held against them on the card.  They keep u32 values in
 int64 masked to 32 bits, since torch's ``>>`` on int32 is arithmetic.
 
-Each wrapper counts its kernel launches in the port's counter store
-(`utils/trace.py`, ``launches.<wrapper>``); `reset_launch_counts` and
-`launch_counts` read them together.  The TPU kernels' banded one-hot
+Each wrapper routes, checks and launches through `ops/launch.py`, which
+counts its launches (``launches.<wrapper>``); `reset_launch_counts` and
+`launch_counts` read them together.  The table builders `ils_enc_tabs`,
+`ils_dec_tabs` and `IlsDecTabs` live in `ops/tables.py` and are named
+here too, as in the JAX module.  The TPU kernels' banded one-hot
 refill and emission windows, lane tables, rolls and chunked grids are TPU
 artifacts and are not carried over; where a window decided TPU output
 (the dropped out-of-band pairs and the violation flag, ROADMAP.md trap
@@ -24,20 +26,25 @@ F2) the cadence is replayed exactly.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
-import numpy as np
 import torch
 
-from ..core.canonical import CodeTable
-from ..core.ils_ref import ILS_LANES, ILS_WIN, _rot_src_index, ils_n_win
-from ..utils import trace
+from ..core.ils_ref import ILS_LANES, ILS_WIN, ils_n_win, rot_src_index
+from .launch import (
+    M32,
+    check,
+    counters,
+    launch,
+    same_device,
+    to_i32,
+    u32,
+    use_kernel,
+)
+from .tables import IlsDecTabs, ils_dec_tabs, ils_enc_tabs
 
 __all__ = [
     "IlsDecTabs",
     "ils_enc_tabs",
     "ils_dec_tabs",
-    "resolve_device",
     "ils_lengths_pass",
     "ils_pack_certify",
     "ils_pack_certify_stream",
@@ -70,7 +77,6 @@ CHUNK_I = 512
 FUSED_E_BAND = 32
 
 _BIG = 1 << 30  # int32 envelope sentinels (+-2^30), as the JAX kernels
-_M32 = 0xFFFFFFFF
 
 # Windows (of ILS_WIN bodies) in each chunk of A2's streams (`certify_chunks`)
 CERTIFY_CHUNK_WIN = 4
@@ -107,119 +113,8 @@ def flush_group(k: int, w_band: int, chunk_cap: int = CHUNK_I) -> int:
     return 2 if _chunk_iters(k, chunk_cap) % 2 == 0 and w_band <= 192 else 1
 
 
-# ----------------------------------------------------------------------
-# Tables
-# ----------------------------------------------------------------------
-class IlsDecTabs(NamedTuple):
-    """Decoder tables: canonical limits, rank bias and the rank->symbol map."""
-
-    lim: torch.Tensor  # (32,) int32 bit patterns of the u32 left-justified limits
-    bias: torch.Tensor  # (32,) int32 offsets[l] - first_code[l]
-    symtab: torch.Tensor  # (256,) int32 canonical rank -> symbol
-
-
-def resolve_device(device) -> torch.device:
-    """The entry points' device: CUDA unless the caller asks for the CPU.
-
-    A CUDA device without a usable card raises here rather than running the
-    plain versions quietly on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "huffman_tpu_torch runs on a CUDA device by default, but "
-                "torch.cuda.is_available() is False; pass device='cpu' to "
-                "run the plain PyTorch versions"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
-def ils_enc_tabs(table: CodeTable, *, device="cuda") -> torch.Tensor:
-    """(256,) int32 ``(len << 20) | code`` per symbol, on ``device`` (CUDA
-    unless the caller asks for the CPU)."""
-    packed = (table.lengths.astype(np.int32) << 20) | table.codes.astype(np.int32)
-    with trace.span("ils.enc_tables"):
-        return trace.to_device(packed.astype(np.int32), resolve_device(device),
-                               "enc_table")
-
-
-def ils_dec_tabs(table: CodeTable, *, device="cuda") -> IlsDecTabs:
-    """The decoder's tables of ``table`` on ``device`` (CUDA unless the
-    caller asks for the CPU)."""
-    device = resolve_device(device)
-    lim = np.zeros(32, np.uint32)
-    lim[: table.lim_left.shape[0]] = table.lim_left
-    bias = np.zeros(32, np.int32)
-    b = table.offsets.astype(np.int64) - table.first_code.astype(np.int64)
-    bias[: b.shape[0]] = b.astype(np.int32)
-    symtab = np.zeros(256, np.int32)
-    symtab[: table.num_symbols] = table.symtab
-    with trace.span("ils.dec_tables"):
-        return IlsDecTabs(
-            trace.to_device(lim.view(np.int32), device, "dec_tables"),
-            trace.to_device(bias, device, "dec_tables"),
-            trace.to_device(symtab, device, "dec_tables"),
-        )
-
-
-# ----------------------------------------------------------------------
-# Routing, launch counts and checks
-# ----------------------------------------------------------------------
-def _use_kernel(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); any other device raises."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"the kernels run on CUDA or CPU tensors, not {x.device}")
-
-
-def _check(name, x, dtype, shape=None):
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if shape is not None and tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _same_device(ref, *xs):
-    for x in xs:
-        if x.device != ref.device:
-            raise ValueError(f"tensors on {ref.device} and {x.device}")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _launched(fn, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__}: CUDA launch failed (cudaError {rc})")
-    trace.count(trace.LAUNCH + fn.__name__)
-
-
-def _lib(name: str):
-    from .cuda_build import load_kernels
-
-    return load_kernels()[name]
-
-
-def _to_i32(x: torch.Tensor) -> torch.Tensor:
-    """u32 values held in int64 -> the same bits as int32."""
-    x = x & _M32
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
-
-
-def _u32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.int64) & _M32
-
-
 def _rot_src(k: int, device) -> torch.Tensor:
-    return torch.from_numpy(_rot_src_index(k)).to(device)
+    return torch.from_numpy(rot_src_index(k)).to(device)
 
 
 # ----------------------------------------------------------------------
@@ -235,7 +130,7 @@ def _encode_plain(data_i32, enc, *, k, snum, rot, pack, certify, compact_dst,
     n_tiles = data_i32.shape[0] // nb
     n_win = ils_n_win(k)
     sim_dec = not compact_dst
-    x = _u32(data_i32).view(n_tiles, nb, ILS_LANES)
+    x = u32(data_i32).view(n_tiles, nb, ILS_LANES)
     tab = enc.to(torch.int64)
     src = _rot_src(k, dev) if rot else None
     shape = (n_tiles, ILS_LANES)
@@ -289,7 +184,7 @@ def _encode_plain(data_i32, enc, *, k, snum, rot, pack, certify, compact_dst,
             ln = e >> 20
             if pack:
                 # ln == 0 (absent symbol) gives c_left == 0
-                c_left = (e & 0xFFFF) << (32 - ln) & _M32
+                c_left = (e & 0xFFFF) << (32 - ln) & M32
                 r = used & 31
                 j0 = used >> 5
                 hi = c_left >> r
@@ -365,7 +260,7 @@ def ils_chunk_bits_plain(data_i32, enc, *, k, rot=False):
     n_tiles = data_i32.shape[0] // nb
     chunks, chunk_win = certify_chunks(k)
     cb = chunk_win * ILS_WIN
-    x = _u32(data_i32).view(n_tiles, nb, ILS_LANES)
+    x = u32(data_i32).view(n_tiles, nb, ILS_LANES)
     if rot:
         src = _rot_src(k, data_i32.device)
         x = torch.gather(x, 2, src[None].expand(n_tiles, -1, -1))
@@ -389,10 +284,10 @@ def ils_lengths_pass(data_i32, snum, enc, *, k, rot=False, chunk_bits=False):
     (tile, chunk) walks each chunk from its closed-form state.
     """
     n_tiles = _n_tiles(data_i32, k)
-    _check("data_i32", data_i32, torch.int32)
-    _check("enc", enc, torch.int32, (256,))
-    _same_device(data_i32, enc)
-    if not _use_kernel(data_i32):
+    check("data_i32", data_i32, torch.int32)
+    check("enc", enc, torch.int32, (256,))
+    same_device(data_i32, enc)
+    if not use_kernel(data_i32):
         out = ils_lengths_pass_plain(data_i32, snum, enc, k=k, rot=rot)
         if chunk_bits:
             out += (ils_chunk_bits_plain(data_i32, enc, k=k, rot=rot),)
@@ -405,13 +300,12 @@ def ils_lengths_pass(data_i32, snum, enc, *, k, rot=False, chunk_bits=False):
     chunks, chunk_win = certify_chunks(k)
     cbits = torch.empty((n_tiles, chunks - 1, ILS_LANES), dtype=torch.int32,
                         device=dev)
-    rc = _lib("ils_encode").ils_lengths_launch(
-        data_i32.data_ptr(), enc.data_ptr(), bits.data_ptr(),
-        *(e.data_ptr() for e in env), cbits.data_ptr(), n_tiles, k,
-        int(snum), int(bool(rot)), chunks, chunk_win, _stream(data_i32),
-    )
     # one count per call, though a call of C > 1 chunks launches two kernels
-    _launched(ils_lengths_pass, rc)
+    launch("ils_encode", "ils_lengths_launch",
+           data_i32.data_ptr(), enc.data_ptr(), bits.data_ptr(),
+           *(e.data_ptr() for e in env), cbits.data_ptr(), n_tiles, k,
+           int(snum), int(bool(rot)), chunks, chunk_win,
+           like=data_i32, counted=ils_lengths_pass)
     return (bits, *env) + ((cbits,) if chunk_bits else ())
 
 
@@ -454,7 +348,7 @@ def ils_pack_certify_plain(data_i32, snum, enc, *, k, stride_rows, rot=False,
         G=G, W=W, cap_pairs=cap_pairs, boff_est=boff_est,
         laggard=anchor == "laggard",
     )
-    return _to_i32(pay), bits, dn, dx, viol
+    return to_i32(pay), bits, dn, dx, viol
 
 
 def ils_pack_certify(data_i32, snum, enc, *, k, stride_rows, rot=False,
@@ -479,12 +373,12 @@ def _pack_certify_launch(wrapper, data_i32, snum, enc, *, k, stride_rows, rot,
     """A2 at flush cadence G: its kernel for a CUDA tensor, counted as a
     launch of `wrapper`, its plain version for a CPU tensor."""
     n_tiles = _n_tiles(data_i32, k)
-    _check("data_i32", data_i32, torch.int32)
-    _check("enc", enc, torch.int32, (256,))
-    _same_device(data_i32, enc)
+    check("data_i32", data_i32, torch.int32)
+    check("enc", enc, torch.int32, (256,))
+    same_device(data_i32, enc)
     G, W, cap_pairs, boff_est = _certify_geometry(k, stride_rows, e_band,
                                                   anchor, G)
-    if not _use_kernel(data_i32):
+    if not use_kernel(data_i32):
         return ils_pack_certify_plain(data_i32, snum, enc, k=k,
                                       stride_rows=stride_rows, rot=rot,
                                       e_band=e_band, anchor=anchor, G=G)
@@ -501,15 +395,13 @@ def _pack_certify_launch(wrapper, data_i32, snum, enc, *, k, stride_rows, rot,
     chunks, chunk_win = certify_chunks(k)
     cbits = torch.empty((n_tiles, chunks - 1, ILS_LANES), dtype=torch.int32,
                         device=dev)
-    rc = _lib("ils_encode").ils_pack_certify_launch(
-        data_i32.data_ptr(), enc.data_ptr(), pay.data_ptr(), bits.data_ptr(),
-        dn.data_ptr(), dx.data_ptr(), viol.data_ptr(), cbits.data_ptr(),
-        n_tiles, k, int(snum), int(bool(rot)), G, W, cap_pairs, boff_est,
-        int(anchor == "laggard"), int(stride_rows), chunks, chunk_win,
-        _stream(data_i32),
-    )
     # one count per call, though a call of C > 1 chunks launches two kernels
-    _launched(wrapper, rc)
+    launch("ils_encode", "ils_pack_certify_launch",
+           data_i32.data_ptr(), enc.data_ptr(), pay.data_ptr(), bits.data_ptr(),
+           dn.data_ptr(), dx.data_ptr(), viol.data_ptr(), cbits.data_ptr(),
+           n_tiles, k, int(snum), int(bool(rot)), G, W, cap_pairs, boff_est,
+           int(anchor == "laggard"), int(stride_rows), chunks, chunk_win,
+           like=data_i32, counted=wrapper)
     return pay, bits, dn, dx, viol
 
 
@@ -588,7 +480,7 @@ def ils_pack_plain(data_i32, snum, boffs, row_starts, enc, *, k, w_cap,
         G=G, W=W, cap_pairs=cap_pairs,
         boffs=boffs.reshape(n_tiles, ils_n_win(k)),
     )
-    return _to_i32(pay)
+    return to_i32(pay)
 
 
 def ils_pack(data_i32, snum, boffs, row_starts, enc, *, k, w_cap, w_band,
@@ -607,16 +499,16 @@ def ils_pack(data_i32, snum, boffs, row_starts, enc, *, k, w_cap, w_band,
     n_tiles = _n_tiles(data_i32, k)
     n_win = ils_n_win(k)
     chunks, chunk_win = certify_chunks(k)
-    _check("data_i32", data_i32, torch.int32)
-    _check("enc", enc, torch.int32, (256,))
-    _check("boffs", boffs, torch.int32, (n_tiles, n_win))
-    _check("row_starts", row_starts, torch.int32, (n_tiles,))
-    _same_device(data_i32, enc, boffs, row_starts)
+    check("data_i32", data_i32, torch.int32)
+    check("enc", enc, torch.int32, (256,))
+    check("boffs", boffs, torch.int32, (n_tiles, n_win))
+    check("row_starts", row_starts, torch.int32, (n_tiles,))
+    same_device(data_i32, enc, boffs, row_starts)
     if cbits is not None:
-        _check("cbits", cbits, torch.int32, (n_tiles, chunks - 1, ILS_LANES))
-        _same_device(data_i32, cbits)
+        check("cbits", cbits, torch.int32, (n_tiles, chunks - 1, ILS_LANES))
+        same_device(data_i32, cbits)
     G, W, cap_pairs = _pack_geometry(k, w_cap, w_band)
-    if not _use_kernel(data_i32):
+    if not use_kernel(data_i32):
         return ils_pack_plain(data_i32, snum, boffs, row_starts, enc, k=k,
                               w_cap=w_cap, w_band=w_band,
                               total_rows=total_rows, rot=rot)
@@ -630,15 +522,13 @@ def ils_pack(data_i32, snum, boffs, row_starts, enc, *, k, w_cap, w_band,
     if not have_cbits:
         cbits = torch.empty((n_tiles, chunks - 1, ILS_LANES),
                             dtype=torch.int32, device=dev)
-    rc = _lib("ils_encode").ils_pack_launch(
-        data_i32.data_ptr(), enc.data_ptr(), boffs.data_ptr(),
-        row_starts.data_ptr(), pay.data_ptr(), cbits.data_ptr(), n_tiles, k,
-        int(snum), int(bool(rot)), G, W, cap_pairs, total_rows + w_cap,
-        chunks, chunk_win, int(have_cbits), _stream(data_i32),
-    )
     # one count per call, though a call of C > 1 chunks without cbits
     # launches two kernels
-    _launched(ils_pack, rc)
+    launch("ils_encode", "ils_pack_launch",
+           data_i32.data_ptr(), enc.data_ptr(), boffs.data_ptr(),
+           row_starts.data_ptr(), pay.data_ptr(), cbits.data_ptr(), n_tiles, k,
+           int(snum), int(bool(rot)), G, W, cap_pairs, total_rows + w_cap,
+           chunks, chunk_win, int(have_cbits), like=data_i32, counted=ils_pack)
     return pay
 
 
@@ -676,16 +566,16 @@ def ils_compact(payload_strided, row_starts, *, stride_rows, w_cap,
     most stride_rows, taken on trust (`ops.ils.row_starts_of`); the kernel
     clamps every tile's copy into both buffers instead of a host check."""
     n_tiles = row_starts.shape[0]
-    _check("payload_strided", payload_strided, torch.int32)
-    _check("row_starts", row_starts, torch.int32, (n_tiles,))
-    _same_device(payload_strided, row_starts)
+    check("payload_strided", payload_strided, torch.int32)
+    check("row_starts", row_starts, torch.int32, (n_tiles,))
+    same_device(payload_strided, row_starts)
     if payload_strided.dim() != 2 or payload_strided.shape[1] != ILS_LANES \
             or payload_strided.shape[0] < n_tiles * stride_rows:
         raise ValueError(
             f"payload_strided must hold {n_tiles} tiles of {stride_rows} rows "
             f"of {ILS_LANES} lanes; got {tuple(payload_strided.shape)}"
         )
-    if not _use_kernel(payload_strided):
+    if not use_kernel(payload_strided):
         return ils_compact_plain(payload_strided, row_starts,
                                  stride_rows=stride_rows, w_cap=w_cap,
                                  total_rows=total_rows)
@@ -693,12 +583,10 @@ def ils_compact(payload_strided, row_starts, *, stride_rows, w_cap,
     # kernel zeroes the w_cap slack rows
     out = torch.empty((total_rows + w_cap, ILS_LANES), dtype=torch.int32,
                       device=payload_strided.device)
-    rc = _lib("ils_compact").ils_compact_launch(
-        payload_strided.data_ptr(), row_starts.data_ptr(), out.data_ptr(),
-        n_tiles, int(stride_rows), int(total_rows), int(w_cap),
-        _stream(payload_strided),
-    )
-    _launched(ils_compact, rc)
+    launch("ils_compact", "ils_compact_launch",
+           payload_strided.data_ptr(), row_starts.data_ptr(), out.data_ptr(),
+           n_tiles, int(stride_rows), int(total_rows), int(w_cap),
+           like=payload_strided, counted=ils_compact)
     return out
 
 
@@ -711,9 +599,9 @@ def ils_decode_plain(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
     nb = k // 4
     cap_pairs = w_cap // 2
     min_len = max(min(min_len, max_len), 1)
-    pay = _u32(payload_rows)
+    pay = u32(payload_rows)
     n_rows = pay.shape[0]
-    lim = _u32(dec.lim)
+    lim = u32(dec.lim)
     bias = dec.bias.to(torch.int64)
     symtab = dec.symtab.to(torch.int64)
     starts = row_starts.to(torch.int64).view(n_tiles, 1)
@@ -744,8 +632,8 @@ def ils_decode_plain(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
             rank = bias[ln] + (win >> (32 - ln))
             pack = pack | (symtab[rank & 255] << (8 * j))
             for q in range(3):
-                a[q] = ((a[q] << ln) | (a[q + 1] >> (32 - ln))) & _M32
-            a[3] = (a[3] << ln) & _M32
+                a[q] = ((a[q] << ln) | (a[q + 1] >> (32 - ln))) & M32
+            a[3] = (a[3] << ln) & M32
             valid = valid - ln
         # refill: pairs at or past the tile's pair capacity read as zeros
         need = valid <= 64
@@ -767,7 +655,7 @@ def ils_decode_plain(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
             out[:, i, :] = pack
         else:
             out[:, i, dst[i]] = pack
-    return _to_i32(out.view(n_tiles * nb, ILS_LANES))
+    return to_i32(out.view(n_tiles * nb, ILS_LANES))
 
 
 def ils_decode_lut(dec: IlsDecTabs, *, max_len, min_len=1,
@@ -780,12 +668,12 @@ def ils_decode_lut(dec: IlsDecTabs, *, max_len, min_len=1,
     bits (the chain never falls as the window grows, so then it decides
     every window of the prefix), else 0: those windows take the chain."""
     min_len = max(min(min_len, max_len), 1)
-    lim = _u32(dec.lim)
+    lim = u32(dec.lim)
     bias = dec.bias.to(torch.int64)
     symtab = dec.symtab.to(torch.int64)
     lo = torch.arange(1 << bits, dtype=torch.int64, device=dec.lim.device) \
         << (32 - bits)
-    hi = lo | (_M32 >> bits)
+    hi = lo | (M32 >> bits)
 
     def length(win):
         ln = torch.full_like(win, min_len)
@@ -814,20 +702,24 @@ def ils_decode(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
     symbol from a table on the top ``ILS_LUT_BITS`` bits of the window
     (`ils_decode_lut`), the compare chain where that table has no entry;
     the plain version runs the chain for every codeword."""
-    _check("payload_rows", payload_rows, torch.int32)
-    _check("row_starts", row_starts, torch.int32, (n_tiles,))
+    check("payload_rows", payload_rows, torch.int32)
+    check("row_starts", row_starts, torch.int32, (n_tiles,))
     for name, x, n in (("lim", dec.lim, 32), ("bias", dec.bias, 32),
                        ("symtab", dec.symtab, 256)):
-        _check(name, x, torch.int32, (n,))
-    _same_device(payload_rows, row_starts, *dec)
+        check(name, x, torch.int32, (n,))
+    same_device(payload_rows, row_starts, *dec)
     if payload_rows.dim() != 2 or payload_rows.shape[1] != ILS_LANES:
         raise ValueError(f"payload_rows must be (rows, {ILS_LANES})")
     if w_cap < 4:
         raise ValueError(f"w_cap={w_cap} below the 4-row register init")
+    if w_cap >= 1 << 31:
+        # a corrupt container's: it raises on every device, where the
+        # kernel's int would wrap it (the JAX package raises MemoryError)
+        raise ValueError(f"w_cap={w_cap} does not fit the kernel's int32")
     if not 1 <= max_len <= 16 or k % 4 or k <= 0:
         raise ValueError(f"invalid decode shape k={k}, max_len={max_len}")
     min_len = max(min(min_len, max_len), 1)
-    if not _use_kernel(payload_rows):
+    if not use_kernel(payload_rows):
         return ils_decode_plain(payload_rows, row_starts, dec, k=k,
                                 w_cap=w_cap, n_tiles=n_tiles, max_len=max_len,
                                 min_len=min_len, rot=rot)
@@ -835,24 +727,15 @@ def ils_decode(payload_rows, row_starts, dec: IlsDecTabs, *, k, w_cap,
                       device=payload_rows.device)
     if n_tiles == 0:
         return out
-    rc = _lib("ils_decode").ils_decode_launch(
-        payload_rows.data_ptr(), row_starts.data_ptr(), dec.lim.data_ptr(),
-        dec.bias.data_ptr(), dec.symtab.data_ptr(), out.data_ptr(), n_tiles, k,
-        int(w_cap), min_len, max_len, int(bool(rot)), payload_rows.shape[0],
-        ILS_LUT_BITS, _stream(payload_rows),
-    )
-    _launched(ils_decode, rc)
+    launch("ils_decode", "ils_decode_launch",
+           payload_rows.data_ptr(), row_starts.data_ptr(), dec.lim.data_ptr(),
+           dec.bias.data_ptr(), dec.symtab.data_ptr(), out.data_ptr(), n_tiles,
+           k, int(w_cap), min_len, max_len, int(bool(rot)),
+           payload_rows.shape[0], ILS_LUT_BITS, like=payload_rows,
+           counted=ils_decode)
     return out
 
 
-_WRAPPERS = (ils_decode, ils_pack_certify, ils_compact, ils_lengths_pass,
-             ils_pack, ils_pack_certify_stream)
-_NAMES = tuple(fn.__name__ for fn in _WRAPPERS)
-
-
-def reset_launch_counts() -> None:
-    trace.reset_launches(_NAMES)
-
-
-def launch_counts() -> dict[str, int]:
-    return trace.launches(_NAMES)
+reset_launch_counts, launch_counts = counters(
+    ils_decode, ils_pack_certify, ils_compact, ils_lengths_pass, ils_pack,
+    ils_pack_certify_stream)

@@ -1,7 +1,7 @@
 """Self-sync transition kernel C2: wrapper, plain version, launch count.
 
 Counterpart of `huffman_tpu/ops/pallas/selfsync_kernels.py`
-(`sync_transitions`).  The routing is that of `ops/ils_kernels.py`: a CUDA
+(`sync_transitions`).  The routing is that of `ops/launch.py`: a CUDA
 tensor launches the kernel of ``csrc/selfsync.cu`` or raises, a CPU tensor
 runs the plain version.
 
@@ -22,16 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import trace
-from .gap_decode_kernels import _walk_counts
-from .ils_kernels import (
-    _check,
-    _launched,
-    _lib,
-    _same_device,
-    _stream,
-    _use_kernel,
-)
+from .gap_decode_kernels import walk_counts
+from .launch import check, counters, launch, same_device, use_kernel
 
 __all__ = [
     "SYNC_STATES",
@@ -67,8 +59,8 @@ def sync_transitions_plain(words, lim, *, total_bits, seg_bits, n_subseq,
     end = base + (total_bits - base).clamp(0, seg_bits)
     pos = base + torch.arange(SYNC_STATES, device=dev)[:, None]
     # the walks end at `end`, at most seg_bits codewords in
-    count, pos = _walk_counts(words, pos, end, lim, min_len=min_len,
-                              max_len=max_len, max_count=seg_bits)
+    count, pos = walk_counts(words, pos, end, lim, min_len=min_len,
+                             max_len=max_len, max_count=seg_bits)
     exit_state = (pos - base - seg_bits).clamp(0, SYNC_STATES - 1)
     return ((exit_state << 16) | count).to(torch.int32)
 
@@ -82,11 +74,11 @@ def sync_transitions(words, lim, *, total_bits, seg_bits, n_subseq, min_len,
     int32 canonical left-justified limits (`gap_decode_kernels.
     kernel_tabs`); total_bits: the stream's exact length.  Subsequences
     past the stream end give count 0 and exit 0."""
-    _check("words", words, torch.int32)
+    check("words", words, torch.int32)
     if words.dim() != 1:
         raise ValueError(f"words must be (W,), got {tuple(words.shape)}")
-    _check("lim", lim, torch.int32, (32,))
-    _same_device(words, lim)
+    check("lim", lim, torch.int32, (32,))
+    same_device(words, lim)
     if not 1 <= min_len <= max_len <= SYNC_STATES:
         raise ValueError(f"self-sync transitions need code lengths in "
                          f"[1, {SYNC_STATES}], got {min_len}..{max_len}")
@@ -95,25 +87,18 @@ def sync_transitions(words, lim, *, total_bits, seg_bits, n_subseq, min_len,
                          f"(counts are 16 bits), got {seg_bits}")
     kw = dict(total_bits=total_bits, seg_bits=seg_bits, n_subseq=n_subseq,
               min_len=min_len, max_len=max_len)
-    if not _use_kernel(words):
+    if not use_kernel(words):
         return sync_transitions_plain(words, lim, **kw)
     out = torch.empty((SYNC_STATES, n_subseq), dtype=torch.int32,
                       device=words.device)
     if n_subseq == 0:
         return out
     rows, map_words, smem = sync_tile(seg_bits)
-    rc = _lib("selfsync").sync_transitions_launch(
-        words.data_ptr(), lim.data_ptr(), out.data_ptr(), n_subseq,
-        words.shape[0], total_bits, seg_bits, min_len, max_len, rows,
-        map_words, smem, _stream(words),
-    )
-    _launched(sync_transitions, rc)
+    launch("selfsync", "sync_transitions_launch",
+           words.data_ptr(), lim.data_ptr(), out.data_ptr(), n_subseq,
+           words.shape[0], total_bits, seg_bits, min_len, max_len, rows,
+           map_words, smem, like=words, counted=sync_transitions)
     return out
 
 
-def reset_launch_counts() -> None:
-    trace.reset_launches(("sync_transitions",))
-
-
-def launch_counts() -> dict[str, int]:
-    return trace.launches(("sync_transitions",))
+reset_launch_counts, launch_counts = counters(sync_transitions)

@@ -1,14 +1,17 @@
-"""Device tables of the HTC1 codec, built from a host `CodeTable`.
+"""Device tables of the HTC1 and ILS codecs, built from a host `CodeTable`.
 
 Counterpart of `huffman_tpu/ops/tables.py`: the decoder table's three
-forms, as tensors on an explicit device, and the static `DecSpec`.
+forms, as tensors on an explicit device, and the static `DecSpec`; and of
+the table builders of `huffman_tpu/ops/pallas/ils_kernels.py`
+(`ils_enc_tabs`, `ils_dec_tabs`, `IlsDecTabs`), which `ops/ils_kernels.py`
+names too.
 Values the JAX package keeps in uint32 are int64 here (torch has no full
 uint32 arithmetic).  The canonical-limit form feeds the CUDA kernels
 (`ops/gap_decode_kernels.py::kernel_tabs`) and the "canonical" step
 decoder; the flat LUT and the two-level L1/L2 tables feed the "lut" and
 "twolevel" step decoders of `ops/decode.py`.  The encoder reads one (256,)
 int32 table of ``(len << 20) | code`` (`device_enc_table`, the table of
-`ops/ils_kernels.py::ils_enc_tabs`) in place of the JAX package's
+`ils_enc_tabs`) in place of the JAX package's
 ``(codes, lengths)`` pair; `DeviceEncTable` names that form.
 """
 
@@ -26,10 +29,13 @@ from ..core.canonical import (
     build_two_level_table,
     chain_spec,
 )
-from .ils import resolve_device
-from .ils_kernels import ils_enc_tabs
+from ..utils import trace
+from .launch import resolve_device
 
 __all__ = [
+    "IlsDecTabs",
+    "ils_enc_tabs",
+    "ils_dec_tabs",
     "DeviceEncTable",
     "DeviceDecTable",
     "DecSpec",
@@ -42,6 +48,43 @@ _PAD1 = torch.zeros(1, dtype=torch.int32)
 
 # The encoder's device table: a (256,) int32 tensor of (len << 20) | code
 DeviceEncTable = torch.Tensor
+
+
+class IlsDecTabs(NamedTuple):
+    """The ILS decoder's tables: canonical limits, rank bias and the
+    rank->symbol map."""
+
+    lim: torch.Tensor  # (32,) int32 bit patterns of the u32 left-justified limits
+    bias: torch.Tensor  # (32,) int32 offsets[l] - first_code[l]
+    symtab: torch.Tensor  # (256,) int32 canonical rank -> symbol
+
+
+def ils_enc_tabs(table: CodeTable, *, device="cuda") -> torch.Tensor:
+    """(256,) int32 ``(len << 20) | code`` per symbol, on ``device`` (CUDA
+    unless the caller asks for the CPU)."""
+    packed = (table.lengths.astype(np.int32) << 20) | table.codes.astype(np.int32)
+    with trace.span("ils.enc_tables"):
+        return trace.to_device(packed.astype(np.int32), resolve_device(device),
+                               "enc_table")
+
+
+def ils_dec_tabs(table: CodeTable, *, device="cuda") -> IlsDecTabs:
+    """The ILS decoder's tables of ``table`` on ``device`` (CUDA unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
+    lim = np.zeros(32, np.uint32)
+    lim[: table.lim_left.shape[0]] = table.lim_left
+    bias = np.zeros(32, np.int32)
+    b = table.offsets.astype(np.int64) - table.first_code.astype(np.int64)
+    bias[: b.shape[0]] = b.astype(np.int32)
+    symtab = np.zeros(256, np.int32)
+    symtab[: table.num_symbols] = table.symtab
+    with trace.span("ils.dec_tables"):
+        return IlsDecTabs(
+            trace.to_device(lim.view(np.int32), device, "dec_tables"),
+            trace.to_device(bias, device, "dec_tables"),
+            trace.to_device(symtab, device, "dec_tables"),
+        )
 
 
 def device_enc_table(table: CodeTable, *, device="cuda") -> DeviceEncTable:

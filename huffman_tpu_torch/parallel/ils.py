@@ -38,7 +38,6 @@ from ..models.ils_codec import IlsCompressed
 from ..ops.histogram_kernels import byte_counts
 from ..ops.ils import (
     IlsSection,
-    _as_bytes,
     auto_rot_band,
     fused_certify,
     fused_e_band,
@@ -46,14 +45,9 @@ from ..ops.ils import (
     pick_k,
     stride_rows_for,
 )
-from ..ops.ils_kernels import (
-    IlsDecTabs,
-    ils_compact,
-    ils_dec_tabs,
-    ils_decode,
-    ils_enc_tabs,
-    ils_pack,
-)
+from ..ops.ils_kernels import ils_compact, ils_decode, ils_pack
+from ..ops.launch import as_device_bytes
+from ..ops.tables import IlsDecTabs, ils_dec_tabs, ils_enc_tabs
 from ..utils import trace
 
 __all__ = [
@@ -247,7 +241,8 @@ class IlsShardedCodec:
         """The table of the global histogram: this rank's counts summed
         over the ranks (one all-reduce), one zero byte added once for the
         padding, as `IlsCodec.fit` adds it to the concatenated stream."""
-        freqs, _ = _global_counts(mesh, _as_bytes(local_bytes, mesh.device))
+        freqs, _ = _global_counts(mesh,
+                                  as_device_bytes(local_bytes, mesh.device))
         freqs[0] += 1
         return cls.from_counts(mesh, freqs, max_len=max_len, k=k,
                                optimize=optimize, rotate=rotate)
@@ -276,7 +271,7 @@ class IlsShardedCodec:
         positive multiple of ``k * 1024``."""
         mesh, k = self.mesh, self.k
         with trace.span("ils.shard_encode", device=mesh.device):
-            data = _as_bytes(local_bytes, mesh.device)
+            data = as_device_bytes(local_bytes, mesh.device)
             tile_bytes = k * ILS_LANES
             tiles = data.numel() // tile_bytes
             freqs, (n_tiles, n_sq, bad) = _global_counts(

@@ -26,7 +26,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from ..ops.ils import resolve_device
+from ..ops.launch import resolve_device
 from ..utils import trace
 
 __all__ = ["data_mesh", "DataMesh", "Mesh", "DATA_AXIS", "gather_shards",

@@ -164,7 +164,7 @@ def test_ils_layout_helpers_match():
         assert tref.ils_n_win(k) == jref.ils_n_win(k)
     for k in (8, 12, 64, 4096):
         for inverse in (False, True):
-            assert np.array_equal(tref._rot_src_index(k, inverse),
+            assert np.array_equal(tref.rot_src_index(k, inverse),
                                   jref._rot_src_index(k, inverse))
     for avg in np.linspace(0.0, 16.0, 97):
         assert tref.ils_schedule_numer(avg) == jref.ils_schedule_numer(avg)

@@ -10,6 +10,8 @@ imports no JAX, so it also runs where only PyTorch is installed:
 Every comparison is of integers and exact (tolerance 0).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from huffman_tpu_torch.core.ils_ref import ILS_LANES, ils_schedule_numer
 from huffman_tpu_torch.io import read_ils_container, write_ils_container
 from huffman_tpu_torch.ops import ils as tils
 from huffman_tpu_torch.ops import ils_kernels as tk
+from huffman_tpu_torch.ops.launch import launch
 from huffman_tpu_torch.utils import generate_redundant
 
 pytestmark = pytest.mark.cuda
@@ -134,6 +137,52 @@ def test_codec_container_matches_cpu(cuda, n_extra):
         out = codec.decode(read_ils_container(blobs[-1]))
         assert np.array_equal(out.cpu().numpy(), data)
     assert blobs[0] == blobs[1]
+
+
+# a k=12 container of 2 tiles and a tail (49,757 B): section 0's k is byte
+# 533 and the top byte of its w_cap byte 552; the twin of the CPU test
+# tests/test_torch_ils_codec.py::test_corrupt_section_shape_raises
+CORRUPT_SECTIONS = [
+    (552, 0x80, "w_cap=2147483664 does not fit the kernel's int32"),
+    (552, 0x8A, "w_cap=2315255824 does not fit the kernel's int32"),
+    (552, 0xFF, "w_cap=4278190096 does not fit the kernel's int32"),
+    (533, 12 ^ 86, "invalid decode shape k=86, max_len=9"),
+]
+
+
+@pytest.mark.parametrize("at,flip,error", CORRUPT_SECTIONS,
+                         ids=["w_cap^0x80", "w_cap^0x8A", "w_cap^0xFF",
+                              "k=86"])
+def test_corrupt_section_shape_raises_on_card(cuda, at, flip, error):
+    # F20: A1's int would wrap a w_cap of 2^31 or more and decode garbage;
+    # it raises before the route, as on the CPU.  F19: a k that is not a
+    # multiple of 4
+    data = generate_redundant(25353, 0.5, seed=1)
+    codec = IlsCodec.fit(data, k=12, device=cuda)
+    blob = bytearray(write_ils_container(codec.encode(data)))
+    assert len(blob) == 49757 and blob[533] == 12
+    assert np.array_equal(
+        codec.decode(read_ils_container(bytes(blob))).cpu().numpy(), data)
+    blob[at] ^= flip
+    tk.reset_launch_counts()
+    with pytest.raises(ValueError, match=re.escape(error)):
+        codec.decode(read_ils_container(bytes(blob)))
+    assert tk.launch_counts()["ils_decode"] == 0
+
+
+def test_seam_range_checks_a_built_entry(cuda):
+    # the seam's check on A1's own library: w_cap, argument 8, of 2^31
+    # raises before the call and is not counted
+    x = torch.zeros(1, device=cuda)
+    args = [0] * 6 + [1, 4, 1 << 31, 1, 8, 0, 1, tk.ILS_LUT_BITS]
+    with pytest.raises(ValueError, match=re.escape(
+            "ils_decode: argument 8 of ils_decode_launch is 2147483648")):
+        launch("ils_decode", "ils_decode_launch", *args, like=x,
+               counted=tk.ils_decode)
+    with pytest.raises(ValueError, match="takes 14 arguments"):
+        launch("ils_decode", "ils_decode_launch", *args[:-1], like=x,
+               counted=tk.ils_decode)
+    assert tk.launch_counts()["ils_decode"] == 0
 
 
 # ----------------------------------------------------------------------

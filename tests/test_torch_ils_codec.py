@@ -8,6 +8,7 @@ must raise the same errors.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -326,6 +327,28 @@ def test_container_errors_match():
     _same_error(bytes(bad))
     _same_error(bytes(blob[:-8]))  # truncated payload
     _same_error(bytes(blob) + b"\x00")  # trailing bytes
+
+
+@pytest.mark.parametrize("at,flip,error", [
+    (552, 0x80, "w_cap=2147483664 does not fit the kernel's int32"),
+    (552, 0x8A, "w_cap=2315255824 does not fit the kernel's int32"),
+    (552, 0xFF, "w_cap=4278190096 does not fit the kernel's int32"),
+    (533, 12 ^ 86, "invalid decode shape k=86, max_len=9"),
+], ids=["w_cap^0x80", "w_cap^0x8A", "w_cap^0xFF", "k=86"])
+def test_corrupt_section_shape_raises(at, flip, error):
+    # a k=12 container of 2 tiles and a tail (49,757 B): section 0's k is
+    # byte 533 and the top byte of its w_cap byte 552; the CRC covers the
+    # payloads only, so both parse.  F20: a w_cap of 2^31 or more raises
+    # before the route, as on the card (tests/test_torch_cuda.py), where the
+    # JAX package raises MemoryError.  F19: a k that is not a multiple of 4,
+    # which the JAX package decodes to garbage
+    data = generate_redundant(25353, 0.5, seed=1)
+    codec = IlsCodec.fit(data, k=12, device="cpu")
+    blob = bytearray(write_ils_container(codec.encode(data)))
+    assert len(blob) == 49757 and blob[533] == 12
+    blob[at] ^= flip
+    with pytest.raises(ValueError, match=re.escape(error)):
+        codec.decode(read_ils_container(bytes(blob)))
 
 
 def test_invalid_band_error_matches():

@@ -22,7 +22,7 @@ from huffman_tpu.core.ils_ref import ILS_LANES, ils_schedule_numer
 from huffman_tpu.ops.pallas import ils_kernels as jk
 from huffman_tpu.utils import generate_redundant
 from huffman_tpu_torch.core.canonical import chain_spec as port_chain_spec
-from huffman_tpu_torch.core.ils_ref import _rot_src_index
+from huffman_tpu_torch.core.ils_ref import rot_src_index
 from huffman_tpu_torch.io.convert import code_table_from_numpy, section_from_numpy
 from huffman_tpu_torch.ops import ils as tils
 from huffman_tpu_torch.ops import ils_kernels as tk
@@ -241,7 +241,7 @@ def _pack_chunked(words, enc, *, k, snum, rot, G, bounds, W, cap_pairs,
     nb = k // 4
     n_tiles = words.shape[0] // nb
     x = words.view(np.uint32).reshape(n_tiles, nb, ILS_LANES)
-    src = _rot_src_index(k) if rot else None
+    src = rot_src_index(k) if rot else None
     tab = enc.astype(np.int64)
     lens, codes = tab >> 20, (tab & 0xFFFF).astype(_U64)
     base_hi = cap_pairs - W
@@ -623,7 +623,7 @@ def _lengths_chunked(words, enc, *, k, snum, rot, bounds):
     assert all(b % 64 == 0 for b in bounds[:-1])
     x = words.view(np.uint32).reshape(n_tiles, nb, ILS_LANES).astype(np.int64)
     if rot:
-        x = np.take_along_axis(x, _rot_src_index(k)[None], axis=2)
+        x = np.take_along_axis(x, rot_src_index(k)[None], axis=2)
     lens = enc.astype(np.int64) >> 20
     l4 = sum(lens[(x >> (8 * j)) & 255] for j in range(4))
     cbits = [l4[:, b0:b1].sum(axis=1) for b0, b1 in zip(bounds[:-2],

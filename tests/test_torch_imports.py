@@ -281,46 +281,64 @@ def test_default_device_is_cuda_and_never_quietly_cpu():
 
 
 def test_ctypes_signatures_match_sources():
-    # ctypes checks neither the count nor the types of arguments: a
-    # mismatch between a C entry, its declared argtypes and the wrapper's
-    # call passes garbage to the kernel or crashes the process
+    # ctypes checks neither the count nor the types of arguments, so the
+    # C sources are the only declaration: every entry of every csrc/*.cu
+    # parses into argtypes, the stream last, and every `launch(...)` call
+    # site of the package names an existing entry with its argument count
     import ctypes
-    import re
 
     from huffman_tpu_torch.ops import cuda_build
 
-    ctype = {"ptr": ctypes.c_void_p, "long long": ctypes.c_longlong,
-             "int": ctypes.c_int}
-    for name in cuda_build.KERNEL_SOURCES:
+    table = cuda_build.signatures()
+    assert set(table) == set(cuda_build.KERNEL_SOURCES) \
+        == {p.stem for p in cuda_build.CSRC.glob("*.cu")}
+    known = {ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong}
+    for name, entries in table.items():
         src = (cuda_build.CSRC / f"{name}.cu").read_text()
-        entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
-        assert set(entries) == set(cuda_build._SIGNATURES[name]), name
-        for fn, params in entries.items():
-            types = []
-            for p in params.split(","):
-                p = " ".join(p.split()[:-1]).replace("const ", "")
-                types.append(ctype["ptr" if "*" in p else p])
-            assert types == cuda_build._SIGNATURES[name][fn], fn
+        assert entries and len(entries) == src.count('extern "C"'), name
+        for fn, types in entries.items():
+            assert set(types) <= known and types[-1] is ctypes.c_void_p, fn
+    # a parameter of a type the loader does not map raises, naming its entry
+    with pytest.raises(ValueError, match="odd_launch: parameter 'float x'"):
+        cuda_build.parse_entries(
+            'extern "C" int odd_launch(float x, void* stream) {')
 
-    # every module of the package that launches through `_lib`
     calls = {}
-    trees = [ast.parse(p.read_text()) for p in sorted(PKG.rglob("*.py"))]
-    launchers = [tree for tree in trees if any(
-        isinstance(n, ast.Call) and getattr(n.func, "id", None) == "_lib"
-        for n in ast.walk(tree))]
-    assert len(launchers) >= 4
-    for node in (n for tree in launchers for n in ast.walk(tree)):
-        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                and isinstance(node.func.value, ast.Call)
-                and getattr(node.func.value.func, "id", None) == "_lib"):
-            lib = node.func.value.args[0].value
-            # the lengths pass hands its four envelopes over as *env
-            calls[node.func.attr] = (lib, sum(
-                4 if isinstance(a, ast.Starred) else 1 for a in node.args))
-    assert {fn for _, fns in cuda_build._SIGNATURES.items() for fn in fns} \
-        == set(calls)
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id", None) == "launch"):
+                lib, entry = (a.value for a in node.args[:2])
+                # the lengths pass hands its four envelopes over as *env
+                calls[entry] = (lib, sum(
+                    4 if isinstance(a, ast.Starred) else 1
+                    for a in node.args[2:]))
+    assert {fn for fns in table.values() for fn in fns} == set(calls)
     for fn, (lib, n_args) in calls.items():
-        assert n_args == len(cuda_build._SIGNATURES[lib][fn]), fn
+        assert n_args == len(table[lib][fn]) - 1, fn  # the seam adds the stream
+
+
+def test_no_private_name_crosses_a_module():
+    # a module's underscore names are its own; and the arrows point one
+    # way: the kernel modules and the tables reach C through ops/launch.py,
+    # never through the ILS orchestration above them
+    crossing = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and (
+                    node.level or (node.module or "").startswith(PKG.name)):
+                crossing += [f"{path.relative_to(PKG)}: {a.name}"
+                             for a in node.names if a.name.startswith("_")
+                             and not a.name.startswith("__")]
+    assert crossing == []
+    ops = PKG / "ops"
+    for path in [*ops.glob("*_kernels.py"), ops / "tables.py"]:
+        imported = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level == 1:
+                imported |= ({node.module} if node.module
+                             else {a.name for a in node.names})
+        assert not imported & {"ils", "ils_kernels"}, path.name
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

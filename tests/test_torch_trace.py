@@ -6,7 +6,9 @@ tail (the fused tier, then the two-pass tier on the tail), 2 tiles of
 k=16, 2 HTC1 blocks of 4 KiB.
 """
 
+import ctypes
 import re
+import types
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 
 from huffman_tpu_torch import GapArrayCodec, IlsCodec
 from huffman_tpu_torch.io import read_ils_container, write_ils_container
+from huffman_tpu_torch.ops import cuda_build
 from huffman_tpu_torch.ops import (
     encode_map_kernels as em,
     gap_decode_kernels as gd,
@@ -23,6 +26,7 @@ from huffman_tpu_torch.ops import (
     ils_kernels as tk,
     selfsync_kernels as sk,
 )
+from huffman_tpu_torch.ops.launch import launch
 from huffman_tpu_torch.utils import generate_redundant, trace
 
 PORT = Path(__file__).resolve().parents[1] / "huffman_tpu_torch"
@@ -217,16 +221,31 @@ WRAPPERS = {
 }
 
 
+def count_launch(rc, stream):
+    """A stub C entry: returns the code it is given."""
+    return rc
+
+
 @pytest.mark.parametrize("mod", list(WRAPPERS), ids=lambda m: m.__name__)
-def test_launch_counts_keep_their_dict(mod):
+def test_launch_counts_keep_their_dict(mod, monkeypatch):
     names = WRAPPERS[mod]
     mod.reset_launch_counts()
     assert mod.launch_counts() == dict.fromkeys(names, 0)
     wrapper = getattr(mod, names[0])
-    tk._launched(wrapper, 0)
-    tk._launched(wrapper, 0)
+    # the seam's counts, through a stub library (no nvcc)
+    monkeypatch.setattr(cuda_build, "signatures", lambda: {
+        "count_stub": {"count_launch": [ctypes.c_int, ctypes.c_void_p]}})
+    monkeypatch.setattr(cuda_build, "load_kernels", lambda: {
+        "count_stub": types.SimpleNamespace(count_launch=count_launch)})
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device:
+                        types.SimpleNamespace(cuda_stream=0))
+    for rc in (0, 0):
+        launch("count_stub", "count_launch", rc, like=torch.empty(0),
+               counted=wrapper)
     with pytest.raises(RuntimeError):
-        tk._launched(wrapper, 2)  # a refused launch is not counted
+        # a refused launch is not counted
+        launch("count_stub", "count_launch", 2, like=torch.empty(0),
+               counted=wrapper)
     assert mod.launch_counts()[names[0]] == 2
     # a drain leaves them; only their module's reset clears them, and
     # only its own wrappers'

@@ -78,7 +78,7 @@ def build_old(csrc: Path):
                         str(csrc / "ils_encode.cu")],
                        check=True, capture_output=True)
         lib = ctypes.CDLL(str(out))  # stays mapped once the file is gone
-    current = cuda_build._SIGNATURES["ils_encode"]
+    current = cuda_build.signatures()["ils_encode"]
     chunked = {}
     for name, before in _BEFORE_CHUNKS.items():
         n = _n_params(src, name)
