@@ -12,12 +12,12 @@ failure raises and exits non-zero with the traceback):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, build time,
    and what ptxas reported for every kernel (registers, static shared
-   memory, stack and spill bytes), with the geometry of B4b, B4c, B1,
-   C2, B2 and A2 (`row_pack_tile`, `meta_tile`, `ranks_tile`,
+   memory, stack and spill bytes), with the geometry of B4b, B4c, B1 (both
+   forms), C2, B2 and A2 (`row_pack_tile`, `meta_tile`, `ranks_tile`,
    `sync_tile`, `place_tile`, `certify_chunks`), B4d's rows a warp,
    A1's length-and-symbol table, A5's grid, A4's (tile, chunk) grid at
    the shapes below, C1's count table and H1's counters, a line each for
-   those twelve.
+   those thirteen.
 2. Kernels A1-A5 against their plain PyTorch versions on the card, bit for
    bit, on: 4 tiles at k=4096 of generate_redundant(r=0.5) with rotation
    off and on (A2 in its chunks, `certify_chunks`); the zeros-then-uniform
@@ -57,8 +57,8 @@ failure raises and exits non-zero with the traceback):
    the file path's first attempt on this input (one tile at
    k = 4 * ceil(n / 4096), 262,148 by default; the plain version takes
    about a minute there and is timed by that one call).
-5. HTC1 kernels B1, B2, B4b-B4d against their plain versions, bit for
-   bit, on multi-block groups of generate_redundant(r=0.1, 0.5, 0.9), a
+5. HTC1 kernels B1 (its rank and its placing form), B2, B4b-B4d against
+   their plain versions, bit for bit, on multi-block groups of generate_redundant(r=0.1, 0.5, 0.9), a
    one-symbol input and the uniform 256-symbol input at seg_bits 128, 1024
    and 4096; the HTC1 container bytes of the kernel path equal the plain
    path's on those and on a ragged tail.
@@ -66,8 +66,9 @@ failure raises and exits non-zero with the traceback):
    (16 MiB blocks through the kernels as one device group, the tail
    through them as a group of its own, with its byte count),
    write_container, read_container, decode, bit-exact, with the gap
-   kernels' launch counters of that one run (B4b-B4d once a group, the
-   tail's included).  Then every gap kernel is held against its plain
+   kernels' launch counters of that one run (B4b-B4d and B1's placing
+   form once a group, the tail's included; B1's rank form and B2 never).
+   Then every gap kernel is held against its plain
    version on the groups that run gave it (the full blocks, the tail), at
    its shapes, and timed.
 7. The JAX package's HTC1 bench shape: one --gap-block byte block (default
@@ -276,6 +277,9 @@ KERNELS = {
                          "huffman_tpu/ops/pallas/decode_kernel.py:154"),
     "gap_place_bytes": ("huffman_tpu_torch/csrc/gap_decode.cu",
                         "huffman_tpu/ops/pallas/compact_kernel.py:78"),
+    # B1's placing form, B2 folded in: the codecs' decode path
+    "gap_decode_bytes": ("huffman_tpu_torch/csrc/gap_decode.cu",
+                         "huffman_tpu/ops/pallas/decode_kernel.py:154"),
     "gap_row_pack": ("huffman_tpu_torch/csrc/gap_encode.cu",
                      "huffman_tpu/ops/pallas/gap_encode_kernel.py:112"),
     "gap_row_meta": ("huffman_tpu_torch/csrc/gap_encode.cu",
@@ -291,8 +295,14 @@ KERNELS = {
     # H1: no TPU kernel; the JAX package's histogram is an XLA scatter-add
     "byte_counts": ("huffman_tpu_torch/csrc/byte_histogram.cu", "none"),
 }
-HTC1 = ("gap_decode_ranks", "gap_place_bytes", "gap_row_pack", "gap_row_meta",
-        "gap_place_bits")
+HTC1 = ("gap_decode_ranks", "gap_place_bytes", "gap_decode_bytes",
+        "gap_row_pack", "gap_row_meta", "gap_place_bits")
+# the HTC1 kernels that the codecs' paths launch; B1's rank form and B2 run
+# only where called directly (D3's form, the plain reference's parts), so
+# no fuzz case launches them
+HTC1_PATH = ("gap_decode_bytes", "gap_row_pack", "gap_row_meta",
+             "gap_place_bits")
+OFF_PATH = tuple(name for name in HTC1 if name not in HTC1_PATH)
 GAP_ENCODE = ("gap_row_pack", "gap_row_meta", "gap_place_bits")
 # TPU kernels whose work a kernel here does: relayouts folded into its
 # addressing (B3, B4a), and VMEM-bound variants of its function (D1, the
@@ -301,6 +311,8 @@ FOLDED = {
     "ils_pack_certify": ["huffman_tpu/ops/pallas/ils_kernels.py:878"],
     "gap_decode_ranks": ["huffman_tpu/ops/pallas/compact_kernel.py:410"],
     "gap_place_bytes": ["huffman_tpu/ops/pallas/compact_kernel.py:249"],
+    "gap_decode_bytes": ["huffman_tpu/ops/pallas/compact_kernel.py:78",
+                         "huffman_tpu/ops/pallas/compact_kernel.py:410"],
     "gap_row_pack": ["huffman_tpu/ops/pallas/gap_encode_kernel.py:201",
                      "huffman_tpu/ops/pallas/compact_kernel.py:410"],
 }
@@ -321,6 +333,7 @@ SYMBOLS = {
     "ils_pack": A5_KERNELS,
     "gap_decode_ranks": ("gap_decode_ranks_kernel",),
     "gap_place_bytes": ("gap_place_bytes_kernel",),
+    "gap_decode_bytes": ("gap_decode_bytes_kernel",),
     "gap_row_pack": ("gap_row_pack_kernel",),
     "gap_row_meta": ("gap_row_meta_kernel",),
     "gap_place_bits": ("gap_place_bits_kernel",),
@@ -845,9 +858,10 @@ def gap_decode_cases(stats, gd, codec, plan, pay_bits, expect, label,
     """The HTC1 decode kernels and their plain versions on one group on
     the card, at the shapes of `plan` = (words, gaps, counts, max_count),
     the inputs `decode` (`GapArrayCodec.decode_plan`) or `decode_device`
-    (`decode_device_plan`) hand them; `expect` is the (G, out_size) input
-    and `pay_bits` the group's payload bits (for the bound)."""
-    words, gaps, counts, mc = plan
+    (`decode_device_plan`) hand them, with whether the counts are in
+    range; `expect` is the (G, out_size) input and `pay_bits` the group's
+    payload bits (for the bound)."""
+    words, gaps, counts, mc, in_range = plan
     g, out_size = expect.shape
     n = g * out_size
     lim, bias = gd.kernel_tabs(codec.dec)
@@ -865,6 +879,9 @@ def gap_decode_cases(stats, gd, codec, plan, pay_bits, expect, label,
                 gd.gap_place_bytes_plain(ranks, flat, offs, sym, n_out=n), label)
     if not torch.equal(out.view(g, out_size), expect):
         raise AssertionError(f"HTC1 decode of {label} is not the input")
+    placed = gd.gap_decode_bytes(words, gaps, counts, offs, lim, bias, sym,
+                                 n_out=n, counts_in_range=in_range, **dk)
+    stats.check("gap_decode_bytes", placed, out, label)
     if timing is None:
         return
     levels = codec.spec.max_len - codec.spec.min_len
@@ -879,6 +896,14 @@ def gap_decode_cases(stats, gd, codec, plan, pay_bits, expect, label,
         lambda: gd.gap_place_bytes(ranks, flat, offs, sym, n_out=n),
         lambda: gd.gap_place_bytes_plain(ranks, flat, offs, sym, n_out=n), 10,
         bytes=2 * n + flat.numel() * 12, ops=2 * n, shape=[n])
+    timing["gap_decode_bytes"] = timed(
+        "gap_decode_bytes",
+        lambda: gd.gap_decode_bytes(words, gaps, counts, offs, lim, bias, sym,
+                                    n_out=n, counts_in_range=in_range, **dk),
+        lambda: gd.gap_decode_bytes_plain(words, gaps, counts, offs, lim,
+                                          bias, sym, n_out=n, **dk),
+        10, bytes=pay_bits // 8 + gaps.numel() * 16 + n,
+        ops=(2 * levels + 8) * n, shape=[n])
 
 
 def gap_container_parity(GapArrayCodec, write, read, data, block_bytes,
@@ -1351,10 +1376,9 @@ PATH_KERNELS = {
                    "ils_pack"),
     "decode ils": ("ils_decode",),
     "encode htc1": ("gap_row_pack", "gap_row_meta", "gap_place_bits"),
-    "decode htc1": ("gap_decode_ranks", "gap_place_bytes"),
-    "decode yamamoto": ("count_segments", "gap_decode_ranks",
-                        "gap_place_bytes"),
-    "decode seq": ("sync_transitions", "gap_decode_ranks", "gap_place_bytes"),
+    "decode htc1": ("gap_decode_bytes",),
+    "decode yamamoto": ("count_segments", "gap_decode_bytes"),
+    "decode seq": ("sync_transitions", "gap_decode_bytes"),
     "encode --stream": ("ils_lengths_pass",),
     "decode --stream": ("ils_decode",),
     "roundtrip": ("ils_pack_certify", "ils_compact", "ils_lengths_pass",
@@ -1901,7 +1925,8 @@ def fuzz_phase(seed, iters, card):
     case holds its kernels to the data, to their plain versions (card ==
     CPU container bytes) and to the NumPy oracles; a divergence raises the
     tool's reproducer line.  The launch counts are set to 0 first; each
-    wrapper of KERNELS must launch in at least FUZZ_MIN_CASES cases."""
+    wrapper of KERNELS but OFF_PATH's must launch in at least
+    FUZZ_MIN_CASES cases."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
@@ -1924,7 +1949,7 @@ def fuzz_phase(seed, iters, card):
     log(f"  phase 15c took {r['seconds']:.1f} s: {iters} cases, seed {seed}, "
         f"legs {r['legs']} ({card})")
     short = [name for name, k in per_kernel.items()
-             if k["cases"] < FUZZ_MIN_CASES]
+             if k["cases"] < FUZZ_MIN_CASES and name not in OFF_PATH]
     if short:
         raise AssertionError(f"phase 15c: kernels launched in fewer than "
                              f"{FUZZ_MIN_CASES} cases: {short} {per_kernel}")
@@ -2195,6 +2220,9 @@ def main(argv=None) -> int:
          + "; the 1 KB length table static"),
         ("ils_decode", f"length-and-symbol table on {tk.ILS_LUT_BITS} bits: "
          f"{2 << tk.ILS_LUT_BITS} B of the static shared memory"),
+        ("gap_decode_bytes", "B1's tile, ranks_tile(max_count, seg_bits), "
+         "each row's chunk at the output's phase mod 4, and symtab's 256 B "
+         "of static shared memory"),
         ("gap_place_bytes", "dynamic buffer place_tile(max_count) (rows, "
          "column chunk, bytes): " + ", ".join(
              f"{m} {gd.place_tile(m)}"
@@ -2469,19 +2497,24 @@ def main(argv=None) -> int:
     log(f"  launches in that run: {gap_launches}")
     if not gok:
         raise AssertionError("HTC1 end-to-end round trip is not bit-exact")
-    missing = [name for name, c in gap_launches.items() if c == 0]
+    missing = [name for name in HTC1_PATH if gap_launches[name] == 0]
     if missing:
         raise AssertionError(f"HTC1 kernels not launched on its path: {missing}")
-    # B4b-B4d once a device group, the ragged tail's group included (no
-    # block takes another route)
+    off_path = {name: gap_launches[name] for name in OFF_PATH}
+    if any(off_path.values()):
+        raise AssertionError(f"HTC1 path launched B1's rank form or B2: "
+                             f"{off_path}")
+    # B4b-B4d and B1's placing form once a device group, the ragged tail's
+    # group included (no block takes another route)
     bb = gcodec.block_bytes
     n_groups = len(gcodec._groups(n // bb, bb)) + (n % bb > 0)
-    enc_launches = {name: gap_launches[name] for name in GAP_ENCODE}
-    if any(c != n_groups for c in enc_launches.values()):
-        raise AssertionError(f"HTC1 encode kernels launched {enc_launches} "
+    group_launches = {name: gap_launches[name]
+                      for name in (*GAP_ENCODE, "gap_decode_bytes")}
+    if any(c != n_groups for c in group_launches.values()):
+        raise AssertionError(f"HTC1 kernels launched {group_launches} "
                              f"for {n_groups} groups, the tail included")
-    log(f"  B4b-B4d launched once for each of the {n_groups} groups, the "
-        f"{n % bb}-byte tail included")
+    log(f"  B4b-B4d and B1 (placing) launched once for each of the "
+        f"{n_groups} groups, the {n % bb}-byte tail included")
     launches.update(gap_launches)
     del gout, gcomp
 
@@ -2526,10 +2559,10 @@ def main(argv=None) -> int:
         f"run: {bench_launches}")
     if not bok:
         raise AssertionError("HTC1 device-resident round trip is not bit-exact")
-    missing = [name for name, c in bench_launches.items() if c == 0]
-    if missing:
+    missing = [name for name in HTC1_PATH if bench_launches[name] == 0]
+    if missing or any(bench_launches[name] for name in OFF_PATH):
         raise AssertionError(f"HTC1 kernels not launched on the device-resident "
-                             f"path: {missing}")
+                             f"path as it should: {bench_launches}")
     genc_ms = [cuda_ms(lambda: bcodec.encode_device(blocks), 1)
                for _ in range(3)]
     gdec_ms = [cuda_ms(lambda: bcodec.decode_device(dcomp), 1)
@@ -2603,7 +2636,7 @@ def main(argv=None) -> int:
     yblob, ywords, ytb = yamamoto_via_device(GapArrayCodec, yamamoto_bytes,
                                              ytable, ydata)
     t_write = time.perf_counter() - t0
-    y_names = ("count_segments", "gap_decode_ranks", "gap_place_bytes")
+    y_names = ("count_segments", "gap_decode_bytes")
 
     def yam_counts():
         return {name: gd.launch_counts()[name] for name in y_names}
@@ -2646,13 +2679,13 @@ def main(argv=None) -> int:
     gap_decode_cases(
         stats, gd, SimpleNamespace(dec=ydec, spec=yspec, seg_bits=128),
         (yw.view(1, -1), yg.view(1, -1), counts.view(1, -1),
-         -(-int(counts.max()) // 8) * 8),
+         -(-int(counts.max()) // 8) * 8, True),
         ytb, ydata.view(1, -1), label, yam_timing)
     del yw, yg, counts
 
     # ---- 10. self-sync end to end on the same stream
     log(f"phase 10: self-sync end to end, the same {ytb}-bit stream")
-    s_names = ("sync_transitions", "gap_decode_ranks", "gap_place_bytes")
+    s_names = ("sync_transitions", "gap_decode_bytes")
 
     def ss_counts():
         return {**sk.launch_counts(), **{name: gd.launch_counts()[name]
@@ -2694,7 +2727,7 @@ def main(argv=None) -> int:
     gap_decode_cases(
         stats, gd, SimpleNamespace(dec=sdec, spec=sspec, seg_bits=1024),
         (ywords.view(1, -1), entry.to(torch.int32).view(1, -1),
-         counts.view(1, -1), -(-int(counts.max()) // 8) * 8),
+         counts.view(1, -1), -(-int(counts.max()) // 8) * 8, True),
         ytb, ydata.view(1, -1), label, ss_timing)
     # C2 on 256 8-bit codes: entries at offsets that differ mod 8 never
     # meet, so stopping walks where they meet saves nothing there

@@ -54,6 +54,28 @@
 // across chunks.  (Stored from each thread at its row's stride, every warp
 // store of a rank would touch 32 sectors.)
 //
+// gap_decode_bytes_kernel is the same walk in its placing form, B1 and B2
+// in one pass, the decode path's kernel: each symbol goes through symtab
+// (256 bytes of static shared memory) and row s's i-th to out[off[s] + i]
+// for i < count[s], off the exclusive prefix sum of the counts, so no rank
+// matrix exists.  A thread writes its chunk into its tile row at the
+// output's phase mod 4 (the chunk is a multiple of 8, so the phase is the
+// row's offset's throughout), and after the barrier each warp stores the
+// words of its 32 rows that lie wholly inside their rows' bytes:
+// consecutive lanes on consecutive words of a row's run, aligned 4-byte
+// stores (`place_words`).  The last partial word of a row that goes on is
+// carried into the next chunk's word 0, so that only a row's first and last
+// words, which it shares with the rows before and after it, go byte by
+// byte.  Every store stays inside [0, n_out).  Where the caller has shown
+// every count in [0, max_count] (`zero_tail`), the offsets tile [0, total)
+// exactly and the kernel zeroes [total, n_out) itself, so the output needs
+// no zero fill; otherwise the caller zero-fills it first.  On an H100 at the
+// HTC1 cell's shape it takes 3.46 ms against the rank form's 3.06: 0.16 of
+// it symtab's lookups, the rest the stores (with a byte store at both ends
+// of every row's chunk 4.34; with 64-bit addresses 3.52).  (A whole row's
+// bytes in the tile would store one contiguous run a block, but at seg_bits
+// 1024 it leaves 6 blocks an SM, which measured 1.10x slower.)
+//
 // gap_place_bytes_kernel replaces compact_kernel.py:_kernel (wrapper
 // ragged_concat_pallas): out[off[s] + i] = symtab[rank[s, i]] for
 // i < count[s], with off the exclusive prefix sum of the counts.  The
@@ -108,10 +130,11 @@
 // table.
 //
 // Bounds on this card.  B1 reads the payload once and writes the rank
-// matrix (~1 byte per symbol); with its loads staged and its stores tiled,
-// its time is the instructions of each segment's serial bit chain (length
-// compare -> shift -> next window), ~100-200 symbols at seg_bits=1024, with
-// one thread per segment.
+// matrix (~1 byte per symbol; its placing form the output, 1 byte a
+// symbol); with its loads staged and its stores tiled, its time is the
+// instructions of each segment's serial bit chain (length compare -> shift
+// -> next window), ~100-200 symbols at seg_bits=1024, with one thread per
+// segment.
 // B2 is bytes-bound: rank matrix in, output out (it reads the matrix's
 // rows whole, padding past the counts included, except the last row of a
 // run).  C1 reads the payload once and writes one int per segment; at
@@ -260,17 +283,116 @@ __device__ __forceinline__ void stage_warp_rows(uint32_t* rows,
   __syncwarp();
 }
 
-// Up to RANK_MAX_REGS registers: held by __launch_bounds__ to 32, ptxas
-// recomputed the walk's loop invariants at every codeword (on an H100 at
-// the HTC1 cell's shape 3.48 ms against 3.05 with 64 allowed, 46 used; the
-// group, Yamamoto and self-sync shapes 12-16% faster too), and 8 blocks of
-// 128 still fit an SM.
-__global__ void __maxnreg__(RANK_MAX_REGS) gap_decode_ranks_kernel(
+// Store bytes [b0, b1) of the tile word v to out[d + b0, d + b1) (b1 <=
+// 4), where kChecked each inside [0, n_out).
+template <bool kChecked, typename T>
+__device__ __forceinline__ void store_word_bytes(uint8_t* out, T d, uint32_t v,
+                                                 int b0, int b1,
+                                                 long long n_out) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (b >= b0 && b < b1 && (!kChecked || (d + b >= 0 && d + b < n_out)))
+      out[d + b] = (uint8_t)(v >> (8 * b));
+}
+
+// The whole words of the calling warp's 32 rows of the tile (pw words a
+// row, one after another from `rows`): each lane's `packed` is its row's
+// A * 256 + w1 * 4 + w0 * 2 + inside, and the row's words [w0, w1) go to
+// base + A + 4 j, as aligned 4-byte stores where inside, else byte by
+// byte inside [0, n_out) (base is then the output).  Item x of the warp's
+// rows of `span` words (the most any row stores) is word x % span of row
+// x / span, and lane l takes items l, l + 32, ..., so consecutive lanes
+// read consecutive words and store consecutive words of a row's run.
+template <typename T>
+__device__ __forceinline__ void place_words(const uint32_t* rows, int pw,
+                                            uint8_t* base, T packed,
+                                            long long n_out) {
+  const int lane = threadIdx.x & 31;
+  const int span = __reduce_max_sync(0xffffffffu, (int)(packed >> 2) & 31);
+  if (span == 0) return;
+  int r = lane / span, j = lane - r * span;
+  const int dr = 32 / span, dj = 32 - dr * span;
+  for (int k = 0; k < span; ++k) {
+    const T p = __shfl_sync(0xffffffffu, packed, r);
+    if (j >= (int)((p >> 1) & 1) && j < (int)((p >> 2) & 31)) {
+      const uint32_t v = rows[r * pw + j];
+      const T d = (p >> 8) + 4 * j;
+      if (p & 1) {
+        *reinterpret_cast<uint32_t*>(base + d) = v;
+      } else {
+        store_word_bytes<true>(base, d, v, 0, 4, n_out);
+      }
+    }
+    r += dr;
+    j += dj;
+    if (j >= span) {
+      j -= span;
+      ++r;
+    }
+  }
+}
+
+// Place the calling warp's 32 rows of a chunk (gap_decode_bytes_kernel).
+// Each lane passes its own row of the tile (`row`, pw words a row, the
+// warp's rows one after another from `rows`): its bytes [v0, e) go to
+// out[a + v0, a + e), a, the output byte of the row's byte 0, a multiple
+// of 4.  The words wholly inside [v0, e) are stored whole (`place_words`);
+// a row's first word where v0 % 4 != 0 (its head, which the row before
+// shares) and, where `ends`, its last where e % 4 != 0 (its tail, which
+// the row after shares) go byte by byte, each lane its own row's.  A last
+// partial word of a row that goes on is not stored: the caller carries it
+// into the next chunk's first word.  Where every row's run lies inside the
+// output within 2^22 bytes of lane 0's row (always where the offsets are
+// the prefix sum of counts in range) the addresses are 32-bit and
+// unchecked.  All 32 lanes call it.
+__device__ __forceinline__ void place_warp_rows(const uint32_t* rows,
+                                                const uint32_t* row, int pw,
+                                                uint8_t* out, long long a,
+                                                int v0, int e, bool ends,
+                                                long long n_out) {
+  // the words [w0, w1) stored whole; none where the run misses the output
+  const bool miss = e <= v0 || a + e <= 0 || a + v0 >= n_out;
+  const bool inside = a + v0 >= 0 && a + e <= n_out;
+  const int w0 = (v0 + 3) >> 2, w1 = miss ? w0 : e >> 2;
+  const int words = (w1 << 2) + (w0 << 1);
+  const long long a0 = __shfl_sync(0xffffffffu, a, 0);
+  const bool head = v0 & 3 && e > v0;
+  // the tail, where not in the head's word
+  const bool tail = ends && e & 3 && e > 4 * w0;
+  const int t0 = e & ~3;
+  if (__all_sync(0xffffffffu, e <= v0 || (inside && a - a0 > -(1 << 22) &&
+                                           a - a0 < (1 << 22)))) {
+    const int rel = (int)(a - a0);
+    uint8_t* base = out + a0;
+    place_words<int>(rows, pw, base, (e <= v0 ? 0 : rel) * 256 + words + 1,
+                     n_out);
+    if (head) store_word_bytes<false>(base, rel, row[0], v0, min(e, 4), n_out);
+    if (tail)
+      store_word_bytes<false>(base, rel + t0, row[t0 >> 2], 0, e & 3, n_out);
+  } else {
+    place_words<long long>(rows, pw, out,
+                           (miss ? 0 : a) * 256 + words + (inside ? 1 : 0),
+                           n_out);
+    if (head) store_word_bytes<true>(out, a, row[0], v0, min(e, 4), n_out);
+    if (tail)
+      store_word_bytes<true>(out, a + t0, row[t0 >> 2], 0, e & 3, n_out);
+  }
+}
+
+// B1's walk over a block's R segments, in its two forms: kPlace false
+// writes ranks into the rows [t0, t0 + R) of the rank matrix `dst`, kPlace
+// true writes symtab[rank] to dst[off[s] + i] (gap_decode_bytes_kernel,
+// which passes its shared s_sym) and, where zero_tail, zeroes dst[total,
+// n_out).
+template <bool kPlace>
+__device__ __forceinline__ void decode_rows(
     const uint32_t* __restrict__ words, const int* __restrict__ gaps,
     const int* __restrict__ counts, const uint32_t* __restrict__ lim,
-    const int* __restrict__ bias, uint8_t* __restrict__ ranks,
+    const int* __restrict__ bias, const long long* __restrict__ offsets,
+    const int* __restrict__ symtab, uint8_t* s_sym, uint8_t* __restrict__ dst,
     long long n_segs_all, int n_segs, long long n_words, int seg_bits,
-    int max_count, int min_len, int max_len, int chunk, int pitch) {
+    int max_count, int min_len, int max_len, int chunk, int pitch,
+    long long n_out, int zero_tail) {
   // dynamic: the staged rows, R x pitch words (none where pitch is 0),
   // then the rank tile
   extern __shared__ uint4 smem[];
@@ -280,13 +402,17 @@ __global__ void __maxnreg__(RANK_MAX_REGS) gap_decode_ranks_kernel(
     s_lim[threadIdx.x] = lim[threadIdx.x];
     s_bias[threadIdx.x] = bias[threadIdx.x];
   }
+  if constexpr (kPlace) {
+    for (int j = threadIdx.x; j < 256; j += blockDim.x)
+      s_sym[j] = (uint8_t)symtab[j];
+  }
 
   // the block's segments [t0, t0 + nv): every thread reaches every barrier,
   // those past the last segment decode nothing
   const long long t0 = (long long)blockIdx.x * blockDim.x;
   const long long t = t0 + threadIdx.x;
   const int nv = (int)min((long long)blockDim.x, n_segs_all - t0);
-  long long g = 0, pos = 0, base = 0;
+  long long g = 0, pos = 0, base = 0, off = 0;
   int n = 0;
   if (threadIdx.x < nv) {
     g = t / n_segs;
@@ -294,6 +420,7 @@ __global__ void __maxnreg__(RANK_MAX_REGS) gap_decode_ranks_kernel(
     pos = s0 + gaps[t];
     base = s0 >> 5;
     n = min(max(counts[t], 0), max_count);
+    if constexpr (kPlace) off = offsets[t];
   }
   // the words of this block; zero outside it
   const uint32_t* wb = words + g * n_words;
@@ -308,12 +435,14 @@ __global__ void __maxnreg__(RANK_MAX_REGS) gap_decode_ranks_kernel(
   }
   StagedWindow sw(wb, n_words, stage + threadIdx.x * pitch, base, pitch);
   if (n > 0) sw.seek(pos);
-  __syncthreads();  // s_lim, s_bias
+  __syncthreads();  // s_lim, s_bias, s_sym
 
   const int rpitch = chunk + RANK_PAD;
   uint8_t* tile = reinterpret_cast<uint8_t*>(stage + blockDim.x * pitch);
-  uint8_t* row = tile + threadIdx.x * rpitch;
-  uint8_t* dst = ranks + t0 * max_count;
+  // the placing form writes its bytes at the output's phase mod 4
+  const int ph = (int)(off & 3);
+  uint32_t* roww = reinterpret_cast<uint32_t*>(tile + threadIdx.x * rpitch);
+  uint8_t* row = tile + threadIdx.x * rpitch + ph;
   for (int lo = 0; lo < max_count; lo += chunk) {
     const int width = min(chunk, max_count - lo);
     const int m = min(max(n - lo, 0), width);  // codewords in this chunk
@@ -321,18 +450,79 @@ __global__ void __maxnreg__(RANK_MAX_REGS) gap_decode_ranks_kernel(
       const uint32_t win = sw.peek();
       const int ln = canon_len(win, s_lim, min_len, max_len);
       // ln is in [1, 16], so the shift is in range
-      row[i] = (uint8_t)(s_bias[ln] + (int)(win >> (32 - ln)));
+      const uint8_t rank = (uint8_t)(s_bias[ln] + (int)(win >> (32 - ln)));
+      if constexpr (kPlace) {
+        row[i] = s_sym[rank];
+      } else {
+        row[i] = rank;
+      }
       sw.skip(ln);
     }
-    for (int i = m; i < width; ++i) row[i] = 0;
-    __syncthreads();
-    if (max_count % 4 == 0) {
-      store_rows<uint32_t>(tile, rpitch, dst + lo, max_count, nv, width);
-    } else {
-      store_rows<uint8_t>(tile, rpitch, dst + lo, max_count, nv, width);
+    if constexpr (!kPlace) {
+      for (int i = m; i < width; ++i) row[i] = 0;
     }
     __syncthreads();
+    if constexpr (kPlace) {
+      // the row's bytes in the tile: from its phase in the first chunk,
+      // from 0 in a later one, where word 0 holds the bytes carried over
+      place_warp_rows(roww - (threadIdx.x & 31) * (rpitch / 4), roww,
+                      rpitch / 4, dst, off + lo - ph, lo ? 0 : ph, ph + m,
+                      m > 0 && lo + m == n, n_out);
+    } else if (max_count % 4 == 0) {
+      store_rows<uint32_t>(tile, rpitch, dst + t0 * max_count + lo, max_count,
+                           nv, width);
+    } else {
+      store_rows<uint8_t>(tile, rpitch, dst + t0 * max_count + lo, max_count,
+                          nv, width);
+    }
+    __syncthreads();
+    if constexpr (kPlace) {
+      // a row that goes on carries its last partial word into word 0
+      if (lo + width < n && (ph + width) & 3) roww[0] = roww[(ph + width) >> 2];
+    }
   }
+  if constexpr (kPlace) {
+    if (zero_tail) {  // uniform
+      // the counts are in [0, max_count]: the rows end at the last offset
+      // plus the last count, and the grid zeroes the rest
+      const long long last = n_segs_all - 1;
+      const long long stride = (long long)gridDim.x * blockDim.x;
+      const long long total =
+          offsets[last] + min(max(counts[last], 0), max_count);
+      for (long long x = max(total, 0LL) + t; x < n_out; x += stride)
+        dst[x] = 0;
+    }
+  }
+}
+
+// Up to RANK_MAX_REGS registers: held by __launch_bounds__ to 32, ptxas
+// recomputed the walk's loop invariants at every codeword (on an H100 at
+// the HTC1 cell's shape 3.48 ms against 3.05 with 64 allowed, 46 used; the
+// group, Yamamoto and self-sync shapes 12-16% faster too), and 8 blocks of
+// 128 still fit an SM.
+__global__ void __maxnreg__(RANK_MAX_REGS) gap_decode_ranks_kernel(
+    const uint32_t* __restrict__ words, const int* __restrict__ gaps,
+    const int* __restrict__ counts, const uint32_t* __restrict__ lim,
+    const int* __restrict__ bias, uint8_t* __restrict__ ranks,
+    long long n_segs_all, int n_segs, long long n_words, int seg_bits,
+    int max_count, int min_len, int max_len, int chunk, int pitch) {
+  decode_rows<false>(words, gaps, counts, lim, bias, nullptr, nullptr,
+                     nullptr, ranks, n_segs_all, n_segs, n_words, seg_bits,
+                     max_count, min_len, max_len, chunk, pitch, 0, 0);
+}
+
+__global__ void __maxnreg__(RANK_MAX_REGS) gap_decode_bytes_kernel(
+    const uint32_t* __restrict__ words, const int* __restrict__ gaps,
+    const int* __restrict__ counts, const uint32_t* __restrict__ lim,
+    const int* __restrict__ bias, const long long* __restrict__ offsets,
+    const int* __restrict__ symtab, uint8_t* __restrict__ out,
+    long long n_segs_all, int n_segs, long long n_words, int seg_bits,
+    int max_count, int min_len, int max_len, int chunk, int pitch,
+    long long n_out, int zero_tail) {
+  __shared__ uint8_t s_sym[256];
+  decode_rows<true>(words, gaps, counts, lim, bias, offsets, symtab, s_sym,
+                    out, n_segs_all, n_segs, n_words, seg_bits, max_count,
+                    min_len, max_len, chunk, pitch, n_out, zero_tail);
 }
 
 // Exclusive prefix sum of v over the PLACE_THREADS threads of the block
@@ -641,6 +831,29 @@ extern "C" int gap_count_segments_launch(const void* words, const void* gaps,
   return (int)cudaGetLastError();
 }
 
+// B1's geometry, in both forms: the wrapper's `ranks_tile` computes the
+// same
+static bool ranks_tile_ok(int rows_per_block, int chunk, int pitch,
+                          int smem_bytes, int seg_bits) {
+  return rows_per_block >= 32 && rows_per_block <= RANK_MAX_ROWS &&
+         rows_per_block % 32 == 0 && chunk >= 8 && chunk % 8 == 0 &&
+         chunk <= rows_per_block && seg_bits >= 1 &&
+         (pitch == 0 || pitch == (stage_words(seg_bits) | 1)) &&
+         smem_bytes <= RANK_MAX_SMEM &&
+         smem_bytes == rows_per_block * (chunk + RANK_PAD + 4 * pitch);
+}
+
+// Let `kernel` take smem_bytes of dynamic shared memory; a refusal is
+// returned, and cleared so that it does not surface at a later launch's
+// check
+template <typename K>
+static cudaError_t allow_smem(K kernel, int smem_bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 extern "C" int gap_decode_ranks_launch(const void* words, const void* gaps,
                                        const void* counts, const void* lim,
                                        const void* bias, void* ranks,
@@ -650,29 +863,38 @@ extern "C" int gap_decode_ranks_launch(const void* words, const void* gaps,
                                        int max_len, int rows_per_block,
                                        int chunk, int pitch, int smem_bytes,
                                        void* stream) {
-  // the wrapper's `ranks_tile` computes the same geometry
-  if (rows_per_block < 32 || rows_per_block > RANK_MAX_ROWS ||
-      rows_per_block % 32 || chunk < 8 || chunk % 8 ||
-      chunk > rows_per_block || seg_bits < 1 ||
-      (pitch != 0 && pitch != (stage_words(seg_bits) | 1)) ||
-      smem_bytes > RANK_MAX_SMEM ||
-      smem_bytes != rows_per_block * (chunk + RANK_PAD + 4 * pitch))
+  if (!ranks_tile_ok(rows_per_block, chunk, pitch, smem_bytes, seg_bits))
     return (int)cudaErrorInvalidValue;
-  // a refusal is returned, and cleared so that it does not surface at a
-  // later launch's check
-  cudaError_t err = cudaFuncSetAttribute(
-      gap_decode_ranks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
+  const cudaError_t err = allow_smem(gap_decode_ranks_kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   const long long blocks = (n_segs_all + rows_per_block - 1) / rows_per_block;
   gap_decode_ranks_kernel<<<(unsigned)blocks, rows_per_block, smem_bytes,
                             (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const int*)gaps, (const int*)counts,
       (const uint32_t*)lim, (const int*)bias, (uint8_t*)ranks, n_segs_all,
       n_segs, n_words, seg_bits, max_count, min_len, max_len, chunk, pitch);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gap_decode_bytes_launch(
+    const void* words, const void* gaps, const void* counts,
+    const void* offsets, const void* lim, const void* bias, const void* symtab,
+    void* out, long long n_segs_all, int n_segs, long long n_words,
+    int seg_bits, int max_count, int min_len, int max_len, long long n_out,
+    int zero_tail, int rows_per_block, int chunk, int pitch, int smem_bytes,
+    void* stream) {
+  if (!ranks_tile_ok(rows_per_block, chunk, pitch, smem_bytes, seg_bits) ||
+      max_count < 1 || n_segs_all < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(gap_decode_bytes_kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_segs_all + rows_per_block - 1) / rows_per_block;
+  gap_decode_bytes_kernel<<<(unsigned)blocks, rows_per_block, smem_bytes,
+                            (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (const int*)gaps, (const int*)counts,
+      (const uint32_t*)lim, (const int*)bias, (const long long*)offsets,
+      (const int*)symtab, (uint8_t*)out, n_segs_all, n_segs, n_words,
+      seg_bits, max_count, min_len, max_len, chunk, pitch, n_out, zero_tail);
   return (int)cudaGetLastError();
 }
 
@@ -691,15 +913,8 @@ extern "C" int gap_place_bytes_launch(const void* ranks, const void* counts,
       smem_bytes != place_buf_bytes(rows_per_block, chunk) +
                         8 * (rows_per_block + 1))
     return (int)cudaErrorInvalidValue;
-  // a refusal is returned, and cleared so that it does not surface at a
-  // later launch's check
-  cudaError_t err = cudaFuncSetAttribute(
-      gap_place_bytes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
+  const cudaError_t err = allow_smem(gap_place_bytes_kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   const long long blocks = (n_segs_all + rows_per_block - 1) / rows_per_block;
   gap_place_bytes_kernel<<<(unsigned)blocks, PLACE_THREADS, smem_bytes,
                            (cudaStream_t)stream>>>(

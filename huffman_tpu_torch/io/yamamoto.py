@@ -18,9 +18,10 @@ Decode runs on the device in two passes: the count kernel C1
 (`ops/gap_decode_kernels.py::count_segments`) counts each 128-bit
 segment's codewords against the word-count bound, one host sync reads the
 sum and the last count, the last segment sheds the padding's surplus
-(the JAX package's CPU check, ROADMAP trap F7), and B1 + B2 decode.  The
-JAX package's TPU path merges segments 8/4/2/1-wide and plans VMEM
-windows; none of that changes a byte, and none of it is carried over.
+(the JAX package's CPU check, ROADMAP trap F7), and B1 decodes and
+places the bytes.  The JAX package's TPU path merges segments
+8/4/2/1-wide and plans VMEM windows; none of that changes a byte, and
+none of it is carried over.
 ``method="lut"`` or ``"canonical"`` runs the step decoders of
 `ops/decode.py` for both passes instead; ``"twolevel"`` raises, as in the
 JAX package, whose decode table here lacks the two-level form.
@@ -204,10 +205,11 @@ def decode_yamamoto_device(words: torch.Tensor, gaps: torch.Tensor,
     if excess < 0 or excess > last:
         raise ValueError("corrupt container: symbol count mismatch")
     counts[-1] -= excess
+    # C1's counts are not negative, nor the last once its surplus is off
     return decode_blocks(
         words.view(1, -1), gaps.view(1, -1), counts.view(1, -1), dec,
         spec=spec, seg_bits=_SEGMENT_BITS, max_count=-(-max(top, 1) // 8) * 8,
-        out_size=original_size,
+        out_size=original_size, counts_in_range=True,
     ).view(-1)
 
 
@@ -216,7 +218,7 @@ def decode_yamamoto(buf: bytes, method: str | None = None, *,
     """Decode a reference-format container on `device` (CUDA unless the
     caller asks for the CPU); returns the bytes as a uint8 tensor there.
 
-    ``method``: None or "pallas" runs C1 + B1 + B2
+    ``method``: None or "pallas" runs C1 + B1 (placing its bytes)
     (`decode_yamamoto_device`); "lut" or "canonical" the step decoders'
     counting pass, the same surplus check, and their decode."""
     dev = resolve_device(device)

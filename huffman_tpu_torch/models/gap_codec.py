@@ -8,8 +8,8 @@ one pass.  Encode runs the kernels of `ops/gap_encode_kernels.py` for
 blocks of any size, the ragged tail included (the JAX package sends
 blocks that are not a multiple of 128 bytes through XLA's `encode_block`;
 the bytes are the same).  Decode runs, by the
-codec's ``method``, the kernels of `ops/gap_decode_kernels.py` for every
-table (None or "pallas") or a step decoder of `ops/decode.py` ("lut",
+codec's ``method``, the kernel of `ops/gap_decode_kernels.py` for every
+table (None or "pallas": B1 placing its bytes, `decode_blocks`) or a step decoder of `ops/decode.py` ("lut",
 "canonical", "twolevel").  Both run on the codec's device, CUDA by
 default.
 """
@@ -108,7 +108,7 @@ class GapArrayCodec:
 
     ``method`` picks the decoder.  None and "pallas" (the JAX package's name
     for its accelerator path, kept so that an argument means the same in
-    both packages) run the CUDA kernels B1 + B2; "lut", "canonical" and
+    both packages) run the CUDA kernel B1 in its placing form; "lut", "canonical" and
     "twolevel" run that step decoder of `ops/decode.py`, in `decode` and
     `decode_device` alike (the JAX package's `decode_device` takes its
     Pallas path first whatever the method; the bytes are the same).  Any
@@ -176,34 +176,40 @@ class GapArrayCodec:
 
     @staticmethod
     def decode_device_plan(dcomp: DeviceCompressed):
-        """(words, gaps, counts, max_count) that `decode_device` hands the
-        kernels.
+        """(words, gaps, counts, max_count, counts_in_range) that
+        `decode_device` hands the kernels.
 
         The all-empty segment tail is trimmed (encode_device sizes the
         payload by the deepest code) to a multiple of 4096 segments, as the
-        JAX package does.  Two scalars cross to the host: the last segment
-        any block uses and the largest count."""
+        JAX package does.  Three scalars cross to the host in one copy: the
+        last segment any block uses, the largest count and the smallest;
+        max_count covers the largest, so the counts are in [0, max_count]
+        where the smallest is not negative."""
         with trace.span("gap.plan"):
             counts, gaps = dcomp.counts, dcomp.gaps
             n_segs = counts.shape[1]
             used = counts.any(0) * torch.arange(1, n_segs + 1,
                                                 device=counts.device)
-            last, top = map(int, trace.to_host(
-                torch.stack([used.max(), counts.max().to(used.dtype)]),
-                "plan").numpy())
+            low, top = torch.aminmax(counts)
+            last, top, low = map(int, trace.to_host(
+                torch.stack([used.max(), top.to(used.dtype),
+                             low.to(used.dtype)]), "plan").numpy())
             ns_used = min(_round_up(max(last, 1), 4096), n_segs)
             return (dcomp.words, gaps[:, :ns_used].contiguous(),
-                    counts[:, :ns_used].contiguous(), _round_up(max(top, 1), 8))
+                    counts[:, :ns_used].contiguous(), _round_up(max(top, 1), 8),
+                    low >= 0)
 
     def _decode_group(self, words, gaps, counts, *, seg_bits: int,
-                      max_count: int, out_size: int) -> torch.Tensor:
+                      max_count: int, out_size: int,
+                      counts_in_range: bool) -> torch.Tensor:
         """(G, out_size) uint8 from G blocks' (words, gaps, counts), by the
         codec's method: the kernels, or the step decoder block by block."""
         with trace.span("gap.group"):
             if self.method == "pallas":
                 return decode_blocks(
                     words, gaps, counts, self.dec, spec=self.spec,
-                    seg_bits=seg_bits, max_count=max_count, out_size=out_size)
+                    seg_bits=seg_bits, max_count=max_count, out_size=out_size,
+                    counts_in_range=counts_in_range)
             return torch.stack([
                 step.decode_block(w, gp, c, self.dec, spec=self.spec,
                                   seg_bits=seg_bits, max_count=max_count,
@@ -214,11 +220,13 @@ class GapArrayCodec:
         """Decode a device-resident group; returns (G, block_bytes) uint8 on
         the device.  The payload and the output never leave it."""
         with trace.span("gap.decode", device=self.device):
-            words, gaps, counts, max_count = self.decode_device_plan(dcomp)
+            words, gaps, counts, max_count, in_range = self.decode_device_plan(
+                dcomp)
             return self._decode_group(words, gaps, counts,
                                       seg_bits=dcomp.seg_bits,
                                       max_count=max_count,
-                                      out_size=dcomp.block_bytes)
+                                      out_size=dcomp.block_bytes,
+                                      counts_in_range=in_range)
 
     def stage_host(self, dcomp: DeviceCompressed, comp: Compressed) -> None:
         """Append a device group's blocks to a host `Compressed` (exact,
@@ -272,9 +280,10 @@ class GapArrayCodec:
 
     # ------------------------------------------------------------------
     def decode_plan(self, comp: Compressed, idxs):
-        """(words, gaps, counts, max_count) that `decode` hands the kernels
-        for the host blocks `idxs`: each block's exact words and segments,
-        zero-padded to the group's longest, on the codec's device."""
+        """(words, gaps, counts, max_count, counts_in_range) that `decode`
+        hands the kernels for the host blocks `idxs`: each block's exact
+        words and segments, zero-padded to the group's longest, on the
+        codec's device (`decode_device_plan`)."""
         max_w = max(comp.block_words[i].size for i in idxs)
         max_s = max(comp.block_gaps[i].size for i in idxs)
         g = len(idxs)
@@ -287,7 +296,8 @@ class GapArrayCodec:
             counts[j, : comp.block_counts[i].size] = comp.block_counts[i]
         return (*(trace.to_device(x, self.device, "plan_host")
                   for x in (words.view(np.int32), gaps, counts)),
-                _round_up(max(int(counts.max(initial=0)), 1), 8))
+                _round_up(max(int(counts.max(initial=0)), 1), 8),
+                int(counts.min(initial=0)) >= 0)
 
     def decode(self, comp: Compressed) -> torch.Tensor:
         """Decode to a flat uint8 tensor on the codec's device, the full
@@ -301,11 +311,13 @@ class GapArrayCodec:
             if n % bb:
                 groups.append(([comp.n_blocks - 1], n % bb))
             for grp, out_size in groups:
-                words, gaps, counts, max_count = self.decode_plan(comp, grp)
+                words, gaps, counts, max_count, in_range = self.decode_plan(
+                    comp, grp)
                 lo = grp[0] * bb
                 out[lo : lo + len(grp) * out_size] = self._decode_group(
                     words, gaps, counts, seg_bits=comp.seg_bits,
-                    max_count=max_count, out_size=out_size).view(-1)
+                    max_count=max_count, out_size=out_size,
+                    counts_in_range=in_range).view(-1)
             return out
 
     def roundtrip_check(self, data) -> bool:

@@ -13,7 +13,8 @@ boundary and decodes data-parallel:
    subsequence's true entry state.  Counts are not carried through it:
    they are gathered afterwards and summed in int64.
 3. Decode: the entries and counts act as a gap array would, through
-   B1 + B2 (`ops/gap_decode_kernels.py`) at seg_bits=1024.
+   B1 placing its bytes (`ops/gap_decode_kernels.py::decode_blocks`) at
+   seg_bits=1024.
 
 The JAX package pads the subsequence count to a power of two, plans VMEM
 windows and falls back to a host mask compaction for sub-2-bit codes, all
@@ -71,7 +72,7 @@ def selfsync_decode_device(words: torch.Tensor, total_bits: int,
     the bytes as a uint8 tensor on the words' device.
 
     C2 -> scan -> per-subsequence counts -> one host sync of (total, max
-    count) -> B1 + B2."""
+    count) -> B1 placing its bytes."""
     dev = words.device
     if total_bits == 0:
         return torch.zeros(0, dtype=torch.uint8, device=dev)
@@ -89,10 +90,12 @@ def selfsync_decode_device(words: torch.Tensor, total_bits: int,
     counts = torch.gather(packed & 0xFFFF, 0, entry[None, :])[0]
     total, top = torch.stack([counts.sum(dtype=torch.int64),
                               counts.max().long()]).tolist()
+    # 16-bit fields of C2's records: no count is negative
     return decode_blocks(
         words.view(1, -1), entry.to(torch.int32).view(1, -1),
         counts.view(1, -1), dec, spec=spec, seg_bits=_SEG_BITS,
         max_count=_cdiv(max(top, 1), 8) * 8, out_size=total,
+        counts_in_range=True,
     ).view(-1)
 
 

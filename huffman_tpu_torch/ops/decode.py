@@ -14,7 +14,7 @@ of three methods:
 
 `decode_block` places the symbols with the scatter, cumsum and gather of
 the JAX package; `count_segments` is the counting pass of gap-only
-(Yamamoto) streams.  The CUDA path of the codecs is the B1 + B2 kernels
+(Yamamoto) streams.  The CUDA path of the codecs is B1 placing its bytes
 (`ops/gap_decode_kernels.py`, whose C1 wrapper is also named
 ``count_segments``); callers import each by its module.
 """

@@ -18,7 +18,17 @@ that of `ops/launch.py`: a CUDA tensor launches the kernel of
   ``i < count[s]``, ``off`` the exclusive prefix sum of the counts; a CUDA
   block places a run of `place_tile`'s R segments through a shared-memory
   buffer with 16-byte loads and stores.
-- `decode_blocks`: both, for G equal-size blocks in one launch each.
+- `gap_decode_bytes` (B1 in its placing form, B2 folded in): the walk of
+  `gap_decode_ranks`, each symbol through ``symtab`` and out to
+  ``out[off[s] + i]`` as `gap_place_bytes` places it, through the same
+  tile (each row's chunk at the output's phase mod 4, a warp's rows
+  stored in aligned 4-byte words, the last partial word of a chunk
+  carried into the next, bytes only at each row's two ends); no rank
+  matrix.  Where the caller has shown the counts in [0, max_count], the
+  kernel zeroes the output past the counts' total itself and the output
+  is never zero-filled first.
+- `decode_blocks`: G equal-size blocks through `gap_decode_bytes`, one
+  launch.
 - `count_segments` (C1): the symbols of each segment of a gap-only
   (Yamamoto) stream, the codewords that start before the next segment's
   entry; a CUDA thread advances several codewords a lookup in a count
@@ -35,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .launch import (
     check,
     counters,
@@ -55,6 +66,9 @@ __all__ = [
     "gap_decode_ranks_plain",
     "gap_place_bytes",
     "gap_place_bytes_plain",
+    "gap_decode_bytes",
+    "gap_decode_bytes_plain",
+    "ZERO_FILLS",
     "decode_blocks",
     "count_segments",
     "count_segments_plain",
@@ -69,8 +83,9 @@ RANK_ROWS = 128  # segments of a B1 block
 RANK_CHUNK = 64  # widest column chunk of B1's tile
 RANK_MAX_SMEM = 49152  # most dynamic shared memory of a B1 block
 # An H100 SM: shared memory and threads it holds; the runtime keeps 1 KB a
-# block, and B1's lim and bias take 256 B of static shared memory
-SM_SMEM, SM_THREADS, BLOCK_EXTRA_SMEM = 233472, 2048, 1280
+# block, and B1's lim and bias take 256 B of static shared memory, its
+# placing form's symtab 256 more
+SM_SMEM, SM_THREADS, BLOCK_EXTRA_SMEM = 233472, 2048, 1536
 # B1 stages its payload only where an SM still holds this many of its
 # threads: with fewer its walk's latency shows (on an H100 at the HTC1
 # cell's shape, 6, 5 and 4 blocks of 128 an SM took 1.10x, 1.20x and 1.40x
@@ -91,11 +106,13 @@ def stage_words(seg_bits: int) -> int:
 
 def ranks_tile(max_count: int, seg_bits: int) -> tuple[int, int, int, int]:
     """(rows per block R, column chunk C, staged pitch P, dynamic
-    shared-memory bytes) of B1.  Each row stages P words of its segment's
+    shared-memory bytes) of B1, in both its forms (`gap_decode_ranks`,
+    `gap_decode_bytes`).  Each row stages P words of its segment's
     payload (`stage_words` rounded up to odd, so that a warp at one offset
     of its rows reads 32 banks), and the ranks go out through a tile of R
     rows of C + 4 bytes, C a multiple of 8 (odd in words) no wider than the
-    row needs.  Where the staged rows would leave an SM fewer than
+    row needs (the placing form's chunk sits at a phase of up to 3 bytes in
+    its C + 4).  Where the staged rows would leave an SM fewer than
     SM_MIN_THREADS threads (seg_bits above 1024), P is 0: no word is staged
     and the walk reads device memory.  ``csrc/gap_decode.cu`` checks the
     same arithmetic."""
@@ -299,6 +316,75 @@ def gap_place_bytes(ranks, counts, offsets, symtab, *, n_out):
 
 
 # ----------------------------------------------------------------------
+# B1 + B2: segment symbols placed
+# ----------------------------------------------------------------------
+# decodes whose output was zero-filled before the placing, as the counts
+# were not shown in [0, max_count] (`gap_decode_bytes`)
+ZERO_FILLS = "gap.zero_fills"
+
+
+def gap_decode_bytes_plain(words, gaps, counts, offsets, lim, bias, symtab, *,
+                           seg_bits, max_count, min_len, max_len, n_out):
+    ranks = gap_decode_ranks_plain(words, gaps, counts, lim, bias,
+                                   seg_bits=seg_bits, max_count=max_count,
+                                   min_len=min_len, max_len=max_len)
+    return gap_place_bytes_plain(ranks, counts.reshape(-1), offsets, symtab,
+                                 n_out=n_out)
+
+
+def gap_decode_bytes(words, gaps, counts, offsets, lim, bias, symtab, *,
+                     seg_bits, max_count, min_len, max_len, n_out,
+                     counts_in_range=False):
+    """Decode every segment of G blocks and place its symbols: returns
+    (n_out,) uint8, ``gap_place_bytes(gap_decode_ranks(...), counts,
+    offsets, symtab)`` in one kernel, with no rank matrix.
+
+    words, gaps, counts, lim, bias as `gap_decode_ranks` (counts clamped
+    to [0, max_count]); offsets: (G * n_segs,) int64, symtab: (256,) int32
+    as `gap_place_bytes`.  Bytes no segment covers are zero; writes outside
+    [0, n_out) are dropped.  ``counts_in_range``: the caller has shown
+    every count in [0, max_count] and the offsets are their exclusive
+    prefix sum, so the segments tile [0, total) and the kernel zeroes
+    [total, n_out) itself; otherwise the output is zero-filled first, and
+    the call counted as `ZERO_FILLS`."""
+    check("words", words, torch.int32)
+    if words.dim() != 2 or gaps.dim() != 2 or gaps.shape[0] != words.shape[0]:
+        raise ValueError(f"words (G, W) and gaps/counts (G, n_segs) expected; "
+                         f"got {tuple(words.shape)} and {tuple(gaps.shape)}")
+    check("gaps", gaps, torch.int32)
+    check("counts", counts, torch.int32, gaps.shape)
+    check("offsets", offsets, torch.int64, (gaps.numel(),))
+    check("lim", lim, torch.int32, (32,))
+    check("bias", bias, torch.int32, (32,))
+    check("symtab", symtab, torch.int32, (256,))
+    same_device(words, gaps, counts, offsets, lim, bias, symtab)
+    if not 1 <= min_len <= max_len <= 16 or seg_bits <= 0 or max_count < 0:
+        raise ValueError(f"invalid decode shape: seg_bits={seg_bits}, "
+                         f"max_count={max_count}, lengths {min_len}..{max_len}")
+    if not counts_in_range:
+        trace.count(ZERO_FILLS)
+    kw = dict(seg_bits=seg_bits, max_count=max_count, min_len=min_len,
+              max_len=max_len, n_out=n_out)
+    if not use_kernel(words):
+        return gap_decode_bytes_plain(words, gaps, counts, offsets, lim, bias,
+                                      symtab, **kw)
+    n_all = gaps.numel()
+    if n_all == 0 or n_out == 0 or max_count == 0:
+        return torch.zeros(n_out, dtype=torch.uint8, device=words.device)
+    out = (torch.empty if counts_in_range else torch.zeros)(
+        n_out, dtype=torch.uint8, device=words.device)
+    tile_rows, chunk, pitch, smem = ranks_tile(max_count, seg_bits)
+    launch("gap_decode", "gap_decode_bytes_launch",
+           words.data_ptr(), gaps.data_ptr(), counts.data_ptr(),
+           offsets.data_ptr(), lim.data_ptr(), bias.data_ptr(),
+           symtab.data_ptr(), out.data_ptr(), n_all, gaps.shape[1],
+           words.shape[1], seg_bits, max_count, min_len, max_len, n_out,
+           int(counts_in_range), tile_rows, chunk, pitch, smem, like=words,
+           counted=gap_decode_bytes)
+    return out
+
+
+# ----------------------------------------------------------------------
 # C1: symbol counts of a gap-only stream
 # ----------------------------------------------------------------------
 # Window bits of C1's count table (``csrc/gap_decode.cu`` COUNT_TAB_BITS):
@@ -368,28 +454,31 @@ def count_segments(words, gaps, lim, *, seg_bits, total_bits, min_len,
 # Orchestration
 # ----------------------------------------------------------------------
 def decode_blocks(words, gaps, counts, dec: DeviceDecTable, *, spec: DecSpec,
-                  seg_bits: int, max_count: int, out_size: int):
+                  seg_bits: int, max_count: int, out_size: int,
+                  counts_in_range: bool = False):
     """Decode G independent equal-size blocks: returns (G, out_size) uint8.
 
     words: (G, W) int32 payload per block; gaps, counts: (G, n_segs)
     int32, each row's counts summing to out_size; max_count >= every
     count.  The blocks' segments form one flat stream, so the exclusive
-    prefix sum of all counts places block g at g * out_size."""
+    prefix sum of all counts places block g at g * out_size.
+    ``counts_in_range``: the caller has shown every count in [0,
+    max_count] (`gap_decode_bytes`)."""
     g_n, n_segs = gaps.shape
     if out_size == 0 or n_segs == 0:
         return torch.zeros((g_n, out_size), dtype=torch.uint8,
                            device=words.device)
     lim, bias = kernel_tabs(dec)
-    ranks = gap_decode_ranks(
-        words, gaps, counts, lim, bias, seg_bits=seg_bits,
-        max_count=max_count, min_len=spec.min_len, max_len=spec.max_len,
-    )
     flat = counts.reshape(-1)
     offsets = torch.cumsum(flat, 0, dtype=torch.int64) - flat
-    out = gap_place_bytes(ranks, flat, offsets, dec.symtab,
-                          n_out=g_n * out_size)
+    out = gap_decode_bytes(
+        words, gaps, counts, offsets, lim, bias, dec.symtab,
+        seg_bits=seg_bits, max_count=max_count, min_len=spec.min_len,
+        max_len=spec.max_len, n_out=g_n * out_size,
+        counts_in_range=counts_in_range,
+    )
     return out.view(g_n, out_size)
 
 
 reset_launch_counts, launch_counts = counters(
-    gap_decode_ranks, gap_place_bytes, count_segments)
+    gap_decode_ranks, gap_place_bytes, gap_decode_bytes, count_segments)

@@ -16,6 +16,8 @@ Counters are plain integers in one store, always on:
   or copies host memory to it, counted by `to_host` and `to_device`;
 - ``ils.sections``, ``ils.passes``: ILS sections kept and pack passes run;
 - ``histogram_bytes``: the bytes the ILS encode's histogram counted;
+- ``gap.zero_fills``: HTC1 decodes whose output was zero-filled before B1
+  placed its bytes, as their counts were not shown in range;
 - ``collectives.<op>``, ``collective_bytes``: each collective of
   `parallel/mesh.py` (``all_reduce``, ``all_gather``), and the bytes of
   its rank's input and output buffers; each is also a span ``coll.<op>``;

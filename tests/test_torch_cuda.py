@@ -414,6 +414,20 @@ def test_gap_decode_kernels_stay_inside_buffers(cuda):
         assert _equal(out, gd.gap_place_bytes_plain(ranks, flat, offs,
                                                     codec.dec.symtab,
                                                     n_out=1500))
+        # B1 placing its bytes: zero-filled first, as the counts are not in
+        # range; then the counts clamped, the output the kernel's alone
+        args = (lim, bias, codec.dec.symtab)
+        got = gd.gap_decode_bytes(words, gaps, counts, offs, *args,
+                                  n_out=1500, **kw)
+        assert _equal(got, out)
+        kept32 = kept.to(torch.int32).view(g, ns)
+        k_offs = torch.cumsum(kept, 0) - kept
+        n_out = int(kept.sum()) + 100
+        _poison(n_out, cuda)
+        got = gd.gap_decode_bytes(words, gaps, kept32, k_offs, *args,
+                                  n_out=n_out, counts_in_range=True, **kw)
+        assert _equal(got, gd.gap_decode_bytes_plain(
+            words, gaps, kept32, k_offs, *args, n_out=n_out, **kw))
     # B1 staged at 1024 bits and 8 bits, unstaged at 8192: gaps far outside
     # their segments, words cut short of the segments
     for seg_bits, mc in ((1024, 200), (8, 300), (8192, 64)):
@@ -426,6 +440,99 @@ def test_gap_decode_kernels_stay_inside_buffers(cuda):
                 gd.gap_decode_ranks(w, far, counts, lim, bias, **kw),
                 gd.gap_decode_ranks_plain(w, far, counts, lim, bias, **kw))
     torch.cuda.synchronize()
+
+
+def _poison(n, dev):
+    """Leave the caching allocator a freed block of n bytes of 0xAB, which
+    the next allocation of n bytes takes, so that an output byte that no
+    kernel writes shows."""
+    torch.full((n,), 0xAB, dtype=torch.uint8, device=dev)
+
+
+@pytest.mark.parametrize("kind,g,b,seg_bits", [
+    # the HTC1 cell's shape cut to 8 blocks of 1 MiB (r=0.1, seg_bits 1024)
+    ("0.1", 8, 1 << 20, 1024),
+    # the Yamamoto and self-sync shapes: one stream at 128 and 1024 bits
+    ("0.5", 1, 1 << 22, 128),
+    ("0.5", 1, 1 << 22, 1024),
+    # nothing staged; 1-bit codes, 128 chunks a row
+    ("0.5", 2, 1 << 20, 8192),
+    ("single", 2, 16384, 8192),
+])
+def test_decode_blocks_places_bytes_as_b1_then_b2(cuda, kind, g, b, seg_bits):
+    # decode_blocks runs B1 in its placing form: equal to B1 -> B2 on the
+    # card, to the plain versions and to the input, at max_count % 4 != 0,
+    # with n_out above the counts' total (the kernel zeroes the rest) and
+    # zero-filled first (counts not shown in range); a decode_device
+    # launches it once and neither B1's rank form nor B2
+    from huffman_tpu_torch import GapArrayCodec
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.utils import trace
+
+    data = _gap_data(kind, g * b)
+    codec = GapArrayCodec.fit(data, seg_bits=seg_bits, block_bytes=b,
+                              device=cuda)
+    blocks = torch.from_numpy(data.reshape(g, b).copy()).to(cuda)
+    dcomp = codec.encode_device(blocks)
+    words, gaps, counts, mc, in_range = codec.decode_device_plan(dcomp)
+    assert in_range
+    lim, bias = gd.kernel_tabs(codec.dec)
+    sym = codec.dec.symtab
+    flat = counts.reshape(-1)
+    offs = torch.cumsum(flat, 0, dtype=torch.int64) - flat
+    n = g * b
+    for mc_e in (mc, mc + 5):
+        kw = dict(seg_bits=seg_bits, max_count=mc_e,
+                  min_len=codec.spec.min_len, max_len=codec.spec.max_len)
+        ref = gd.gap_place_bytes(gd.gap_decode_ranks(
+            words, gaps, counts, lim, bias, **kw), flat, offs, sym, n_out=n)
+        assert torch.equal(ref, blocks.reshape(-1))
+        for n_out in (n, n + 1001):
+            want = torch.cat([ref, ref.new_zeros(n_out - n)])
+            for fit in (True, False):
+                _poison(n_out, cuda)
+                got = gd.gap_decode_bytes(words, gaps, counts, offs, lim,
+                                          bias, sym, n_out=n_out,
+                                          counts_in_range=fit, **kw)
+                assert torch.equal(got, want), (mc_e, n_out, fit)
+    assert torch.equal(want, gd.gap_decode_bytes_plain(
+        words, gaps, counts, offs, lim, bias, sym, n_out=n + 1001, **kw))
+    trace.drain()
+    gd.reset_launch_counts()
+    _poison(n, cuda)
+    assert torch.equal(codec.decode_device(dcomp), blocks)
+    launches = gd.launch_counts()
+    assert launches["gap_decode_bytes"] == 1
+    assert launches["gap_decode_ranks"] == launches["gap_place_bytes"] == 0
+    assert trace.drain()["counters"].get(gd.ZERO_FILLS, 0) == 0
+
+
+def test_gap_codec_decode_places_bytes_a_group(cuda):
+    # a host container of full blocks and a tail: one placing launch a
+    # group, no zero fill; counts not shown in range (a negative count in
+    # the tail's last segment of a hand-made container, which nothing
+    # follows) zero-fill the output first, and the bytes are the plain
+    # version's
+    from huffman_tpu_torch import GapArrayCodec, read_container, write_container
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.utils import trace
+
+    data = generate_redundant(5 * 16384 + 777, 0.1, seed=33)
+    codec = GapArrayCodec.fit(data, block_bytes=16384, device=cuda)
+    comp = read_container(write_container(codec.encode(data)))
+    trace.drain()
+    gd.reset_launch_counts()
+    assert np.array_equal(codec.decode(comp).cpu().numpy(), data)
+    assert gd.launch_counts()["gap_decode_bytes"] == 2
+    assert gd.launch_counts()["gap_place_bytes"] == 0
+    assert trace.drain()["counters"].get(gd.ZERO_FILLS, 0) == 0
+    comp.block_counts[-1] = comp.block_counts[-1].copy()
+    comp.block_counts[-1][-1] = -4
+    got = codec.decode(comp)
+    assert not np.array_equal(got.cpu().numpy(), data)
+    assert trace.drain()["counters"][gd.ZERO_FILLS] == 1
+    cpu = GapArrayCodec(codec.table, block_bytes=16384, device="cpu")
+    assert torch.equal(got.cpu(), cpu.decode(comp))
 
 
 @pytest.mark.parametrize("seg_bits", [128, 1024, 8192])
@@ -591,7 +698,10 @@ def test_foreign_decoders_match_cpu(cuda, kind, n):
     assert sk.launch_counts()["sync_transitions"] == 1
     seq = write_seq(data, table)
     assert np.array_equal(decode_seq(seq).cpu().numpy(), data)
-    assert gd.launch_counts()["gap_decode_ranks"] == 3
+    # B1 places the bytes itself: no rank matrix, no B2
+    assert gd.launch_counts()["gap_decode_bytes"] == 3
+    assert gd.launch_counts()["gap_decode_ranks"] == 0
+    assert gd.launch_counts()["gap_place_bytes"] == 0
 
 
 # ----------------------------------------------------------------------

@@ -366,3 +366,31 @@ def test_f16_counts_over_the_container_field_are_refused(seg_bits):
                            .encode(data))
     assert blob == jwrite(JCodec.fit(data, method="lut", **kw).encode(data))
     assert np.array_equal(pc.decode(read_container(blob)).numpy(), data)
+
+
+def test_decodes_zero_fill_only_where_counts_are_not_shown_in_range():
+    # both plans read the counts' least value: a valid group's output is
+    # never zero-filled before B1 places its bytes; a hand-made container
+    # with a negative count (in the tail's last segment, which nothing
+    # follows) is: its other segments' bytes are placed, the rest is zero
+    from huffman_tpu_torch.ops import gap_decode_kernels as gd
+    from huffman_tpu_torch.utils import trace
+
+    data = _data("0.5", 3 * 2048 + 777)
+    pc = GapArrayCodec.fit(data, block_bytes=2048, device="cpu")
+    comp = pc.encode(data)
+    plan = pc.decode_plan(comp, [0, 1, 2])
+    assert plan[4] is True
+    dplan = pc.decode_device_plan(pc.encode_device(data[:4096].reshape(2, 2048)))
+    assert dplan[4] is True and len(dplan) == 5
+    trace.drain()
+    assert np.array_equal(pc.decode(comp).numpy(), data)
+    assert gd.ZERO_FILLS not in trace.drain()["counters"]
+    comp.block_counts[-1] = comp.block_counts[-1].copy()
+    comp.block_counts[-1][-1] = -4
+    assert pc.decode_plan(comp, [3])[4] is False
+    got = pc.decode(comp).numpy()
+    assert trace.drain()["counters"][gd.ZERO_FILLS] == 1
+    last = int(np.asarray(comp.block_counts[-1][:-1]).sum())
+    assert np.array_equal(got[: 3 * 2048 + last], data[: 3 * 2048 + last])
+    assert not got[3 * 2048 + last :].any()

@@ -740,6 +740,23 @@ def test_ranks_tile_fits_shared_memory(seg_bits):
         assert (pitch > 0) == (seg_bits <= 1024)
 
 
+@pytest.mark.parametrize("seg_bits", [2 ** k for k in range(3, 11)])
+def test_ranks_tile_holds_eight_placing_blocks(seg_bits):
+    # the placing form (gap_decode_bytes) takes ranks_tile's tile and 256 B
+    # of static shared memory more (symtab): at every staged seg_bits and
+    # max_count an SM still holds 8 of its blocks of 128, and a row's chunk
+    # at a phase of up to 3 bytes fits its tile row of chunk + 4
+    static = 32 * 4 + 32 * 4 + 256  # lim, bias (32 words each), symtab
+    assert gd.BLOCK_EXTRA_SMEM >= 1024 + static
+    for max_count in range(1, gd.count_max(seg_bits, 1) + 9):
+        rows, chunk, pitch, smem = gd.ranks_tile(max_count, seg_bits)
+        assert pitch > 0
+        blocks = min(gd.SM_THREADS // rows,
+                     gd.SM_SMEM // (smem + gd.BLOCK_EXTRA_SMEM))
+        assert blocks >= 8 and rows * blocks >= gd.SM_MIN_THREADS
+        assert 3 + chunk <= chunk + 4 and chunk % 8 == 0
+
+
 # ----------------------------------------------------------------------
 # B1: a NumPy model of csrc/gap_decode.cu's staged walk
 # ----------------------------------------------------------------------
@@ -834,6 +851,94 @@ def _b1_model(words, gaps, counts, lim, bias, *, seg_bits, max_count,
     return ranks, reads, top
 
 
+_UNSET = 0x1AB  # an output byte no store reached (not a byte value)
+
+
+def _b1_place_model(words, gaps, counts, offsets, lim, bias, symtab, *,
+                    seg_bits, max_count, min_len, max_len, n_out, zero_tail):
+    """gap_decode_bytes_kernel: the walk of `_b1_model`, each rank through
+    symtab into a tile row of chunk + 4 bytes at the output's phase, then
+    each warp's rows stored as `place_warp_rows` stores them (the words
+    wholly inside a row's bytes through the lane walk of `place_words`,
+    4-byte stores at aligned addresses where the run lies in the output;
+    a row's head and tail words byte by byte; the last partial word of a
+    row that goes on carried into the next chunk's word 0), then, where
+    zero_tail, [total, n_out) zeroed.  Returns (out, writes): out as
+    int64, _UNSET where no store reached a byte (where the caller has not
+    zero-filled it), and the stores each byte took."""
+    ranks, _, _ = _b1_model(words, gaps, counts, lim, bias, seg_bits=seg_bits,
+                            max_count=max_count, min_len=min_len,
+                            max_len=max_len)
+    total = ranks.shape[0]
+    _, chunk, _, _ = gd.ranks_tile(max_count, seg_bits)
+    pw = (chunk + 4) // 4
+    assert pw % 2 == 1
+    n_pad = -(-total // 32) * 32
+    n = np.zeros(n_pad, np.int64)
+    n[:total] = np.clip(counts.reshape(-1).astype(np.int64), 0, max_count)
+    off = np.zeros(n_pad, np.int64)
+    off[:total] = np.asarray(offsets, np.int64)
+    ph = off & 3
+    sym = np.asarray(symtab).astype(np.int64) & 255
+    out = np.full(n_out, _UNSET if zero_tail else 0, np.int64)
+    writes = np.zeros(n_out, np.int64)
+
+    def put(dst, val, checked=True):
+        ok = (dst >= 0) & (dst < n_out) if checked else np.ones(dst.shape, bool)
+        assert (val[ok] >= 0).all()  # only bytes the walk wrote go out
+        out[dst[ok]] = val[ok]
+        np.add.at(writes, dst[ok], 1)
+
+    tile = np.full((n_pad, 4 * pw), -1, np.int64)
+    rows = np.arange(n_pad)
+    for lo in range(0, max_count, chunk):
+        width = min(chunk, max_count - lo)
+        m = np.clip(n - lo, 0, width)
+        for i in range(width):
+            on = np.flatnonzero(i < m)
+            tile[on, ph[on] + i] = sym[ranks[on, lo + i]]
+        a = off + lo - ph  # the output byte of a row's byte 0
+        assert not (a % 4).any()
+        v0 = ph if lo == 0 else np.zeros_like(ph)
+        e = ph + m
+        ends = (m > 0) & (lo + m == n)
+        miss = (e <= v0) | (a + e <= 0) | (a + v0 >= n_out)
+        inside = (a + v0 >= 0) & (a + e <= n_out)
+        w0 = (v0 + 3) >> 2
+        w1 = np.where(miss, w0, e >> 2)
+        for r0 in range(0, n_pad, 32):
+            span = int(w1[r0 : r0 + 32].max())
+            if not span:
+                continue
+            x = np.arange(32 * span)  # lane x % 32 takes item x at x // 32
+            r, j = r0 + x // span, x % span
+            st = (j >= w0[r]) & (j < w1[r])
+            r, j = r[st], j[st]
+            d = a[r] + 4 * j
+            whole = inside[r]
+            assert (d[whole] % 4 == 0).all()
+            for k in range(4):
+                put(d + k, tile[r, 4 * j + k])
+        # the head and the tail, byte by byte
+        head = (v0 & 3 > 0) & (e > v0)
+        tail = ends & (e & 3 > 0) & (e > 4 * w0)
+        for b in range(4):
+            hb = head & (b >= v0) & (b < np.minimum(e, 4))
+            put(a[hb] + b, tile[hb, b])
+            tb = tail & (b < (e & 3))
+            put(a[tb] + (e[tb] & ~3) + b, tile[tb, (e[tb] & ~3) + b])
+        # a row that goes on carries its last partial word into word 0
+        go = (lo + width < n) & ((ph + width) & 3 > 0)
+        q = (ph + width) >> 2
+        tile[go, 0:4] = tile[np.c_[rows[go]], 4 * q[go, None] + np.arange(4)]
+    if zero_tail:
+        last = total - 1
+        end = max(off[last] + n[last], 0)
+        out[end:] = 0
+        writes[end:] += 1
+    return out, writes
+
+
 def _b1_banks(seg_bits):
     """Banks that the 32 rows of a warp read at the same offset j of their
     staged rows, for each j: (P, 32)."""
@@ -893,6 +998,72 @@ def test_b1_staged_model_matches_plain(kind, sizes, seg_bits):
     assert all(len(set(b)) == 32 for b in _b1_banks(seg_bits))
 
 
+def _b1_place_args(counts, shift=0):
+    """(flat counts, offsets): the exclusive prefix sum of the counts,
+    shifted by `shift`."""
+    flat = counts.reshape(-1).astype(np.int64)
+    return flat, np.cumsum(flat) - flat + shift
+
+
+def _b1_place_check(words, gaps, counts, offsets, lim, bias, symtab, kw,
+                    n_out, zero_tail):
+    """The placing model against gap_place_bytes_plain(
+    gap_decode_ranks_plain(...)) and the plain gap_decode_bytes: equal, and
+    every byte stored at most once (each once where zero_tail)."""
+    got, writes = _b1_place_model(words, gaps, counts, offsets, lim, bias,
+                                  symtab, n_out=n_out, zero_tail=zero_tail,
+                                  **kw)
+    args = (_t(words.view(np.int32)), _t(gaps), _t(counts))
+    offs = _t(offsets, np.int64)
+    ref = gd.gap_place_bytes_plain(
+        gd.gap_decode_ranks_plain(*args, lim, bias, **kw),
+        _t(counts.reshape(-1)), offs, symtab, n_out=n_out).numpy()
+    assert np.array_equal(got, ref)
+    assert np.array_equal(gd.gap_decode_bytes(
+        *args, offs, lim, bias, symtab, n_out=n_out,
+        counts_in_range=zero_tail, **kw).numpy(), ref)
+    assert writes.max(initial=0) <= 1
+    if zero_tail:
+        assert (writes == 1).all()
+    return got
+
+
+def _b1_symtab(pt):
+    return tt.device_dec_table(pt, device="cpu").symtab
+
+
+@pytest.mark.parametrize("kind,sizes,seg_bits", [
+    ("0.1", (1400, 1500, 900), 1024),
+    ("0.5", (700, 333, 801), 128),
+    ("0.9", (300, 200), 8),
+    ("uniform", (500, 257), 32),
+    ("0.3", (9000,), 512),
+    ("single", (3000,), 256),
+    ("0.5", (100,) * 9, 128),
+])
+def test_b1_place_model_matches_plain(kind, sizes, seg_bits):
+    # the placing form at the staged model's shapes: the offsets tile the
+    # output, so every byte is stored once by the kernel, at n_out equal
+    # to the counts' total (the blocks' bytes), above it (the kernel
+    # zeroes the rest) and below it (stores past n_out dropped); and,
+    # zero-filled first, with the offsets shifted before the output
+    parts = [_input(kind, m, 3 + i) for i, m in enumerate(sizes)]
+    _, pt = _tables(np.concatenate(parts))
+    words, gaps, counts = _b1_blocks(parts, pt, seg_bits)
+    (lim, bias), kw = _b1_kw(pt, seg_bits, -(-int(counts.max()) // 8) * 8)
+    sym = _b1_symtab(pt)
+    flat, offs = _b1_place_args(counts)
+    total = int(flat.sum())
+    got = _b1_place_check(words, gaps, counts, offs, lim, bias, sym, kw,
+                          total, True)
+    assert np.array_equal(got, np.concatenate(parts))
+    for n_out in (total + 37, total - 5):
+        _b1_place_check(words, gaps, counts, offs, lim, bias, sym, kw, n_out,
+                        True)
+    _b1_place_check(words, gaps, counts, offs - 13, lim, bias, sym, kw,
+                    total, False)
+
+
 def test_b1_staged_model_matches_jax():
     # two blocks through the model and the JAX kernel in interpret mode
     parts = [generate_redundant(m, 0.5, seed=9 + i)
@@ -937,6 +1108,33 @@ def test_b1_staged_model_exact_on_corrupt_metadata(seg_bits, max_count):
                                 _t(counts), lim, bias, **kw).numpy()
     assert np.array_equal(got, plain)
     assert reads.any()
+
+
+@pytest.mark.parametrize("seg_bits,max_count", [(128, 64), (1024, 37),
+                                                (8, 9), (4096, 40)])
+def test_b1_place_model_exact_on_corrupt_metadata(seg_bits, max_count):
+    # the placing form at the corrupt shapes: zero-filled first, offsets
+    # the prefix sum of the clamped counts shifted to start before the
+    # output (disjoint, some outside), n_out short of their end; then the
+    # counts clamped into [0, max_count] (the kernel fills the output
+    # itself) at n_out past their total
+    rng = np.random.default_rng(seg_bits)
+    _, pt = _tables(generate_redundant(4000, 0.5, seed=6))
+    g, ns = 3, 45
+    nw = max(ns * seg_bits // 32 // 2, 3)
+    words = rng.integers(0, 2**32, (g, nw), dtype=np.uint64).astype(np.uint32)
+    gaps = rng.integers(-3 * seg_bits, 3 * seg_bits, (g, ns)).astype(np.int32)
+    gaps[0, :10] = rng.integers(0, 16, 10)  # a few in their segment
+    counts = rng.integers(-5, max_count + 100, (g, ns)).astype(np.int32)
+    (lim, bias), kw = _b1_kw(pt, seg_bits, max_count)
+    sym = _b1_symtab(pt)
+    _, offs = _b1_place_args(np.clip(counts, 0, max_count), -50)
+    _b1_place_check(words, gaps, counts, offs, lim, bias, sym, kw,
+                    int(offs[-1]) - 7, False)
+    kept = np.clip(counts, 0, max_count).astype(np.int32)
+    flat, offs = _b1_place_args(kept)
+    _b1_place_check(words, gaps, kept, offs, lim, bias, sym, kw,
+                    int(flat.sum()) + 45, True)
 
 
 # ----------------------------------------------------------------------

@@ -213,7 +213,8 @@ def test_sync_helpers_count_what_crosses():
 WRAPPERS = {
     tk: ("ils_decode", "ils_pack_certify", "ils_compact", "ils_lengths_pass",
          "ils_pack", "ils_pack_certify_stream"),
-    gd: ("gap_decode_ranks", "gap_place_bytes", "count_segments"),
+    gd: ("gap_decode_ranks", "gap_place_bytes", "gap_decode_bytes",
+         "count_segments"),
     ge: ("gap_row_pack", "gap_row_meta", "gap_place_bits"),
     em: ("encode_map",),
     sk: ("sync_transitions",),

@@ -1,11 +1,21 @@
 #!/usr/bin/env python3
-"""A/B of the HTC1 rank decode B1 (`gap_decode_ranks`) on one GPU: an
-earlier `huffman_tpu_torch/csrc/gap_decode.cu` against this tree's, in one
-process, turns old, new, new, old.
+"""A/B of the HTC1 decode B1 on one GPU, in one process, turns old, new,
+new, old.  Two modes:
 
     mkdir -p build/parent
     git archive <commit> huffman_tpu_torch/csrc | tar -x -C build/parent
     python3 tools/ab_gap_decode.py build/parent/huffman_tpu_torch/csrc
+
+the rank form (`gap_decode_ranks`) of an earlier
+`huffman_tpu_torch/csrc/gap_decode.cu` against this tree's; and
+
+    python3 tools/ab_gap_decode.py --place
+
+the two-kernel decode (B1's rank form, the output's zero fill and B2,
+`gap_place_bytes`) against B1's placing form
+(`gap_decode_bytes`, the output not zero-filled where the plan shows the
+counts in range), each with the offsets' cumsum, through the wrappers as
+`decode_blocks` calls them; beside each shape the parts' own times.
 
 The old source is built with the flags of `ops/cuda_build.py` in a
 temporary directory and called in its own form: its launcher takes a
@@ -24,10 +34,12 @@ encoded on the card by `GapArrayCodec.encode_device` and trimmed by
   the self-sync path);
 - seg8192: one 64 MiB stream of r=0.5 at seg_bits 8192 (nothing staged).
 
-Outputs must be equal; each time is the mean of 10 calls between CUDA
-events (outputs allocated once, outside).  Prints the card's name and
-power limit, ptxas's registers and shared memory of both kernels, a line a
-shape and one JSON line.  Needs a CUDA card and nvcc.
+Outputs must be equal (in --place, to the input too); each time is the
+mean of 10 calls between CUDA events (in the rank mode the outputs are
+allocated once, outside; in --place each call allocates its own, as the
+decode does).  Prints the card's name and power limit, ptxas's registers
+and shared memory of the kernels, a line a shape and one JSON line.  Needs
+a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -103,13 +115,89 @@ def events_ms(fn, reps=10) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main(argv) -> int:
-    old, old_staged, old_ptxas = build_old(Path(argv[1]))
-    new = cuda_build.load_kernels()["gap_decode"].gap_decode_ranks_launch
-    card = subprocess.run(
+def card_line() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+def shape_plan(dev, g, b, r, seg_bits):
+    """A shape's codec and `decode_device_plan` of its encoded input."""
+    data = datagen.redundant(g * b, r, 1, 0, dev).view(g, b)
+    codec = GapArrayCodec.fit(data.view(-1), seg_bits=seg_bits,
+                              block_bytes=b, device=dev)
+    return codec, data, codec.decode_device_plan(codec.encode_device(data))
+
+
+def place_main() -> int:
+    """B1 + zero fill + B2 (old) against B1 placing its bytes (new)."""
+    card = card_line()
+    res = {k: v for k, v in cuda_build.kernel_resources().items()
+           if "gap_decode_" in k or "gap_place_bytes" in k}
+    print(card)
+    print(f"ptxas: {res}")
+    dev = torch.device("cuda")
+    results = {"card": card, "mode": "place", "ptxas": res}
+    for name, g, b, r, seg_bits in SHAPES:
+        codec, data, (words, gaps, counts, mc, in_range) = shape_plan(
+            dev, g, b, r, seg_bits)
+        lim, bias = gd.kernel_tabs(codec.dec)
+        sym, flat, n = codec.dec.symtab, counts.reshape(-1), g * b
+        kw = dict(seg_bits=seg_bits, max_count=mc, min_len=codec.spec.min_len,
+                  max_len=codec.spec.max_len)
+
+        def offsets():
+            return torch.cumsum(flat, 0, dtype=torch.int64) - flat
+
+        def old():
+            ranks = gd.gap_decode_ranks(words, gaps, counts, lim, bias, **kw)
+            return gd.gap_place_bytes(ranks, flat, offsets(), sym, n_out=n)
+
+        def new():
+            return gd.gap_decode_bytes(words, gaps, counts, offsets(), lim,
+                                       bias, sym, n_out=n,
+                                       counts_in_range=in_range, **kw)
+
+        if not (torch.equal(old(), data.view(-1))
+                and torch.equal(new(), data.view(-1))):
+            raise AssertionError(f"outputs differ: {name}")
+        del data
+        ms = [events_ms((old, new)[i]) for i in (0, 1, 1, 0)]
+        ranks, offs = gd.gap_decode_ranks(words, gaps, counts, lim, bias,
+                                          **kw), offsets()
+        parts = {
+            "cumsum": events_ms(offsets),
+            "b1_ranks": events_ms(lambda: gd.gap_decode_ranks(
+                words, gaps, counts, lim, bias, **kw)),
+            "zero_fill": events_ms(lambda: torch.zeros(
+                n, dtype=torch.uint8, device=dev)),
+            "b2_with_fill": events_ms(lambda: gd.gap_place_bytes(
+                ranks, flat, offs, sym, n_out=n)),
+            "b1_bytes": events_ms(lambda: gd.gap_decode_bytes(
+                words, gaps, counts, offs, lim, bias, sym, n_out=n,
+                counts_in_range=in_range, **kw)),
+        }
+        row = {"segments": flat.numel(), "max_count": mc, "seg_bits": seg_bits,
+               "symbols": n, "counts_in_range": in_range,
+               "rank_matrix_bytes": ranks.numel(),
+               "turns": ["old", "new", "new", "old"], "ms": ms,
+               "old_over_new": (ms[0] + ms[3]) / (ms[1] + ms[2]),
+               "parts_ms": parts}
+        results[name] = row
+        print(f"{name}: {row}", flush=True)
+        del words, gaps, counts, ranks, offs, codec
+        torch.cuda.empty_cache()
+    print(json.dumps(results))
+    return 0
+
+
+def main(argv) -> int:
+    if argv[1] == "--place":
+        return place_main()
+    old, old_staged, old_ptxas = build_old(Path(argv[1]))
+    new = cuda_build.load_kernels()["gap_decode"].gap_decode_ranks_launch
+    card = card_line()
     res = next((v for k, v in cuda_build.kernel_resources().items()
                 if "gap_decode_ranks_kernel" in k), {})
     print(card)
@@ -120,11 +208,8 @@ def main(argv) -> int:
     results = {"card": card, "old_staged": old_staged, "new_ptxas": res,
                "old_ptxas": old_ptxas}
     for name, g, b, r, seg_bits in SHAPES:
-        data = datagen.redundant(g * b, r, 1, 0, dev).view(g, b)
-        codec = GapArrayCodec.fit(data.view(-1), seg_bits=seg_bits,
-                                  block_bytes=b, device=dev)
-        words, gaps, counts, mc = codec.decode_device_plan(
-            codec.encode_device(data))
+        codec, data, (words, gaps, counts, mc, _) = shape_plan(
+            dev, g, b, r, seg_bits)
         del data
         lim, bias = gd.kernel_tabs(codec.dec)
         n_all, ns = counts.numel(), counts.shape[1]
